@@ -20,7 +20,19 @@ Phases, each printing its own line:
    read just after, then a profiler view of where a frame's time goes;
 6. the device time of each kernel, its plain version and its bound, at
    the shapes of phases 2 and 3 (after serving, so that no profiler has
-   run before the serving times are taken).
+   run before the serving times are taken);
+7. K3 (decoder conv) and K4 (its weight gradient) against their plain
+   versions at the six DenseFCN decoder shapes of a batch-4 480x640 step,
+   in bf16 and f32, and K2's backward bit for bit;
+8. training at full width (DenseFCNResNet152, ``Config`` defaults: bf16,
+   Adam, batch 4, 480x640) on batches that ``labels.make_sample`` makes on
+   the card from rendered frames: one f32 step (TF32 off) with the decoder
+   convs on K3/K4 against the cuDNN route, then ``Trainer.fit`` on each
+   route with a checkpoint, a validation, a restore and one served frame
+   from the restored weights, the launch counts of a step, and a profile;
+9. the device time of K3, K4 and K2's backward at the training shapes,
+   beside their plain versions, their bounds and the cuDNN (or PyTorch)
+   call for the same function.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -30,18 +42,21 @@ line; without a CUDA card it exits 1 at once. Weights are seeded random
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): non-tensor FP32
-# rate and HBM3 bandwidth.
+# rate, dense bf16 tensor-core rate and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # K1 operations per (voxel, point) pair: 3 sub, 3 mul, 2 add, 2 compare,
 # the and, the count add.
@@ -51,6 +66,13 @@ GRID_L = 128
 N_POINTS = 8192
 H, W = 480, 640
 DEVICE = "cuda"
+# The 3x3 decoder convs of DenseFCNResNet152 in a batch-4 480x640 step:
+# (name, H, W, C in, D out).
+TRAIN_BATCH = 4
+DECODER = [("conv_up5", 15, 20, 3072, 1024), ("conv_up4", 30, 40, 2048, 512),
+           ("conv_up3", 60, 80, 1024, 256), ("conv_up2", 120, 160, 512, 128),
+           ("conv_up1", 240, 320, 192, 64), ("conv7", 480, 640, 64, 32)]
+TRAIN_STEPS = 10
 
 
 def say(*parts):
@@ -64,7 +86,9 @@ def profile_ms(fn, reps, warmup=1):
     profiler on; device ms, the summed durations of the kernels and copies
     the calls ran, without the idle gaps between them; device ms by kernel
     name). Only the device's own events are summed: a CPU op's
-    ``self_device_time_total`` repeats the time of the kernels it launched.
+    ``self_device_time_total`` repeats the time of the kernels it launched,
+    and a user annotation on the device's timeline (the optimizer's
+    ``Optimizer.step#...`` span) covers kernels that are summed already.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -81,10 +105,29 @@ def profile_ms(fn, reps, warmup=1):
         wall_ms = (time.perf_counter() - t) * 1e3 / reps
     by_kernel = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
                                  + e.device_time_total / 1e3 / reps)
     return wall_ms, sum(by_kernel.values()), by_kernel
+
+
+def event_ms(fn, reps, warmup=2):
+    """Device ms of one call of ``fn`` from CUDA events around ``reps``
+    back-to-back calls. For calls that keep the card busy far longer than
+    the host takes to issue them (here 0.05 ms and up), the events time the
+    device work; microsecond kernels go through ``profile_ms`` instead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def card_line():
@@ -459,28 +502,418 @@ def phase_kernel_times(k1_stages, k2_input, vote_cuda, heads):
     return k1, k2
 
 
+def check_conv(mmconv, x, kern, what):
+    """K3 against its plain version: f32 within 1e-5 of the output's scale
+    (two f32 summation orders); bf16 within one bf16 ulp of the plain
+    value, plus that f32 term where a sum cancels to near zero. Returns
+    max |kernel - plain|."""
+    got = mmconv.conv_same_cuda(x, kern)
+    want = mmconv.conv_same_plain(x, kern)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    if x.dtype == torch.float32:
+        ok = float(err.max()) <= 1e-5 * scale
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * want.float().abs()
+        ok = bool((err <= ulp + 1e-5 * scale).all())
+    if not ok:
+        raise AssertionError(f"K3 {what}: max |diff| {float(err.max())} "
+                             f"(scale {scale})")
+    return float(err.max())
+
+
+def check_dk(mmconv, x, g, what):
+    """K4 within 1e-4 of dk's scale and bit-identical across two runs.
+    Returns max |kernel - plain|."""
+    got = mmconv.conv_same_dk_cuda(x, g, 3)
+    again = mmconv.conv_same_dk_cuda(x, g, 3)
+    want = mmconv.conv_same_dk_plain(x, g, 3)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > 1e-4 * float(want.abs().max()):
+        raise AssertionError(f"K4 {what}: max |diff| {err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K4 {what}: two runs differ")
+    return err
+
+
+def phase_conv_kernels(mmconv, heads):
+    """K3 and K4 at the decoder shapes in bf16 and f32, K2's backward at
+    the training shapes; returns the max errors by kernel name."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(7)
+    errs = {"conv_same": 0.0, "conv_same_dk": 0.0,
+            "heads_channel_major_bwd": 0.0}
+    for name, h, w, c, d in DECODER:
+        x = torch.randn(TRAIN_BATCH, h, w, c, device=dev, generator=g)
+        kern = torch.randn(3, 3, c, d, device=dev, generator=g) / (3 * c ** 0.5)
+        gy = torch.randn(TRAIN_BATCH, h, w, d, device=dev, generator=g)
+        line = []
+        for dtype in (torch.bfloat16, torch.float32):
+            xs, ks, gs = (t.to(dtype) for t in (x, kern, gy))
+            what = f"{name} {dtype}"
+            e3 = check_conv(mmconv, xs, ks, what)
+            e4 = check_dk(mmconv, xs, gs, what)
+            errs["conv_same"] = max(errs["conv_same"], e3)
+            errs["conv_same_dk"] = max(errs["conv_same_dk"], e4)
+            line.append(f"{str(dtype)[6:]} K3 {e3:.3g} K4 {e4:.3g}")
+        say(f"phase 7 {name} ({TRAIN_BATCH},{h},{w},{c})->{d}: max |kernel "
+            f"- plain| " + ", ".join(line) + "; K4 repeats bit for bit")
+        del x, kern, gy
+    for b in (1, TRAIN_BATCH):
+        for dtype, cl in ((torch.bfloat16, True), (torch.float32, False)):
+            ct = torch.randn(2, b, H, W, device=dev, generator=g)
+            got = heads.heads_channel_major_bwd_cuda(ct, dtype, cl)
+            want = heads.heads_channel_major_bwd_plain(ct, dtype, cl)
+            torch.cuda.synchronize()
+            if not (got.stride() == want.stride() and torch.equal(got, want)):
+                raise AssertionError(f"K2 backward ({b},2,{H},{W}) {dtype}: "
+                                     f"not bit-exact")
+            say(f"phase 7 K2 backward ({b},2,{H},{W}) {dtype} channels_last="
+                f"{cl}: bit-exact")
+    return errs
+
+
+def training_batches(labels, geometry, n, seed):
+    """``n`` batches of TRAIN_BATCH rendered frames, labelled on the card
+    by ``labels.make_sample`` (keypoint 0, radius clip 2 dm)."""
+    rng = np.random.default_rng(seed)
+    k = geometry.LINEMOD_K
+    out = []
+    for _ in range(n):
+        frames = [render_synthetic_frame(rng, k) for _ in range(TRAIN_BATCH)]
+        depth = torch.tensor(np.stack([f[2] for f in frames]), device=DEVICE)
+        pose = torch.tensor(np.stack([f[0] for f in frames]),
+                            dtype=torch.float32, device=DEVICE)
+        img = torch.randint(0, 256, (TRAIN_BATCH, H, W, 3), dtype=torch.uint8,
+                            device=DEVICE)
+        out.append(labels.make_sample(img, depth, depth > 0, pose,
+                                      frames[0][1][0], k, 2.0))
+    return out
+
+
+class Scalars:
+    """A writer that keeps the Trainer's scalars."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, value, step))
+
+
+def counts(counters):
+    return [f.launches for f in counters]
+
+
+def phase_training(config, train_mod, labels, geometry, checkpoint, infer,
+                   mmconv, heads):
+    """Full-width training on both routes; returns the kernel launches of
+    the kernel route's ``Trainer.fit`` run."""
+    cfg = config.Config()
+    assert (cfg.model, cfg.compute_dtype, cfg.optim, cfg.batch_size,
+            cfg.kpt_heads) == ("dense", "bfloat16", "adam", TRAIN_BATCH, 1)
+    t0 = time.perf_counter()
+    batches = training_batches(labels, geometry, 2, seed=3)
+    b0 = batches[0]
+    labelled = int((b0["radial"] != 0).sum())
+    say(f"phase 8 batches: {len(batches)} x {tuple(b0['image'].shape)} made "
+        f"on the card in {time.perf_counter() - t0:.1f} s; {labelled} "
+        f"labelled pixels in the first")
+
+    # f32 (TF32 off), batch 2: kernel route against the cuDNN route from the
+    # same seeded weights; lr 0 leaves the weights and keeps the grads
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", initial_lr=0.0)
+    small = {k: v[:2] for k, v in b0.items()}
+    res = {}
+    for ck in (True, False):
+        state = train_mod.create_state(cfg32, torch.Generator().manual_seed(0),
+                                       conv_kernel=ck)
+        state, m = train_mod.train_step(state, small)
+        res[ck] = (float(m["loss"]),
+                   {n: p.grad.detach().clone()
+                    for n, p in state.model.named_parameters()})
+        del state
+    (lk, gk), (lc, gc) = res[True], res[False]
+    # Each gradient within 1e-3 of its norm (relative L2). The loss is L1
+    # and the net has ReLUs: a last-bit difference in the forward flips
+    # the cotangent of the odd pixel that sits on a kink, which moves
+    # single gradient entries by more than 1e-3 of their max but not the
+    # norm; the max-abs measure is kept as a guard against local faults at
+    # 1e-2. In DenseFCN every conv bias but conv8's feeds a BN, so its true
+    # gradient is zero and both routes give rounding noise: those are held
+    # within 1e-4 of the model's largest gradient entry instead.
+    top_max = max(float(v.abs().max()) for v in gc.values())
+    worst_l2, worst_max, noise, names = 0.0, 0.0, 0.0, ["", ""]
+    for n, ref in gc.items():
+        d = gk[n] - ref
+        if n.endswith(".bias") and not n.startswith("conv8"):
+            noise = max(noise, float(d.abs().max()) / top_max)
+            continue
+        l2 = float(d.norm()) / float(ref.norm())
+        mx = float(d.abs().max()) / float(ref.abs().max())
+        if l2 > worst_l2:
+            worst_l2, names[0] = l2, n
+        if mx > worst_max:
+            worst_max, names[1] = mx, n
+    rel = abs(lk - lc) / abs(lc)
+    say(f"phase 8 f32 step, K3/K4 route vs cuDNN route (batch 2, TF32 off): "
+        f"loss {lk:.7g} vs {lc:.7g} (rel {rel:.2e}); worst gradient "
+        f"relative L2 {worst_l2:.2e} ({names[0]}), worst max |diff| "
+        f"{worst_max:.2e} of its max ({names[1]}); pre-BN conv biases "
+        f"within {noise:.2e} of the largest gradient entry")
+    if not (rel <= 1e-4 and worst_l2 <= 1e-3 and worst_max <= 1e-2
+            and noise <= 1e-4 and math.isfinite(lk)):
+        raise AssertionError("f32 kernel route disagrees with the cuDNN "
+                             "route")
+    del res, gk, gc
+
+    counters = (mmconv.conv_same_cuda, mmconv.conv_same_dk_cuda,
+                heads.heads_channel_major_cuda,
+                heads.heads_channel_major_bwd_cuda)
+    fit_cfg = dataclasses.replace(cfg, max_iterations=TRAIN_STEPS,
+                                  log_interval=1)
+    launches = None
+    for route, ck in (("K3/K4", True), ("cuDNN", False)):
+        state = train_mod.create_state(fit_cfg,
+                                       torch.Generator().manual_seed(0),
+                                       conv_kernel=ck)
+        times = []
+
+        def timed_step(st, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = train_mod.train_step(st, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        writer = Scalars()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters:
+            f.launches = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = checkpoint.Checkpointer(tmp)
+            trainer = train_mod.Trainer(
+                cfg=fit_cfg, state=state,
+                train_batches=lambda epoch: [batches[i % 2]
+                                             for i in range(TRAIN_STEPS)],
+                val_batches=lambda: [b0], checkpointer=ckpt, writer=writer,
+                steps=(timed_step, train_mod.eval_step))
+            t0 = time.perf_counter()
+            trainer.fit(max_epochs=1)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            fit_counts = counts(counters)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            losses = [v for t, v, _ in writer.scalars if t == "Train_sum"]
+            if len(losses) != TRAIN_STEPS or not all(map(math.isfinite,
+                                                          losses)):
+                raise AssertionError(f"{route}: losses {losses}")
+            ms = float(np.median(times[2:]))
+            say(f"phase 8 fit {route}: {TRAIN_STEPS} steps + 1 validation "
+                f"in {fit_s:.1f} s; ms/step {[round(t, 3) for t in times]} "
+                f"(median after 2 {ms:.3f}, {TRAIN_BATCH * 1e3 / ms:.2f} "
+                f"images/s); losses {[round(x, 4) for x in losses]}; val "
+                f"{trainer.best_val:.4f}; peak memory {peak:.2f} GiB; "
+                f"launches in fit K3 {fit_counts[0]} K4 {fit_counts[1]} "
+                f"K2 {fit_counts[2]} K2-bwd {fit_counts[3]}")
+            if ck:
+                launches = dict(zip(("conv_same", "conv_same_dk",
+                                     "heads_channel_major",
+                                     "heads_channel_major_bwd"), fit_counts))
+                restored = serve_restored(config, train_mod, checkpoint,
+                                          infer, ckpt, trainer, fit_cfg)
+                del restored
+
+        # the launches of one step and of one accumulated step
+        before = counts(counters)
+        trainer.state, _ = train_mod.train_step(trainer.state, b0)
+        per_step = [a - b for a, b in zip(counts(counters), before)]
+        before = counts(counters)
+        trainer.state, m2 = train_mod.make_accum_train_step(2)(trainer.state,
+                                                               b0)
+        torch.cuda.synchronize()
+        per_accum = [a - b for a, b in zip(counts(counters), before)]
+        want = [12, 6, 1, 1] if ck else [0, 0, 1, 1]
+        if per_step != want or per_accum != [2 * n for n in want] \
+                or not math.isfinite(float(m2["loss"])):
+            raise AssertionError(f"{route}: launches per step {per_step}, "
+                                 f"per 2-microbatch step {per_accum}")
+        wall, dev_ms, by_kernel = profile_ms(
+            lambda: train_mod.train_step(trainer.state, b0), reps=3)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        say(f"phase 8 {route}: launches per step K3 K4 K2 K2-bwd {per_step}, "
+            f"per accum_steps=2 step {per_accum}; profile: wall "
+            f"{wall:.3f} ms/step (profiler on), device busy {dev_ms:.3f} ms "
+            f"({dev_ms / wall:.1%}); top kernels ms: "
+            + "; ".join(f"{k[:48]} {v:.3f}" for k, v in top))
+        del trainer, state
+        torch.cuda.empty_cache()
+    return launches
+
+
+def serve_restored(config, train_mod, checkpoint, infer, ckpt, trainer, cfg):
+    """Restore the checkpoint into a freshly seeded state, check it equals
+    the trained one, and serve one frame from its weights (3-net mode)."""
+    fresh = train_mod.create_state(cfg, torch.Generator().manual_seed(1),
+                                   conv_kernel=True)
+    fresh, epoch, it, best = ckpt.restore(fresh)
+    trained = trainer.state.model.state_dict()
+    for k, v in fresh.model.state_dict().items():
+        if not torch.equal(v, trained[k]):
+            raise AssertionError(f"restore: {k} differs")
+    if (it, fresh.step) != (trainer.iteration, trainer.state.step):
+        raise AssertionError(f"restore: iteration {it}, step {fresh.step}")
+    cfg3 = config.Config(vote_grid_l=GRID_L)
+    rng = np.random.default_rng(5)
+    weights = {k: v.detach().cpu() for k, v in fresh.model.state_dict().items()}
+    est = infer.PoseEstimator(cfg3, [weights] * 3,
+                              rng.normal(size=(9, 3)) * 0.05, [2.0] * 3)
+    img = rng.integers(0, 256, size=(H, W, 3), dtype=np.uint8)
+    depth = np.zeros((H, W), np.float32)
+    depth[200:280, 280:360] = rng.uniform(600.0, 900.0, size=(80, 80))
+    for net in est.models:
+        calibrate_head(net, (img, depth), cfg3.sem_threshold, 2.0)
+    out = est.estimate(img, depth)
+    for key in ("rt", "centers"):
+        if not torch.isfinite(out[key]).all():
+            raise AssertionError(f"served frame: non-finite {key}")
+    say(f"phase 8 restore: epoch {epoch}, iteration {it}, best val "
+        f"{best:.4f}, weights equal to the trained ones; served one frame "
+        f"from them: counts {out['counts'].cpu().tolist()}")
+    del est
+    return fresh
+
+
+def phase_train_kernel_times(mmconv, heads):
+    """Device ms of K3 (forward and dx), K4 and K2's backward at the
+    training shapes, their plain versions, the PyTorch call for the same
+    function, and the bound. Returns per-kernel sums over one step. The
+    convs are timed with CUDA events (the profiler dropped events over
+    many short sessions), K2's backward with the profiler."""
+    import torch.nn.functional as F
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(9)
+    tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+           for n in ("conv_same", "conv_same_dk")}
+    bf = torch.bfloat16
+    for name, h, w, c, d in DECODER:
+        b = TRAIN_BATCH
+        x = torch.randn(b, h, w, c, device=dev, generator=g).to(bf)
+        kern = (torch.randn(3, 3, c, d, device=dev, generator=g)
+                / (3 * c ** 0.5)).to(bf)
+        gy = torch.randn(b, h, w, d, device=dev, generator=g).to(bf)
+        kt = mmconv.rot_transpose(kern)
+        flop = 2 * b * h * w * c * d * 9
+
+        def nchw(t):
+            return t.permute(0, 3, 1, 2)
+
+        def oihw(k):
+            return k.permute(3, 2, 0, 1).contiguous()
+
+        w_f, w_t = oihw(kern), oihw(kt)
+        cases = {
+            ("conv_same", "fwd"): (
+                lambda: mmconv.conv_same_cuda(x, kern),
+                lambda: mmconv.conv_same_plain(x, kern),
+                lambda: F.conv2d(nchw(x), w_f, padding=1),
+                (x.numel() + kern.numel() + b * h * w * d) * 2),
+            ("conv_same", "dx"): (
+                lambda: mmconv.conv_same_cuda(gy, kt),
+                lambda: mmconv.conv_same_plain(gy, kt),
+                lambda: F.conv2d(nchw(gy), w_t, padding=1),
+                (gy.numel() + kt.numel() + x.numel()) * 2),
+            ("conv_same_dk", "dk"): (
+                lambda: mmconv.conv_same_dk_cuda(x, gy, 3),
+                lambda: mmconv.conv_same_dk_plain(x, gy, 3),
+                lambda: torch.ops.aten.convolution_backward(
+                    nchw(gy), nchw(x), w_f, None, [1, 1], [1, 1], [1, 1],
+                    False, [0, 0], 1, [False, True, False]),
+                (x.numel() + gy.numel()) * 2 + kern.numel() * 4),
+        }
+        parts = []
+        for (kname, part), (kern_fn, plain_fn, lib_fn, nbytes) in \
+                cases.items():
+            ms = event_ms(kern_fn, reps=10)
+            plain_ms = event_ms(plain_fn, reps=3)
+            lib_ms = event_ms(lib_fn, reps=10)
+            bound = max(flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+            t = tot[kname]
+            t["ms"] += ms
+            t["plain_ms"] += plain_ms
+            t["library_ms"] += lib_ms
+            t["bound_ms"] += bound
+            parts.append(f"{part} kernel {ms:.4f} plain {plain_ms:.4f} "
+                         f"cuDNN {lib_ms:.4f} bound {bound:.4f}")
+        say(f"phase 9 {name} ({b},{h},{w},{c})->{d} bf16, {flop / 1e9:.1f} "
+            f"GFLOP each, device ms: " + "; ".join(parts))
+        del x, kern, gy, kt
+    ct = torch.randn(2, TRAIN_BATCH, H, W, device=dev, generator=g)
+    _, ms, _ = profile_ms(
+        lambda: heads.heads_channel_major_bwd_cuda(ct, bf, True), reps=50)
+    _, plain_ms, _ = profile_ms(
+        lambda: heads.heads_channel_major_bwd_plain(ct, bf, True), reps=50)
+    _, lib_ms, _ = profile_ms(
+        lambda: ct.permute(1, 0, 2, 3).to(bf, memory_format=torch.channels_last),
+        reps=50)
+    nbytes = ct.numel() * (4 + 2)
+    tot["heads_channel_major_bwd"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+    say(f"phase 9 K2 backward ({TRAIN_BATCH},2,{H},{W}) f32 -> bf16 "
+        f"channels-last: device ms kernel {ms:.4f}, plain {plain_ms:.4f}, "
+        f"library {lib_ms:.4f}, bound "
+        f"{tot['heads_channel_major_bwd']['bound_ms']:.5f} ({nbytes} bytes)")
+    for n in ("conv_same", "conv_same_dk"):
+        t = tot[n]
+        say(f"phase 9 {n} per step: device ms kernel {t['ms']:.3f}, plain "
+            f"{t['plain_ms']:.3f}, cuDNN {t['library_ms']:.3f}, bound "
+            f"{t['bound_ms']:.3f}")
+    return tot
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs the card",
               file=sys.stderr)
         return 1
-    from rcvpose_tpu_torch import config, geometry, infer
+    from rcvpose_tpu_torch import checkpoint, config, geometry, infer, labels
     from rcvpose_tpu_torch import train as train_mod
     from rcvpose_tpu_torch.models import fcnresnet as fcn
-    from rcvpose_tpu_torch.ops import heads, vote_cuda, voting
+    from rcvpose_tpu_torch.ops import heads, mmconv, vote_cuda, voting
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    phase_build()
-    k1_stages = phase_vote(voting, vote_cuda)
-    k2_input, k2_err = phase_heads(heads)
-    phase_frame(infer, geometry)
-    launches = phase_serving(infer, train_mod, fcn, voting, config,
-                             vote_cuda, heads)
-    k1, k2 = phase_kernel_times(k1_stages, k2_input, vote_cuda, heads)
+    seconds = {}
+
+    def run(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        say(f"phase {phase} took {seconds[phase]} s")
+        return out
+
+    run(1, phase_build)
+    k1_stages = run(2, phase_vote, voting, vote_cuda)
+    k2_input, k2_err = run(3, phase_heads, heads)
+    run(4, phase_frame, infer, geometry)
+    launches = run(5, phase_serving, infer, train_mod, fcn, voting, config,
+                   vote_cuda, heads)
+    k1, k2 = run(6, phase_kernel_times, k1_stages, k2_input, vote_cuda,
+                 heads)
+    errs = run(7, phase_conv_kernels, mmconv, heads)
+    train_launches = run(8, phase_training, config, train_mod, labels,
+                         geometry, checkpoint, infer, mmconv, heads)
+    times = run(9, phase_train_kernel_times, mmconv, heads)
+    say(f"phase seconds {seconds}, total {sum(seconds.values()):.1f}")
 
     main_path = ("coarse", "refine")
     kernels = [
@@ -501,7 +934,23 @@ def main():
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": k2["library_ms"]},
     ]
+    new = (("heads_channel_major_bwd", "rcvpose_tpu_torch/csrc/heads.cu",
+            "rcvpose_tpu/ops/layout.py:53", "bytes"),
+           ("conv_same", "rcvpose_tpu_torch/csrc/mmconv.cu",
+            "rcvpose_tpu/ops/mmconv_pallas.py:215", "operations"),
+           ("conv_same_dk", "rcvpose_tpu_torch/csrc/mmconv.cu",
+            "rcvpose_tpu/ops/mmconv_pallas.py:261", "operations"))
+    for name, source, replaces, bound_by in new:
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": train_launches[name],
+                        "max_abs_err": errs[name], "bound_by": bound_by,
+                        **times[name]})
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} never launched on its path")
     say(json.dumps({"kernels": kernels}))
+    say(card_line())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,7 @@
-"""The weight bridge: JAX-package variables -> the port's state dict.
+"""Training checkpoints and the weight bridge.
+
+``Checkpointer`` writes reference-layout ``ckpt.pth.tar`` and
+``model_best.pth.tar`` files and restores them into a ``TrainState``.
 
 ``from_flax_variables`` takes the ``{"params", "batch_stats"}`` tree of the
 JAX package's Flax models as nested dicts of numpy arrays and returns a
@@ -10,6 +13,7 @@ the port's own copy of the JAX package's ``_flax_path_to_torch_key``.
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -84,3 +88,56 @@ def from_flax_variables(variables):
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
             out[key] = torch.tensor(arr)
     return out
+
+
+class Checkpointer:
+    """The JAX package's ``Checkpointer`` interface over reference-layout
+    ``.pth.tar`` files (reference train.py:118-131): ``ckpt.pth.tar`` on
+    every save, ``model_best.pth.tar`` on a best one. The payload holds the
+    reference's ``model_state_dict``, ``epoch``, ``iteration`` and
+    ``arch``, plus ``optim_state_dict``, ``step`` and ``best_val``. Writes
+    are synchronous: each goes to a temporary file that then replaces the
+    target, so no reader ever sees half a file."""
+
+    CKPT = "ckpt.pth.tar"
+    BEST = "model_best.pth.tar"
+
+    def __init__(self, directory):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _write(self, payload, name):
+        path = os.path.join(self.directory, name)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+
+    def save(self, state, epoch, iteration, best_val, is_best=False):
+        payload = {
+            "model_state_dict": {k: v.detach().cpu() for k, v in
+                                 state.model.state_dict().items()},
+            "epoch": int(epoch),
+            "iteration": int(iteration),
+            "arch": type(state.model).__name__,
+            "optim_state_dict": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "best_val": float(best_val),
+        }
+        self._write(payload, self.CKPT)
+        if is_best:
+            self._write(payload, self.BEST)
+
+    def wait_until_finished(self):
+        """Nothing to wait for: writes are synchronous."""
+
+    def restore(self, state, best=False):
+        """Load the checkpoint into ``state`` (model, optimizer, step);
+        returns ``(state, epoch, iteration, best_val)``."""
+        path = os.path.join(self.directory, self.BEST if best else self.CKPT)
+        payload = torch.load(path, map_location=state.device,
+                             weights_only=True)
+        state.model.load_state_dict(payload["model_state_dict"])
+        state.optimizer.load_state_dict(payload["optim_state_dict"])
+        state.step = int(payload["step"])
+        return (state, int(payload["epoch"]), int(payload["iteration"]),
+                float(payload["best_val"]))

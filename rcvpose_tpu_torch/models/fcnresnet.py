@@ -12,7 +12,10 @@ Submodules carry the reference state-dict names (``conv1``, ``bn1``,
 ``conv8``, ``conv_up4_1``, ...), so reference checkpoints and the weight
 bridge (``checkpoint.from_flax_variables``) load directly. The JAX
 package's shifted-matmul ``MMConv`` layers are plain ``nn.Conv2d`` here
-(SAME padding ``k//2``, with a bias).
+(SAME padding ``k//2``, with a bias); with ``conv_kernel=True`` the 3x3
+ones (the decoder's ``conv_upN`` and ``conv7``) run on K3/K4
+(``ops/mmconv.py``), the counterpart of ``RCVPOSE_PALLAS_CONV=on``.
+Batch norm updates its running statistics as Flax's ``nn.BatchNorm`` does.
 
 Public layout as in the JAX package: NHWC images in, ``(B, H, W, K)`` f32
 seg and radial out. Inside, an NHWC input viewed as NCHW carries
@@ -28,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rcvpose_tpu_torch.ops import heads
+from rcvpose_tpu_torch.ops import heads, mmconv
 
 # ResNet-152 stage depths.
 RESNET152_BLOCKS = (3, 8, 36, 3)
@@ -43,8 +46,33 @@ def _scaled(c: int, width: float) -> int:
     return max(8, int(round(c * width)))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode forward updates the running
+    statistics as Flax's ``nn.BatchNorm`` does: with the *biased* batch
+    variance (torch's own layer takes the unbiased one). Normalization is
+    unchanged: batch statistics in train mode, running ones in eval mode.
+    Parameter and buffer names are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # momentum 1 makes the fused op write this batch's mean and
+        # unbiased variance into the scratch buffers, so the statistics
+        # come from the normalizing pass itself
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
 def _bn(c):
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class Bottleneck(nn.Module):
@@ -74,9 +102,29 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
-def _conv_bn_relu(cin, cout):
-    return nn.Sequential(nn.Conv2d(cin, cout, 3, padding=1), _bn(cout),
-                         nn.ReLU())
+class MMConv2d(nn.Conv2d):
+    """SAME stride-1 conv on K3/K4 (``ops.mmconv.MMConv2dFunction``), the
+    counterpart of the JAX package's ``MMConv`` under
+    ``RCVPOSE_PALLAS_CONV=on``. An ``nn.Conv2d`` subclass, so its
+    parameters keep their names and initialization. Under autocast, x and
+    the weight are cast to the autocast dtype here, outside the Function,
+    so the weight's gradient arrives in the parameter's dtype."""
+
+    def forward(self, x):
+        dev = x.device.type
+        dtype = (torch.get_autocast_dtype(dev)
+                 if torch.is_autocast_enabled(dev) else x.dtype)
+        xh = x.to(dtype).permute(0, 2, 3, 1)          # NHWC view
+        kernel = self.weight.to(dtype).permute(2, 3, 1, 0).contiguous()
+        out = mmconv.MMConv2dFunction.apply(xh.contiguous(), kernel)
+        out = out + self.bias.to(dtype)
+        return out.permute(0, 3, 1, 2)                 # channels-last NCHW
+
+
+def _conv_bn_relu(cin, cout, conv_kernel=False):
+    conv = (MMConv2d(cin, cout, 3, padding=1) if conv_kernel
+            else nn.Conv2d(cin, cout, 3, padding=1))
+    return nn.Sequential(conv, _bn(cout), nn.ReLU())
 
 
 def resize2x(x):
@@ -132,24 +180,26 @@ class DenseFCNResNet152(_Encoder):
     ``(seg, radial)``, each (B, H, W, K) f32 with K = output_channels // 2.
     ``fast_head`` runs conv7/conv8 before the last x2 upsample and
     upsamples the thin output instead (same parameters, not the reference
-    forward).
+    forward). ``conv_kernel`` runs the 3x3 decoder convs (``conv_up5`` ..
+    ``conv_up1``, ``conv7``) on K3/K4.
     """
 
     def __init__(self, input_channels=3, output_channels=2,
                  blocks: Sequence[int] = RESNET152_BLOCKS, width=1.0,
-                 fast_head=False):
+                 fast_head=False, conv_kernel=False):
         super().__init__(input_channels, blocks, width)
         w = lambda c: _scaled(c, width)  # noqa: E731
         st = self.stage_channels
+        ck = conv_kernel
         self.fast_head = fast_head
         self.conv6 = nn.Conv2d(4 * st[3], w(1024), 3, padding=1)
         self.bn6 = _bn(w(1024))
-        self.conv_up5 = _conv_bn_relu(w(1024) + 4 * st[3], w(1024))
-        self.conv_up4 = _conv_bn_relu(w(1024) + 4 * st[2], w(512))
-        self.conv_up3 = _conv_bn_relu(w(512) + 4 * st[1], w(256))
-        self.conv_up2 = _conv_bn_relu(w(256) + 4 * st[0], w(128))
-        self.conv_up1 = _conv_bn_relu(w(128) + w(64), w(64))
-        self.conv7 = _conv_bn_relu(w(64), w(32))
+        self.conv_up5 = _conv_bn_relu(w(1024) + 4 * st[3], w(1024), ck)
+        self.conv_up4 = _conv_bn_relu(w(1024) + 4 * st[2], w(512), ck)
+        self.conv_up3 = _conv_bn_relu(w(512) + 4 * st[1], w(256), ck)
+        self.conv_up2 = _conv_bn_relu(w(256) + 4 * st[0], w(128), ck)
+        self.conv_up1 = _conv_bn_relu(w(128) + w(64), w(64), ck)
+        self.conv7 = _conv_bn_relu(w(64), w(32), ck)
         self.conv8 = nn.Conv2d(w(32), output_channels, 1)
 
     def forward(self, x):
@@ -182,24 +232,27 @@ def _split_heads(out):
 class ResFCNResNet152(_Encoder):
     """Additive-skip decoder variant. The default ``double_up1=False`` is
     the reference forward (five x2 upsamples, H/32 -> H);
-    ``double_up1=True`` adds a sixth (2x-resolution output)."""
+    ``double_up1=True`` adds a sixth (2x-resolution output).
+    ``conv_kernel`` runs the 3x3 decoder convs (``conv_up4`` ..
+    ``conv_up1``, ``conv7``) on K3/K4."""
 
     def __init__(self, input_channels=3, output_channels=2,
                  double_up1=False, blocks: Sequence[int] = RESNET152_BLOCKS,
-                 width=1.0):
+                 width=1.0, conv_kernel=False):
         super().__init__(input_channels, blocks, width)
         w = lambda c: _scaled(c, width)  # noqa: E731
         st = self.stage_channels
+        ck = conv_kernel
         self.double_up1 = double_up1
         self.conv_up4_1 = nn.Conv2d(4 * st[2], w(2048), 1)
-        self.conv_up4 = _conv_bn_relu(w(2048), w(1024))
+        self.conv_up4 = _conv_bn_relu(w(2048), w(1024), ck)
         self.conv_up3_1 = nn.Conv2d(4 * st[1], w(1024), 1)
-        self.conv_up3 = _conv_bn_relu(w(1024), w(512))
+        self.conv_up3 = _conv_bn_relu(w(1024), w(512), ck)
         self.conv_up2_1 = nn.Conv2d(4 * st[0], w(512), 1)
-        self.conv_up2 = _conv_bn_relu(w(512), w(256))
+        self.conv_up2 = _conv_bn_relu(w(512), w(256), ck)
         self.conv_up1_1 = nn.Conv2d(w(64), w(256), 1)
-        self.conv_up1 = _conv_bn_relu(w(256), w(128))
-        self.conv7 = _conv_bn_relu(w(128), w(64))
+        self.conv_up1 = _conv_bn_relu(w(256), w(128), ck)
+        self.conv7 = _conv_bn_relu(w(128), w(64), ck)
         self.conv8 = nn.Conv2d(w(64), output_channels, 1)
 
     def forward(self, x):

@@ -1,9 +1,13 @@
-"""K2, the head-split kernel (``csrc/heads.cu``), and its plain version.
+"""K2, the head-split kernel (``csrc/heads.cu``), its backward, and their
+plain versions.
 
-Both turn conv8's ``(B, 2K, H, W)`` output (bf16 or f32, NCHW or
+The forward turns conv8's ``(B, 2K, H, W)`` output (bf16 or f32, NCHW or
 channels-last strides) into one contiguous f32 channel-major
-``(2K, B, H, W)`` buffer, bit for bit the same. ``heads_channel_major``
-dispatches: the kernel for CUDA tensors, the plain version for CPU tensors.
+``(2K, B, H, W)`` buffer; the backward turns the f32 ``(2K, B, H, W)``
+cotangent back into ``(B, 2K, H, W)`` in the input's dtype and strides.
+Kernel and plain version agree bit for bit in both directions.
+``heads_channel_major`` is differentiable and dispatches: the kernels for
+CUDA tensors, the plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,8 +19,18 @@ import torch
 from rcvpose_tpu_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+                 + [ctypes.c_void_p])
 _ENTRY = {torch.float32: "heads_channel_major_f32",
           torch.bfloat16: "heads_channel_major_bf16"}
+_BWD_ENTRY = {torch.float32: "heads_channel_major_bwd_f32",
+              torch.bfloat16: "heads_channel_major_bwd_bf16"}
+
+
+def _check_int32(t, what):
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    if max(t.numel(), last + 1) >= 2 ** 30:
+        raise ValueError(f"{what}: tensor too large for int32 indexing")
 
 
 def heads_channel_major_cuda(out):
@@ -29,10 +43,7 @@ def heads_channel_major_cuda(out):
     if out.dtype not in _ENTRY:
         raise TypeError(f"expected float32 or bfloat16, got {out.dtype}")
     b, c, h, w = out.shape
-    last = sum((n - 1) * st for n, st in zip(out.shape, out.stride()))
-    if max(out.numel(), last + 1) >= 2 ** 30:
-        raise ValueError("heads_channel_major_cuda: tensor too large for "
-                         "int32 indexing")
+    _check_int32(out, "heads_channel_major_cuda")
     res = torch.empty((c, b, h, w), dtype=torch.float32, device=out.device)
     if res.numel() == 0:
         return res
@@ -54,10 +65,87 @@ def heads_channel_major_plain(out):
     return out.float().permute(1, 0, 2, 3).contiguous()
 
 
-def heads_channel_major(out):
-    """Dispatch: K2 for a CUDA tensor, the plain version for a CPU one."""
-    if out.device.type == "cuda":
-        return heads_channel_major_cuda(out)
-    if out.device.type == "cpu":
+def _is_channels_last(t):
+    return (t.is_contiguous(memory_format=torch.channels_last)
+            and not t.is_contiguous())
+
+
+def _grad_buffer(g, dtype, channels_last):
+    """Empty ``(B, 2K, H, W)`` gradient buffer for the ``(2K, B, H, W)``
+    cotangent ``g``, in ``dtype``, NCHW or channels-last."""
+    c, b, h, w = g.shape
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    return torch.empty((b, c, h, w), dtype=dtype, device=g.device,
+                       memory_format=fmt)
+
+
+def heads_channel_major_bwd_cuda(g, dtype, channels_last=False):
+    """Launch K2's backward: the f32 ``(2K, B, H, W)`` cotangent ``g`` (any
+    strides) -> ``(B, 2K, H, W)`` in ``dtype``, NCHW or channels-last (the
+    forward input's dtype and layout).
+    ``heads_channel_major_bwd_cuda.launches`` counts the launches."""
+    if g.device.type != "cuda":
+        raise ValueError("heads_channel_major_bwd_cuda needs a CUDA tensor")
+    if g.dim() != 4 or g.dtype != torch.float32:
+        raise ValueError(f"expected an f32 (2K, B, H, W) cotangent, got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    if dtype not in _BWD_ENTRY:
+        raise TypeError(f"expected float32 or bfloat16, got {dtype}")
+    _check_int32(g, "heads_channel_major_bwd_cuda")
+    res = _grad_buffer(g, dtype, channels_last)
+    if res.numel() == 0:
+        return res
+    # (b, c, h, w) of the output <- (c, b, h, w) of g; dims ordered by the
+    # output's strides, outermost first (a stable sort keeps b, c, h, w
+    # order among ties)
+    g_strides = dict(zip("cbhw", g.stride()))
+    dims = sorted(zip("bchw", res.shape, res.stride()), key=lambda d: -d[2])
+    ints = ctypes.c_int * 4
+    sizes = ints(*(n for _, n, _ in dims))
+    gs = ints(*(g_strides[name] for name, _, _ in dims))
+    os_ = ints(*(st for _, _, st in dims))
+    fn = _build.function("heads", _BWD_ENTRY[dtype], _BWD_ARGTYPES)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), res.data_ptr(), sizes, gs, os_, stream)
+    _build.check(err, _BWD_ENTRY[dtype])
+    heads_channel_major_bwd_cuda.launches += 1
+    return res
+
+
+heads_channel_major_bwd_cuda.launches = 0
+
+
+def heads_channel_major_bwd_plain(g, dtype, channels_last=False):
+    """``g.permute(1, 0, 2, 3).to(dtype)``, NCHW or channels-last."""
+    res = _grad_buffer(g, dtype, channels_last)
+    res.copy_(g.permute(1, 0, 2, 3))
+    return res
+
+
+class _HeadsChannelMajor(torch.autograd.Function):
+    """K2 with its backward (the VJP of ``layout.py`` ``_pinned_identity``,
+    which the JAX package's training loss differentiates through)."""
+
+    @staticmethod
+    def forward(ctx, out):
+        ctx.dtype = out.dtype
+        ctx.channels_last = _is_channels_last(out)
+        if out.device.type == "cuda":
+            return heads_channel_major_cuda(out)
         return heads_channel_major_plain(out)
-    raise ValueError(f"unsupported device {out.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.device.type == "cuda":
+            return heads_channel_major_bwd_cuda(g, ctx.dtype,
+                                                ctx.channels_last)
+        return heads_channel_major_bwd_plain(g, ctx.dtype, ctx.channels_last)
+
+
+def heads_channel_major(out):
+    """Differentiable dispatch: K2 (and its backward) for a CUDA tensor, the
+    plain versions for a CPU one."""
+    if out.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {out.device}")
+    return _HeadsChannelMajor.apply(out)

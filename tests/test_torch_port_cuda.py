@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from rcvpose_tpu_torch.ops import heads, vote_cuda, voting
+from rcvpose_tpu_torch import config, train
+from rcvpose_tpu_torch.ops import heads, mmconv, vote_cuda, voting
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +85,126 @@ def test_heads_channel_major_cuda_matches_plain(cuda, dtype, channels_last):
     assert heads.heads_channel_major_cuda.launches == before + 1
     torch.testing.assert_close(got, heads.heads_channel_major_plain(x),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cotangent", ["contiguous", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_heads_bwd_cuda_matches_plain(cuda, dtype, channels_last, cotangent):
+    """K2's backward equals ``g.permute(1, 0, 2, 3).to(dtype)`` bit for bit,
+    in the requested layout, from contiguous and strided cotangents."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ct = torch.randn(6, 3, 37, 53, device=cuda, generator=g)
+    if cotangent == "strided":
+        ct = torch.randn(6, 3, 53, 37, device=cuda,
+                         generator=g).transpose(2, 3)
+    before = heads.heads_channel_major_bwd_cuda.launches
+    got = heads.heads_channel_major_bwd_cuda(ct, dtype, channels_last)
+    torch.cuda.synchronize()
+    assert heads.heads_channel_major_bwd_cuda.launches == before + 1
+    want = heads.heads_channel_major_bwd_plain(ct, dtype, channels_last)
+    assert got.dtype == dtype and got.stride() == want.stride()
+    assert torch.equal(got, want)
+    assert torch.equal(got.float(), ct.permute(1, 0, 2, 3).to(dtype).float())
+
+
+# (B, H, W, C, D, K): H, W and C off the tiles' multiples, wide channels
+# that take the 16-byte load path (C, D multiples of 8), K = 5, and a long
+# reduction (9 * 2048 products per output, as at conv_up4)
+CONV_SHAPES = [(2, 17, 23, 5, 7, 3), (1, 20, 16, 6, 3, 5),
+               (2, 9, 13, 130, 70, 3), (2, 15, 20, 136, 72, 3),
+               (1, 33, 47, 64, 32, 5), (2, 15, 20, 2048, 64, 3)]
+
+
+def _conv_problem(shape, dev, seed=0):
+    b, h, w, c, d, k = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, c, device=dev, generator=g)
+    kern = torch.randn(k, k, c, d, device=dev, generator=g) / (k * c ** 0.5)
+    gy = torch.randn(b, h, w, d, device=dev, generator=g)
+    return x, kern, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
+def test_conv_same_cuda_matches_plain(cuda, shape, dtype):
+    """K3 against its plain version on the card: f32 (TF32 off) within
+    1e-5 of the output's scale (two f32 summation orders); bf16 within one
+    bf16 ulp of the plain value, plus the f32 summation-order term where a
+    sum cancels to near zero."""
+    x, kern, _ = _conv_problem(shape, cuda)
+    x, kern = x.to(dtype), kern.to(dtype)
+    before = mmconv.conv_same_cuda.launches
+    got = mmconv.conv_same_cuda(x, kern)
+    torch.cuda.synchronize()
+    assert mmconv.conv_same_cuda.launches == before + 1
+    want = mmconv.conv_same_plain(x, kern)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * want.float().abs()
+        assert bool((err <= ulp + 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
+def test_conv_same_dk_cuda_matches_plain(cuda, shape, dtype):
+    """K4 within 1e-4 of dk's scale, and bit-identical from run to run (a
+    fixed-order two-pass reduction, no atomics)."""
+    x, _, gy = _conv_problem(shape, cuda)
+    x, gy = x.to(dtype), gy.to(dtype)
+    k = shape[-1]
+    got = mmconv.conv_same_dk_cuda(x, gy, k)
+    again = mmconv.conv_same_dk_cuda(x, gy, k)
+    torch.cuda.synchronize()
+    want = mmconv.conv_same_dk_plain(x, gy, k)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    assert torch.equal(got, again)
+
+
+def test_conv_same_dk_cuda_many_slices(cuda):
+    """A long pixel reduction split into many slices (conv7's shape class:
+    few channels, many pixels) still matches and repeats exactly."""
+    x, _, gy = _conv_problem((2, 96, 128, 16, 8, 3), cuda)
+    per, n = mmconv.dk_slices(2 * 96 * 128, 3, 16, 8)
+    assert n > 10
+    got = mmconv.conv_same_dk_cuda(x, gy, 3)
+    want = mmconv.conv_same_dk_plain(x, gy, 3)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    assert torch.equal(got, mmconv.conv_same_dk_cuda(x, gy, 3))
+
+
+@pytest.mark.parametrize("conv_kernel", [False, True])
+def test_train_forward_on_card_keeps_heads_differentiable(cuda, conv_kernel):
+    """A train-mode forward on the card leaves seg and radial attached to
+    the graph (K2 and its backward), and a bf16 step runs every kernel of
+    the route: K3 12 times, K4 6 times, K2 and its backward once."""
+    cfg = config.Config(image_height=64, image_width=64, initial_lr=1e-3)
+    state = train.create_state(cfg, torch.Generator().manual_seed(0),
+                               blocks=(1, 1, 1, 1), width=0.125,
+                               conv_kernel=conv_kernel)
+    x = torch.randn(2, 64, 64, 3, device=cuda)
+    state.model.train()
+    seg, radial = state.model(x)
+    assert seg.requires_grad and radial.requires_grad
+    radial = torch.zeros(2, 64, 64, device=cuda)
+    radial[:, 16:48, 16:48] = 1.5
+    batch = {"image": x, "radial": radial,
+             "sem": torch.where(radial > 0, 1.0, -1.0)}
+    counters = (mmconv.conv_same_cuda, mmconv.conv_same_dk_cuda,
+                heads.heads_channel_major_cuda,
+                heads.heads_channel_major_bwd_cuda)
+    before = [f.launches for f in counters]
+    state, m = train.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"]))
+    runs = [f.launches - b for f, b in zip(counters, before)]
+    assert runs == ([12, 6, 1, 1] if conv_kernel else [0, 0, 1, 1])
+    for p in state.model.parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32
