@@ -51,22 +51,30 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics as Flax's ``nn.BatchNorm`` does: with the *biased* batch
     variance (torch's own layer takes the unbiased one). Normalization is
     unchanged: batch statistics in train mode, running ones in eval mode.
-    Parameter and buffer names are ``nn.BatchNorm2d``'s."""
+    Parameter and persistent buffer names are ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # scratch for the batch statistics, outside the state dict
+        self.register_buffer("batch_mean", torch.zeros_like(self.running_mean),
+                             persistent=False)
+        self.register_buffer("batch_var", torch.zeros_like(self.running_var),
+                             persistent=False)
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        # momentum 1 makes the fused op write this batch's mean and
-        # unbiased variance into the scratch buffers, so the statistics
-        # come from the normalizing pass itself
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                         self.eps)
+        # momentum 1 makes the fused op overwrite the scratch buffers with
+        # this batch's mean and unbiased variance, so the statistics come
+        # from the normalizing pass itself
+        y = F.batch_norm(x, self.batch_mean, self.batch_var, self.weight,
+                         self.bias, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
+        m = self.momentum
         with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+            self.running_mean.lerp_(self.batch_mean, m)
+            self.running_var.mul_(1 - m).add_(self.batch_var,
+                                              alpha=m * (n - 1) / n)
             self.num_batches_tracked += 1
         return y
 

@@ -30,8 +30,9 @@ _DK_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # K4 splits its pixel reduction into slices so that enough blocks fill the
-# card (TARGET_BLOCKS) while the f32 partial sums stay under SCRATCH_BYTES.
-TARGET_BLOCKS = 132 * 8
+# card (BLOCKS_PER_SM on each multiprocessor) while the f32 partial sums
+# stay under SCRATCH_BYTES.
+BLOCKS_PER_SM = 8
 SCRATCH_BYTES = 256 << 20
 _SLICE_ALIGN = 32
 
@@ -140,12 +141,13 @@ def _check_dk_args(x, g, ks):
         raise ValueError(f"K must be odd and >= 3, got {ks}")
 
 
-def dk_slices(pixels, ks, c, d):
+def dk_slices(pixels, ks, c, d, sm_count):
     """(pixels per slice, slice count) of K4's split pixel reduction: enough
-    slices that the blocks fill the card, few enough that the f32 partial
-    sums stay under ``SCRATCH_BYTES``; one slice writes dk directly."""
+    slices that the blocks fill a card of ``sm_count`` multiprocessors, few
+    enough that the f32 partial sums stay under ``SCRATCH_BYTES``; one
+    slice writes dk directly."""
     tiles = -(-c // 64) * -(-d // 64) * ks * ks
-    want = max(1, -(-TARGET_BLOCKS // tiles))
+    want = max(1, -(-(sm_count * BLOCKS_PER_SM) // tiles))
     cap = max(1, SCRATCH_BYTES // (ks * ks * c * d * 4))
     most = max(1, -(-pixels // _SLICE_ALIGN))
     n = min(want, cap, most, 65535)
@@ -168,7 +170,8 @@ def conv_same_dk_cuda(x, g, ks):
         return dk
     if pixels == 0:
         return dk.zero_()
-    per, n = dk_slices(pixels, ks, c, d)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    per, n = dk_slices(pixels, ks, c, d, sms)
     part = (dk if n == 1 else
             torch.empty((n,) + tuple(dk.shape), dtype=torch.float32,
                         device=x.device))

@@ -171,7 +171,9 @@ def test_conv_same_dk_cuda_many_slices(cuda):
     """A long pixel reduction split into many slices (conv7's shape class:
     few channels, many pixels) still matches and repeats exactly."""
     x, _, gy = _conv_problem((2, 96, 128, 16, 8, 3), cuda)
-    per, n = mmconv.dk_slices(2 * 96 * 128, 3, 16, 8)
+    per, n = mmconv.dk_slices(
+        2 * 96 * 128, 3, 16, 8,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     assert n > 10
     got = mmconv.conv_same_dk_cuda(x, gy, 3)
     want = mmconv.conv_same_dk_plain(x, gy, 3)

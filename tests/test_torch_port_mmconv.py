@@ -128,14 +128,14 @@ def test_mmconv_function_gradcheck_f64(ks):
 def test_dk_slices_bound_the_scratch():
     """K4's split: every pixel in exactly one slice, slices 32-aligned, and
     the f32 partial sums within the scratch bound at the decoder's
-    full-width shapes (batch 4, 480x640)."""
+    full-width shapes (batch 4, 480x640) on a 132-multiprocessor card."""
     for pixels, c, d in [(4 * 15 * 20, 3072, 1024), (4 * 240 * 320, 192, 64),
                          (4 * 480 * 640, 64, 32), (37, 5, 7)]:
-        per, n = mmconv.dk_slices(pixels, 3, c, d)
+        per, n = mmconv.dk_slices(pixels, 3, c, d, 132)
         assert per % 32 == 0 and (n - 1) * per < pixels <= n * per
         assert n == 1 or n * 9 * c * d * 4 <= mmconv.SCRATCH_BYTES
     # conv_up5's 113 MB dk takes one slice, written in place
-    assert mmconv.dk_slices(4 * 15 * 20, 3, 3072, 1024)[1] == 1
+    assert mmconv.dk_slices(4 * 15 * 20, 3, 3072, 1024, 132)[1] == 1
 
 
 MODELS = {
