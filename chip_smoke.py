@@ -6,9 +6,9 @@ NVIDIA card.
 
 Phases, each printing its own line:
 
-1. build both kernels from ``rcvpose_tpu_torch/csrc`` with nvcc (into the
-   git-ignored ``rcvpose_tpu_torch/_build``) and print the card's name and
-   power limit;
+1. build the kernels from ``rcvpose_tpu_torch/csrc`` with nvcc (into the
+   git-ignored ``rcvpose_tpu_torch/_build``), print the card's name and
+   power limit and whether PIL imports;
 2. K1 (vote counts) against its plain version at the serving shapes, exact
    equality;
 3. K2 (head split) against its plain version, bit for bit;
@@ -33,7 +33,23 @@ Phases, each printing its own line:
    from the restored weights, the launch counts of a step, and a profile;
 9. the device time of K3, K4 and K2's backward at the training shapes,
    beside their plain versions, their bounds and the cuDNN (or PyTorch)
-   call for the same function.
+   call for the same function;
+10. K5 (matmul-form votes), K6 (bf16 votes, f32 and bf16 compare) and
+    every K1 tile against their plain versions, exactly, at the hier
+    stages' shapes of serving (grid 128) and of the LM evaluator (grid
+    192) on the synthetic frame of phase 4; K5 against K1 within the
+    matmul form's band-edge rounding; then their paths, with the counts
+    set to 0 just before: ``voting.vote_counts(mxu=True)`` over those
+    stages and the ``rcvpose_tpu_torch.scripts`` entry points
+    ``prof_vote_tiles`` and ``prof_vote_bf16``;
+11. the LINEMOD evaluator ``eval.estimate_6d_pose_lm`` at full width
+    (DenseFCNResNet152, bf16, 480x640, grid 192, 8192 points, topk 64,
+    30 ICP iterations) on a rendered LINEMOD-layout tree: 3-net
+    ``.pth.tar`` checkpoints with calibrated heads (K2 and K1 counted) and
+    the precomputed-map route, which must score ADD 1.0 before and after
+    ICP; then the ICP's device time;
+12. the device time of K5, K6 and K1 at the sweep's best tile at the
+    phase-10 shapes, beside their plain versions and bounds.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -193,6 +209,12 @@ def phase_build():
     say(f"phase 1 build: {sorted(_build.SOURCES)} built in {secs:.2f} s "
         f"({len(logs)} compiled now)")
     say(card_line())
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} imports"
+    except ImportError as exc:
+        PIL, pil = None, f"PIL does not import ({exc})"
+    say(f"phase 1 {pil}")
 
 
 def phase_vote(voting, vote_cuda):
@@ -937,12 +959,400 @@ def phase_train_kernel_times(mmconv, heads):
     return tot
 
 
+# The hier stages' shapes (3 keypoints a launch): serving at grid 128 with
+# topk 32 and the LM evaluator at grid 192 with topk 64.
+HIER_CONFIGS = (("serving", 128, 32), ("lm", 192, 64))
+# Operations per (voxel, point) pair of K5 (3 mul, 4 add, 2 compare, the
+# and, the count add) and bf16 operations per pair of K6 (3 sub, 3 mul,
+# 2 add, in bf162 pair forms at twice the FP32 rate).
+OPS_PER_PAIR_MXU = 11
+OPS_PER_PAIR_BF16 = 8
+PEAK_BF16_PAIR_FLOPS = 2 * PEAK_FP32_FLOPS
+LM_FRAMES = 4
+
+
+def hier_stages(voting, vote_cuda, geometry, frame, grid_l, topk):
+    """The coarse and refine stage inputs of the hier accumulator for the
+    three keypoints of a rendered frame, at ``grid_l`` with ``topk``
+    refine windows (the refine windows from K1's coarse counts)."""
+    dev = torch.device(DEVICE)
+    _, _, depth_mm, radials = frame
+    depth = torch.tensor(depth_mm, device=dev)
+    xyz, valid = geometry.backproject_dense(depth, geometry.LINEMOD_K)
+    order, mask = geometry.pack_valid_indices(valid.reshape(-1), N_POINTS)
+    pts_m = (xyz.reshape(-1, 3)[order] / 1000.0).expand(3, -1, -1)
+    rad = torch.tensor(radials, device=dev).reshape(3, -1)[:, order]
+    mask3 = mask[None] & (rad > 0)
+    pts, rr, _, _, _ = voting._prepare(pts_m, rad, mask3)
+    co = voting._COARSE
+    lc = grid_l // co
+    coarse = (voting.enumerate_grid(lc, dev) + 0.5) * co - 0.5
+    slack = voting.VOTE_BAND + math.sqrt(3.0) * co / 2.0
+    lo_c, hi_c = voting.widened_band(rr, mask3, slack)
+    s = voting._CPT_STRIDE
+    stages = {"coarse": (coarse, pts[:, ::s].contiguous(),
+                         lo_c[:, ::s].contiguous(), hi_c[:, ::s].contiguous())}
+    top = voting._top_indices(vote_cuda.vote_counts_cuda(*stages["coarse"]),
+                              topk)
+    win = voting._WIN
+    bases = torch.clamp(voting._unravel3(top, lc) * co - (win - co) // 2, 0,
+                        grid_l - win)
+    win_vox = (bases[:, :, None, :]
+               + voting.enumerate_grid(win, dev)[None, None]).reshape(3, -1, 3)
+    lo_f, hi_f = voting.exact_band(rr, mask3)
+    stages["refine"] = (win_vox, pts, lo_f, hi_f)
+    return stages
+
+
+def near_edge_counts(vox, pts, lo, hi):
+    """Per voxel, the pairs whose f64 d2 lies within the matmul form's
+    rounding, 4 * 2^-24 * (|v|^2 + |p|^2), of lo or hi (on the card, in
+    f64, chunked over the points)."""
+    b = pts.shape[0]
+    v = (vox.expand(b, -1, -1) if vox.dim() == 2 else vox).double()
+    p, l, h = pts.double(), lo.double(), hi.double()
+    v2 = (v * v).sum(-1)[:, :, None]
+    out = torch.zeros(v.shape[:2], dtype=torch.int64, device=vox.device)
+    chunk = max(1, (1 << 22) // v.shape[1])
+    for c0 in range(0, p.shape[1], chunk):
+        pc = p[:, None, c0:c0 + chunk]
+        d2 = ((v[:, :, None] - pc) ** 2).sum(-1)
+        tol = 4 * 2.0 ** -24 * (v2 + (pc * pc).sum(-1))
+        lc, hc = l[:, None, c0:c0 + chunk], h[:, None, c0:c0 + chunk]
+        near = ((d2 - lc).abs() <= tol) | ((d2 - hc).abs() <= tol)
+        out += (near & (hc > 0)).sum(-1)
+    return out
+
+
+def phase_vote_variants(voting, vote_cuda, geometry):
+    """K5, K6 (both compares) and every K1 tile against their plain versions
+    at the hier stages' shapes of serving and of the LM evaluator; K5
+    against K1 within the matmul form's band-edge rounding; then the paths
+    that run them: ``voting.vote_counts(mxu=True)`` over those stages and
+    the two ``rcvpose_tpu_torch.scripts`` entry points, with the counts
+    set to 0 just before. Returns (stages, max errors, path launches,
+    script results)."""
+    from rcvpose_tpu_torch.scripts import prof_vote_bf16, prof_vote_tiles
+
+    frame = render_synthetic_frame(np.random.default_rng(0),
+                                   geometry.LINEMOD_K)
+    stages = {}
+    for cfg_name, grid_l, topk in HIER_CONFIGS:
+        for stage, args in hier_stages(voting, vote_cuda, geometry, frame,
+                                       grid_l, topk).items():
+            stages[f"{cfg_name} {stage}"] = args
+    errs = {"vote_counts_mxu": 0.0, "vote_counts_bf16": 0.0,
+            "vote_counts_tiled": 0.0}
+    for name, args in stages.items():
+        b, v, n = args[1].shape[0], args[0].shape[-2], args[1].shape[1]
+        k1 = vote_cuda.vote_counts_cuda(*args)
+        k1_plain = vote_cuda.vote_counts_plain(*args)
+        checks = {
+            "K1": (k1, k1_plain, "vote_counts_tiled"),
+            "K5": (vote_cuda.vote_counts_mxu_cuda(*args),
+                   vote_cuda.vote_counts_mxu_plain(*args), "vote_counts_mxu"),
+            "K6 f32": (vote_cuda.vote_counts_bf16_cuda(*args, "f32"),
+                       vote_cuda.vote_counts_bf16_plain(*args, "f32"),
+                       "vote_counts_bf16"),
+            "K6 bf16": (vote_cuda.vote_counts_bf16_cuda(*args, "bf16"),
+                        vote_cuda.vote_counts_bf16_plain(*args, "bf16"),
+                        "vote_counts_bf16")}
+        torch.cuda.synchronize()
+        for what, (got, want, key) in checks.items():
+            errs[key] = max(errs[key], float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what} {name}: counts differ from "
+                                     f"the plain version")
+        k5 = checks["K5"][0]
+        diff = (k5 - k1).abs()
+        near = near_edge_counts(*args)
+        if not bool((diff <= near).all()):
+            raise AssertionError(f"K5 {name}: differs from K1 beyond the "
+                                 f"band-edge pairs")
+        k6 = checks["K6 f32"][0]
+        rel = float(((k6 - k1).abs() / k1.clamp(min=1)).mean())
+        bad = []
+        for tile in vote_cuda.TILES:
+            got = vote_cuda.vote_counts_cuda(*args, tile=tile)
+            errs["vote_counts_tiled"] = max(
+                errs["vote_counts_tiled"], float((got - k1_plain).abs().max()))
+            if not torch.equal(got, k1_plain):
+                bad.append(tile)
+        if bad:
+            raise AssertionError(f"K1 {name}: tiles {bad} differ from the "
+                                 f"plain version")
+        say(f"phase 10 {name}: B={b} V={v} N={n}; K1, K5, K6 f32 and K6 "
+            f"bf16 equal their plain versions; K5 vs K1 "
+            f"{int((diff > 0).sum())} voxels differ (max "
+            f"{float(diff.max()):.0f} votes, within the {int(near.sum())} "
+            f"band-edge pairs); K6 f32 vs K1 count rel-err mean {rel:.4f}; "
+            f"all {len(vote_cuda.TILES)} K1 tiles equal the plain version")
+
+    torch.cuda.synchronize()
+    vote_cuda.vote_counts_mxu_cuda.launches = 0
+    vote_cuda.vote_counts_bf16_cuda.launches = 0
+    vote_cuda.vote_counts_cuda.tiled_launches = 0
+    for args in stages.values():
+        voting.vote_counts(*args, mxu=True)
+    scripts = {"tiles": prof_vote_tiles.main(
+                   printer=lambda line: say(f"phase 10 prof_vote_tiles: "
+                                            f"{line}")),
+               "bf16": prof_vote_bf16.main(
+                   printer=lambda line: say(f"phase 10 prof_vote_bf16: "
+                                            f"{line}"))}
+    torch.cuda.synchronize()
+    launches = {"vote_counts_mxu": vote_cuda.vote_counts_mxu_cuda.launches,
+                "vote_counts_bf16": vote_cuda.vote_counts_bf16_cuda.launches,
+                "vote_counts_tiled":
+                    vote_cuda.vote_counts_cuda.tiled_launches}
+    say(f"phase 10 path launches (voting.vote_counts(mxu=True) over the "
+        f"{len(stages)} stages, then both scripts): {launches}")
+    return stages, errs, launches, scripts
+
+
+def write_lm_tree(root, geometry):
+    """A LINEMOD-layout tree for class ``ape`` at 480x640 with LM_FRAMES
+    frames, as ``tests/test_eval_lm_format.py`` renders it: a 2-3 cm blob
+    CAD in meters, keypoints 6 cm out, depth as .dpt, perfect radial maps
+    (dm) from the quantized depth, noise images as JPEG. Returns the frames
+    in memory: [(frame id, image, depth (H, W) f32, pose (3, 4) m)], and
+    the CAD (m) and keypoints."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    k = np.asarray(geometry.LINEMOD_K)
+    pv = os.path.join(root, "LINEMOD", "ape")
+    orig = os.path.join(root, "LINEMOD_ORIG", "ape")
+    for d in ("JPEGImages", "pose", "Split"):
+        os.makedirs(os.path.join(pv, d))
+    os.makedirs(os.path.join(orig, "data"))
+    rmap = os.path.join(root, "LINEMOD_ORIG", "estRadialMap", "ape")
+    for kp in range(1, 4):
+        os.makedirs(os.path.join(rmap, f"Out_pt{kp}_dm"))
+    dirs = rng.normal(size=(3000, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    model_m = dirs * rng.uniform(0.02, 0.03, size=(3000, 1))
+    kpts9 = np.zeros((9, 3))
+    kpts9[1:4] = [[0.06, 0.06, 0.06], [-0.06, 0.06, -0.06],
+                  [0.06, -0.06, -0.06]]
+    with open(os.path.join(pv, "ape.ply"), "w") as f:
+        f.write("ply\nformat ascii 1.0\nelement vertex 3000\nproperty float "
+                "x\nproperty float y\nproperty float z\nend_header\n")
+        for p in model_m:
+            f.write(f"{p[0]} {p[1]} {p[2]}\n")
+    np.save(os.path.join(pv, "Outside9.npy"), kpts9)
+    frames = []
+    for i in range(LM_FRAMES):
+        angle = rng.uniform(-0.3, 0.3)
+        c, s_ = np.cos(angle), np.sin(angle)
+        rot = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1.0]])
+        z = 0.75 + 0.05 * i
+        u0, v0 = W // 2 - 20 + 20 * i, H // 2 - 20 + 10 * i
+        t = np.array([(u0 - k[0, 2]) / k[0, 0] * z,
+                      (v0 - k[1, 2]) / k[1, 1] * z, z])
+        pose = np.concatenate([rot, t[:, None]], axis=1)
+        np.save(os.path.join(pv, "pose", f"pose{i}.npy"), pose)
+        cam = model_m @ rot.T + t
+        uv = cam @ k.T
+        us = np.round(uv[:, 0] / uv[:, 2]).astype(int)
+        vs = np.round(uv[:, 1] / uv[:, 2]).astype(int)
+        ok = (us >= 0) & (us < W) & (vs >= 0) & (vs < H)
+        depth = np.zeros((H, W), np.float32)
+        depth[vs[ok], us[ok]] = cam[ok, 2] * 1000.0
+        depth_u16 = np.round(depth).astype(np.uint16)
+        with open(os.path.join(orig, "data", f"depth{i}.dpt"), "wb") as f:
+            f.write(np.asarray([H, W], np.uint32).tobytes())
+            f.write(depth_u16.tobytes())
+        img = rng.integers(0, 256, size=(H, W, 3), dtype=np.uint8)
+        fid = f"{i:06d}"
+        Image.fromarray(img).save(
+            os.path.join(pv, "JPEGImages", f"{fid}.jpg"))
+        zq = depth_u16.astype(np.float64)
+        uu, vv = np.meshgrid(np.arange(W), np.arange(H))
+        xyz_m = np.stack([(uu - k[0, 2]) * zq / k[0, 0],
+                          (vv - k[1, 2]) * zq / k[1, 1], zq], -1) / 1000.0
+        kc = kpts9[1:4] @ rot.T + t
+        for kp in range(1, 4):
+            r = np.linalg.norm(xyz_m - kc[kp - 1], axis=-1) * 10.0
+            np.save(os.path.join(rmap, f"Out_pt{kp}_dm", f"{fid}.npy"),
+                    np.where(zq > 0, r, 0.0).astype(np.float32))
+        frames.append((fid, img, depth_u16.astype(np.float32), pose))
+    with open(os.path.join(pv, "Split", "val.txt"), "w") as f:
+        f.write("\n".join(fid for fid, _, _, _ in frames) + "\n")
+    return frames, model_m, kpts9
+
+
+def phase_lm_eval(config, eval_mod, train_mod, fcn, geometry, vote_cuda,
+                  heads):
+    """The LM evaluator at full width on both routes: 3-net .pth.tar
+    checkpoints through RadialMapSource -> K2 -> keypoint_with_retry -> K1
+    -> Horn -> ICP -> ADD, and the precomputed-map route, with K1's and
+    K2's counts set to 0 just before each and read just after. Returns
+    the network route's launches."""
+    import os
+
+    if torch.get_float32_matmul_precision() != "highest" or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("nn_distances and ICP need full-f32 matmuls "
+                             "(TF32 off)")
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        frames, cad_m, kpts9 = write_lm_tree(root, geometry)
+        max_radii = eval_mod._per_kpt_max_radii_dm(cad_m, kpts9)
+        model_dir = os.path.join(root, "ckpts")
+        os.makedirs(model_dir)
+        cfg = config.Config(root_dataset=root, model_dir=model_dir)
+        assert (cfg.vote_grid_l, cfg.max_points, cfg.vote_mode, cfg.icp_iters,
+                cfg.sem_threshold, cfg.compute_dtype) == (
+                    192, 8192, "hier", 30, 0.8, "bfloat16")
+        t0 = time.perf_counter()
+        for i in range(1, 4):
+            net = fcn.init_params(train_mod.build_model(cfg),
+                                  torch.Generator().manual_seed(20 + i))
+            net = net.to(DEVICE, memory_format=torch.channels_last).eval()
+            calibrate_head(net, frames[0][1:3], cfg.sem_threshold,
+                           float(max_radii[i - 1]))
+            torch.save({"model_state_dict": {
+                k: v.detach().cpu() for k, v in net.state_dict().items()}},
+                os.path.join(model_dir, f"ape_pt{i}.pth.tar"))
+            del net
+        say(f"phase 11 tree: {LM_FRAMES} frames at {H}x{W}, 3 calibrated "
+            f"full-width .pth.tar nets written in "
+            f"{time.perf_counter() - t0:.1f} s; max radii "
+            f"{np.round(max_radii, 4).tolist()} dm")
+
+        for route, using in (("network", True), ("precomputed", False)):
+            rcfg = dataclasses.replace(cfg, using_ckpts=using)
+            torch.cuda.synchronize()
+            vote_cuda.vote_counts_cuda.launches = 0
+            heads.heads_channel_major_cuda.launches = 0
+            t0 = time.perf_counter()
+            res = eval_mod.estimate_6d_pose_lm(
+                rcfg, class_names=["ape"], progress=lambda m: None)["ape"]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {"vote_counts": vote_cuda.vote_counts_cuda.launches,
+                        "heads_channel_major":
+                            heads.heads_channel_major_cuda.launches}
+            say(f"phase 11 {route} route: {res['frames']} frames in "
+                f"{secs:.1f} s; ADD before ICP {res['add_before_icp']}, "
+                f"after ICP {res['add_after_icp']}; overflow frames "
+                f"{res['overflow_frames']}; net_ms_per_frame "
+                f"{res['net_ms_per_frame']:.3f}, acc_ms_per_frame "
+                f"{res['acc_ms_per_frame']:.3f} (host clock, each stage "
+                f"ending in a synchronize); launches K1 "
+                f"{launches['vote_counts']} K2 "
+                f"{launches['heads_channel_major']}")
+            if res["frames"] != LM_FRAMES:
+                raise AssertionError(f"{route}: {res['frames']} frames")
+            if launches["vote_counts"] == 0 or (
+                    using and launches["heads_channel_major"] == 0):
+                raise AssertionError(f"{route}: kernels not launched "
+                                     f"{launches}")
+            if not using and (res["add_before_icp"], res["add_after_icp"]) \
+                    != (1.0, 1.0):
+                raise AssertionError(f"precomputed route on perfect maps: "
+                                     f"ADD {res}")
+            out[route] = (res, launches)
+        icp_ms = icp_device_ms(eval_mod, cfg, root, frames[0], cad_m, kpts9,
+                               max_radii)
+        say(f"phase 11 ICP ({cfg.icp_iters} iterations, {cad_m.shape[0]} "
+            f"CAD points against 3 x {cfg.max_points} scene points): device "
+            f"{icp_ms[1]:.3f} ms, wall {icp_ms[0]:.3f} ms (profiler on)")
+    return out
+
+
+def icp_device_ms(eval_mod, cfg, root, frame, cad_m, kpts9, max_radii):
+    """Profiler wall and device ms of one ``refine_and_add`` (the LM ICP)
+    on the first frame's precomputed keypoints and scene cloud."""
+    cfg = eval_mod._dataset_eval_cfg(dataclasses.replace(
+        cfg, root_dataset=root, using_ckpts=False))
+    dev = torch.device(DEVICE)
+    fid, _, depth, pose = frame
+    source = eval_mod.RadialMapSource(cfg, "ape", None, dev)
+    k = torch.tensor(eval_mod.geometry.LINEMOD_K, dtype=torch.float32,
+                     device=dev)
+    d = torch.tensor(depth, device=dev)
+    cad = torch.tensor((cad_m * 1000.0).astype(np.float32), device=dev)
+    rt_gt = pose.copy()
+    rt_gt[:, 3] *= 1000.0
+    rt_gt = torch.tensor(rt_gt, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        outs = [eval_mod.keypoint_with_retry(
+            cfg, *source.maps(kp, None, fid), d, k,
+            torch.tensor(float(max_radii[kp - 1]), device=dev),
+            torch.tensor(cfg.sem_threshold, device=dev))
+            for kp in range(1, 4)]
+        rt, score = eval_mod.pose_and_add(
+            torch.tensor(kpts9[1:4] * 1000.0, dtype=torch.float32,
+                         device=dev),
+            torch.stack([o[0] for o in outs]), cad, rt_gt, False)
+        scene = torch.cat([o[3] for o in outs])
+        mask = torch.cat([o[4] for o in outs])
+        wall, dev_ms, _ = profile_ms(lambda: eval_mod.refine_and_add(
+            rt, cad, scene, mask, rt_gt, False, score.clamp(min=1e-3),
+            icp_iters=cfg.icp_iters), reps=3)
+    return wall, dev_ms
+
+
+def phase_variant_times(stages, vote_cuda, best_tile):
+    """Device ms of K5, K6 (f32 and bf16 compare) and K1 at the sweep's
+    best tile, at the phase-10 stages, beside their plain versions and
+    bounds. Returns the sums over the LM evaluator's two stages (one
+    hier frame of 3 keypoints) by kernel name."""
+    kernels = {
+        "vote_counts_mxu": (
+            vote_cuda.vote_counts_mxu_cuda, vote_cuda.vote_counts_mxu_plain,
+            OPS_PER_PAIR_MXU, PEAK_FP32_FLOPS, ()),
+        "vote_counts_bf16": (
+            vote_cuda.vote_counts_bf16_cuda, vote_cuda.vote_counts_bf16_plain,
+            OPS_PER_PAIR_BF16, PEAK_BF16_PAIR_FLOPS, ("f32",)),
+        "vote_counts_bf16 (bf16 compare)": (
+            vote_cuda.vote_counts_bf16_cuda, vote_cuda.vote_counts_bf16_plain,
+            OPS_PER_PAIR_BF16, PEAK_BF16_PAIR_FLOPS, ("bf16",)),
+        "vote_counts_tiled": (
+            lambda *a: vote_cuda.vote_counts_cuda(*a, tile=best_tile),
+            vote_cuda.vote_counts_plain, OPS_PER_PAIR, PEAK_FP32_FLOPS, ()),
+        "vote_counts (default tile)": (
+            vote_cuda.vote_counts_cuda, vote_cuda.vote_counts_plain,
+            OPS_PER_PAIR, PEAK_FP32_FLOPS, ()),
+    }
+    tot = {}
+    for kname, (kern, plain, ops, peak, extra) in kernels.items():
+        t = tot.setdefault(kname, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0))
+        parts = []
+        for name, args in stages.items():
+            pairs = args[1].shape[0] * args[0].shape[-2] * args[1].shape[1]
+            _, ms, _ = profile_ms(lambda a=args: kern(*a, *extra), reps=20)
+            bound = pairs * ops / peak * 1e3
+            parts.append(f"{name} {ms:.4f} (bound {bound:.4f}, {pairs} "
+                         f"pairs)")
+            if name.startswith("lm "):
+                # the plain versions only where the kernels line reads them
+                _, plain_ms, _ = profile_ms(
+                    lambda a=args: plain(*a, *extra), reps=1)
+                parts[-1] = parts[-1][:-1] + f", plain {plain_ms:.3f})"
+                t["ms"] += ms
+                t["plain_ms"] += plain_ms
+                t["bound_ms"] += bound
+        say(f"phase 12 {kname}: device ms " + "; ".join(parts))
+    for kname, t in tot.items():
+        say(f"phase 12 {kname} per LM hier frame (coarse + refine, 3 "
+            f"keypoints): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f}, "
+            f"bound {t['bound_ms']:.4f} ({t['bound_ms'] / t['ms']:.1%} of "
+            f"it)")
+    return tot
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs the card",
               file=sys.stderr)
         return 1
     from rcvpose_tpu_torch import checkpoint, config, geometry, infer, labels
+    from rcvpose_tpu_torch import eval as eval_mod
     from rcvpose_tpu_torch import train as train_mod
     from rcvpose_tpu_torch.models import fcnresnet as fcn
     from rcvpose_tpu_torch.ops import heads, mmconv, vote_cuda, voting
@@ -973,6 +1383,12 @@ def main():
     train_launches = run(8, phase_training, config, train_mod, labels,
                          geometry, checkpoint, infer, mmconv, heads)
     times = run(9, phase_train_kernel_times, mmconv, heads)
+    stages, var_errs, var_launches, scripts = run(
+        10, phase_vote_variants, voting, vote_cuda, geometry)
+    run(11, phase_lm_eval, config, eval_mod, train_mod, fcn, geometry,
+        vote_cuda, heads)
+    var_times = run(12, phase_variant_times, stages, vote_cuda,
+                    scripts["tiles"]["best"])
     say(f"phase seconds {seconds}, total {sum(seconds.values()):.1f}")
 
     main_path = ("coarse", "refine")
@@ -1006,6 +1422,17 @@ def main():
                         "launches": train_launches[name],
                         "max_abs_err": errs[name], "bound_by": bound_by,
                         **times[name]})
+    for name, replaces in (
+            ("vote_counts_mxu", "rcvpose_tpu/ops/vote_pallas.py:115"),
+            ("vote_counts_bf16", "scripts/prof_vote_bf16.py:105"),
+            ("vote_counts_tiled", "scripts/prof_vote_tiles.py:17")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "rcvpose_tpu_torch/csrc/vote.cu",
+                        "replaces": replaces,
+                        "launches": var_launches[name],
+                        "max_abs_err": var_errs[name],
+                        "bound_by": "operations", "library_ms": None,
+                        **var_times[name]})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")

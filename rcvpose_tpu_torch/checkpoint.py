@@ -1,7 +1,10 @@
-"""Training checkpoints and the weight bridge.
+"""Training checkpoints, evaluation weights and the weight bridge.
 
 ``Checkpointer`` writes reference-layout ``ckpt.pth.tar`` and
 ``model_best.pth.tar`` files and restores them into a ``TrainState``.
+``import_torch_checkpoint`` reads evaluation weights (a reference
+``.pth.tar`` or a ``Checkpointer`` directory) and ``load_model_weights``
+loads them into a port model, strictly.
 
 ``from_flax_variables`` takes the ``{"params", "batch_stats"}`` tree of the
 JAX package's Flax models as nested dicts of numpy arrays and returns a
@@ -141,3 +144,63 @@ class Checkpointer:
         state.step = int(payload["step"])
         return (state, int(payload["epoch"]), int(payload["iteration"]),
                 float(payload["best_val"]))
+
+
+# Projections the reference allocates in every Bottleneck but only the
+# first block of a stage uses (reference models/fcnresnet.py:16-18, 35-36):
+# nothing reads them, and the port's non-projecting blocks have none.
+_DEAD_KEY = re.compile(r"^block\d\.\d+\.upsample_\.")
+
+
+def import_torch_checkpoint(path):
+    """Evaluation weights as a reference-layout state dict of CPU tensors.
+
+    ``path`` is a reference ``.pth.tar`` (a payload with
+    ``model_state_dict``, or a bare state dict; ``module.`` prefixes of
+    DataParallel are dropped), or a directory written by ``Checkpointer``,
+    whose ``model_best.pth.tar`` is preferred over ``ckpt.pth.tar``: the
+    counterpart of the JAX package's ``import_torch_checkpoint`` and, for
+    the port's own training output, of its orbax reader. Orbax directories
+    are not read. As in the JAX package the file is unpickled in full
+    (reference checkpoints may hold more than tensors): load only files
+    you trust.
+    """
+    if os.path.isdir(path):
+        for name in (Checkpointer.BEST, Checkpointer.CKPT):
+            if os.path.isfile(os.path.join(path, name)):
+                path = os.path.join(path, name)
+                break
+        else:
+            raise ValueError(
+                f"{path} holds neither {Checkpointer.BEST} nor "
+                f"{Checkpointer.CKPT}: the port reads reference .pth.tar "
+                "files and its own Checkpointer directories; orbax "
+                "checkpoint directories (the JAX package's --mode train "
+                "output) are not read")
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    sd = (payload.get("model_state_dict", payload)
+          if isinstance(payload, dict) else payload)
+    return {re.sub(r"^module\.", "", k): torch.as_tensor(v)
+            for k, v in sd.items()}
+
+
+def load_model_weights(model, state_dict):
+    """Load a reference-layout state dict into a port model, strictly.
+
+    Every parameter and running statistic of the model must be present;
+    only the bookkeeping ``num_batches_tracked`` may be absent. The
+    reference's dead ``upsample_`` projections of non-projecting blocks
+    are dropped; any other key the model does not have raises.
+    """
+    own = model.state_dict()
+    sd = {k: v for k, v in state_dict.items()
+          if k in own or not _DEAD_KEY.match(k)}
+    missing = [k for k in own if k not in sd
+               and not k.endswith("num_batches_tracked")]
+    unexpected = [k for k in sd if k not in own]
+    if missing or unexpected:
+        raise KeyError(f"checkpoint does not match the model: missing "
+                       f"{missing[:5]} ({len(missing)}), unexpected "
+                       f"{unexpected[:5]} ({len(unexpected)})")
+    model.load_state_dict(sd, strict=False)
+    return model

@@ -3,7 +3,10 @@
 Horn's 1987 quaternion least-squares fit: build the 4x4 quaternion matrix
 N and take its max-eigenvalue eigenvector by shifted repeated squaring, as
 the JAX package does (no ``eigh``), so both packages take the same steps.
-ICP refinement follows in a later slice.
+
+``icp_point_to_point`` is Open3D's point-to-point ICP as the JAX package
+writes it: brute-force nearest neighbours, a weighted Horn fit per
+iteration, a fixed iteration count or Open3D's convergence test.
 """
 
 from __future__ import annotations
@@ -79,3 +82,91 @@ def horn_fit(p1, p2, weights=None):
     a[:3, :3] = r
     a[:3, 3] = t
     return a
+
+
+def _nn(src, target, t2, target_mask):
+    """Nearest target of each source point: (index, distance). d2 in the
+    ``|s|^2 - 2 s.t + |t|^2`` form in full f32; masked targets excluded;
+    ``argmin`` takes the first index on ties."""
+    d2 = ((src * src).sum(dim=1)[:, None] - 2.0 * torch.matmul(src, target.T)
+          + t2[None, :])
+    d2 = torch.where(target_mask[None, :], d2, torch.full_like(d2, 1e30))
+    idx = torch.argmin(d2, dim=1)
+    dmin = d2.gather(1, idx[:, None])[:, 0]
+    return idx, torch.sqrt(torch.clamp(dmin, min=0.0))
+
+
+def icp_point_to_point(source, target, target_mask, init, threshold,
+                       max_iters=30, rel_fitness=None, rel_rmse=None,
+                       return_iters=False):
+    """Point-to-point ICP: align ``source`` onto ``target``.
+
+    Mirrors Open3D ``registration_icp(source, target, threshold, init,
+    TransformationEstimationPointToPoint())`` as the JAX package does:
+
+    * ``rel_fitness``/``rel_rmse`` both None: ``max_iters`` updates, the
+      reference's LM/LMO criteria. The loop stays on the device: a step
+      that finds fewer than 3 correspondences keeps the transform.
+    * tolerances set: iterate to convergence, the reference's YCB criteria.
+      Stop when the absolute change of both fitness (inlier fraction of
+      source points) and inlier RMSE drops below its tolerance, or after
+      ``max_iters`` updates. Quality is evaluated before the update, so the
+      returned transform is the one whose quality passed, and the count is
+      the number of updates applied. This loop reads the convergence flag
+      on the host once per iteration; it is not on the LM path.
+
+    Args:
+      source: (S, 3) model points (e.g. CAD vertices, mm).
+      target: (T, 3) scene points, padded.
+      target_mask: (T,) bool validity of scene points.
+      init: (4, 4) initial transform.
+      threshold: max correspondence distance (a float or 0-d tensor).
+      max_iters: iteration count (fixed mode) or cap (converged mode).
+      rel_fitness / rel_rmse: Open3D-style convergence tolerances.
+      return_iters: also return the number of updates applied.
+
+    Returns: (4, 4) refined transform (plus the update count when
+    ``return_iters``).
+    """
+    source = source.to(torch.float32)
+    target = target.to(torch.float32)
+    device = source.device
+    t2 = (target * target).sum(dim=1)
+    n_src = float(source.shape[0])
+    threshold = torch.as_tensor(threshold, dtype=torch.float32,
+                                device=device)
+
+    def one_iter(rt):
+        """One update and this iteration's quality (fitness, inlier RMSE)."""
+        src_tf = source @ rt[:3, :3].T + rt[:3, 3]
+        idx, dist = _nn(src_tf, target, t2, target_mask)
+        w = (dist <= threshold).to(torch.float32)
+        n_corr = w.sum()
+        delta = horn_fit(src_tf, target[idx], weights=w)
+        new_rt = torch.where(n_corr >= 3.0, delta @ rt, rt)
+        fitness = n_corr / n_src
+        rmse = torch.sqrt((w * dist * dist).sum()
+                          / torch.clamp(n_corr, min=1.0))
+        return new_rt, fitness, rmse
+
+    rt = init.to(device=device, dtype=torch.float32)
+    if rel_fitness is None and rel_rmse is None:
+        for _ in range(max_iters):
+            rt, _, _ = one_iter(rt)
+        return (rt, max_iters) if return_iters else rt
+
+    tol_f = 0.0 if rel_fitness is None else rel_fitness
+    tol_r = 0.0 if rel_rmse is None else rel_rmse
+    # The first evaluation compares against -1 sentinels, as Open3D's first
+    # comparison (update 1's quality against the init's) does.
+    prev_f = prev_r = torch.tensor(-1.0, device=device)
+    n_upd = 0
+    while n_upd < max_iters:
+        new_rt, fitness, rmse = one_iter(rt)
+        done = ((prev_f - fitness).abs() < tol_f) & ((prev_r - rmse).abs()
+                                                     < tol_r)
+        if bool(done):
+            break
+        rt, prev_f, prev_r = new_rt, fitness, rmse
+        n_upd += 1
+    return (rt, n_upd) if return_iters else rt

@@ -1,28 +1,46 @@
-"""K1, the vote-count kernel (``csrc/vote.cu``), and its plain version.
+"""The vote-count kernels of ``csrc/vote.cu`` and their plain versions.
 
-Both compute, for a batch of keypoints,
-``votes[b, v] = #{n : lo[b, n] < |voxels[b, v] - points[b, n]|^2 < hi[b, n]}``
-with d2 in the subtract-square form ``dx*dx + dy*dy + dz*dz``, every
-operation rounded on its own, so the two agree exactly. Voxels are either
-``(V, 3)``, shared by the whole batch, or ``(B, V, 3)``. Masked points carry
-``lo == hi == 0`` and never vote.
+Each computes, for a batch of keypoints,
+``votes[b, v] = #{n : lo[b, n] < d2(voxels[b, v], points[b, n]) < hi[b, n]}``.
+Voxels are either ``(V, 3)``, shared by the whole batch, or ``(B, V, 3)``;
+points are ``(B, N, 3)`` and the bands ``(B, N)``. Masked points carry
+``lo == hi == 0`` and never vote. Three forms of d2:
 
-``ops.voting.vote_counts`` is the dispatcher: the kernel for CUDA tensors,
-the plain version for CPU tensors.
+- **K1** (``vote_counts_cuda``): ``dx*dx + dy*dy + dz*dz`` in f32, every
+  operation rounded on its own, at a tile chosen from ``TILES``.
+- **K5** (``vote_counts_mxu_cuda``): the matmul form
+  ``vx*(-2px) + vy*(-2py) + vz*(-2pz) + |v|^2 + |p|^2`` in f32.
+- **K6** (``vote_counts_bf16_cuda``): the subtract-square form in bf16,
+  compared in f32 or in bf16.
+
+Each kernel and its plain version agree exactly. A ``*_cuda`` wrapper
+launches its kernel on CUDA tensors and counts the launches in its
+``launches`` attribute; ``ops.voting.vote_counts`` is the dispatcher: the
+kernel for CUDA tensors, the plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 
 from rcvpose_tpu_torch.ops import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# K1 tiles: (threads per block, voxels per thread, points per staged chunk).
+TILES = tuple(itertools.product((128, 256, 512), (1, 2, 4),
+                                (256, 512, 1024, 2048)))
+DEFAULT_TILE = (256, 1, 1024)
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_K1_ARGTYPES = [_PTR] * 5 + [_INT] * 7 + [_PTR]
+_K5_ARGTYPES = [_PTR] * 7 + [_INT] * 4 + [_PTR]
+_K6_ARGTYPES = [_PTR] * 5 + [_INT] * 5 + [_PTR]
 
 
-def _check_args(voxels, points, lo, hi):
+def _check_args(voxels, points, lo, hi, dtype=torch.float32):
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points must be (B, N, 3), got {tuple(points.shape)}")
     b, n, _ = points.shape
@@ -35,64 +53,213 @@ def _check_args(voxels, points, lo, hi):
             raise ValueError(f"{name} must be ({b}, {n}), got {tuple(t.shape)}")
     for name, t in (("voxels", voxels), ("points", points), ("lo", lo),
                     ("hi", hi)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
-def vote_counts_cuda(voxels, points, lo, hi):
-    """Launch K1 on CUDA tensors; returns (B, V) f32 counts.
+def _on_card(what, tensors):
+    """Every tensor on the points' CUDA device, contiguous; raises
+    otherwise. Strided views (``pts[:, ::stride]``) are copied here."""
+    dev = tensors[1].device
+    if any(t.device.type != "cuda" or t.device != dev for t in tensors):
+        raise ValueError(f"{what} needs every tensor on one CUDA device")
+    return [t.contiguous() for t in tensors]
 
-    Strided views (``pts[:, ::stride]``) are made contiguous here.
-    ``vote_counts_cuda.launches`` counts the launches.
-    """
-    _check_args(voxels, points, lo, hi)
-    tensors = (voxels, points, lo, hi)
-    if any(t.device.type != "cuda" or t.device != points.device
-           for t in tensors):
-        raise ValueError("vote_counts_cuda needs every tensor on one CUDA "
-                         "device")
-    voxels, points, lo, hi = (t.contiguous() for t in tensors)
-    b, n, _ = points.shape
-    v = voxels.shape[-2]
+
+def _launch(what, symbol, argtypes, args, out, b, v, n):
+    """Call the C entry ``symbol`` on the current stream; raises on a
+    launch error. Returns ``out``."""
     if max(b * v, b * n * 3) >= 2 ** 31:
-        raise ValueError("vote_counts_cuda: problem too large for int32 "
-                         "indexing")
-    out = torch.empty((b, v), dtype=torch.float32, device=points.device)
+        raise ValueError(f"{what}: problem too large for int32 indexing")
     if b == 0 or v == 0:
         return out
-    fn = _build.function("vote", "vote_counts_f32", _ARGTYPES)
-    with torch.cuda.device(points.device):
+    fn = _build.function("vote", symbol, argtypes)
+    with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(voxels.data_ptr(), points.data_ptr(), lo.data_ptr(),
-                 hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v,
-                 n, stream)
-    _build.check(err, "vote_counts_f32")
-    vote_counts_cuda.launches += 1
+        err = fn(*args, stream)
+    _build.check(err, symbol)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K1: subtract-square d2 in f32, at a chosen tile
+# ---------------------------------------------------------------------------
+
+def vote_counts_cuda(voxels, points, lo, hi, tile=None):
+    """Launch K1 on CUDA tensors; returns (B, V) f32 counts.
+
+    ``tile``: ``(threads, voxels per thread, points per chunk)`` from
+    ``TILES``; None is ``DEFAULT_TILE``, the serving path's. Every tile
+    gives the same counts. ``vote_counts_cuda.launches`` counts every
+    launch, ``vote_counts_cuda.tiled_launches`` those with an explicit
+    ``tile``.
+    """
+    _check_args(voxels, points, lo, hi)
+    explicit = tile is not None
+    tile = DEFAULT_TILE if tile is None else tuple(tile)
+    if tile not in TILES:
+        raise ValueError(f"tile {tile} is not one of the built tiles "
+                         f"(threads 128/256/512, voxels per thread 1/2/4, "
+                         f"chunk 256/512/1024/2048)")
+    voxels, points, lo, hi = _on_card("vote_counts_cuda",
+                                      (voxels, points, lo, hi))
+    b, n, _ = points.shape
+    v = voxels.shape[-2]
+    out = torch.empty((b, v), dtype=torch.float32, device=points.device)
+    _launch("vote_counts_cuda", "vote_counts_f32", _K1_ARGTYPES,
+            (voxels.data_ptr(), points.data_ptr(), lo.data_ptr(),
+             hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v, n,
+             *tile), out, b, v, n)
+    if b and v:
+        vote_counts_cuda.launches += 1
+        vote_counts_cuda.tiled_launches += explicit
     return out
 
 
 vote_counts_cuda.launches = 0
+vote_counts_cuda.tiled_launches = 0
 
-# Pairs evaluated per step of the plain version: bounds its temporaries
-# (a few (B, V, chunk) f32 tensors of 16 MB each).
+# Pairs evaluated per step of the plain versions: bounds their temporaries
+# (a few (B, V, chunk) tensors of at most 16 MB each).
 _PLAIN_PAIRS = 1 << 22
 
 
-def vote_counts_plain(voxels, points, lo, hi):
-    """The same counts in plain PyTorch, chunked over the points."""
-    _check_args(voxels, points, lo, hi)
+def _plain_counts(voxels, points, lo, hi, d2_fn):
+    """Band counts over point chunks with ``d2_fn(vox (B, V, 1, 3) view
+    pieces, point chunk) -> d2``; shared by the plain versions."""
     b, n, _ = points.shape
     vox = voxels.expand(b, -1, -1) if voxels.dim() == 2 else voxels
     v = vox.shape[1]
     acc = torch.zeros((b, v), dtype=torch.int64, device=points.device)
     chunk = max(1, _PLAIN_PAIRS // max(1, b * v))
     for c0 in range(0, n, chunk):
-        p = points[:, None, c0:c0 + chunk, :]
+        d2 = d2_fn(vox, c0, c0 + chunk)
+        hit = ((d2 > lo[:, None, c0:c0 + chunk])
+               & (d2 < hi[:, None, c0:c0 + chunk]))
+        acc += hit.sum(dim=-1)
+    return acc.to(torch.float32)
+
+
+def _d2_subtract_square(points):
+    def d2(vox, c0, c1):
+        p = points[:, None, c0:c1, :]
         dx = vox[:, :, None, 0] - p[..., 0]
         dy = vox[:, :, None, 1] - p[..., 1]
         dz = vox[:, :, None, 2] - p[..., 2]
-        d2 = dx * dx + dy * dy + dz * dz
-        hit = (d2 > lo[:, None, c0:c0 + chunk]) & (d2 < hi[:, None,
-                                                           c0:c0 + chunk])
-        acc += hit.sum(dim=-1)
-    return acc.to(torch.float32)
+        return dx * dx + dy * dy + dz * dz
+    return d2
+
+
+def vote_counts_plain(voxels, points, lo, hi):
+    """K1's counts in plain PyTorch, chunked over the points. K1's tile
+    changes nothing of the result, so every tile has this plain version."""
+    _check_args(voxels, points, lo, hi)
+    return _plain_counts(voxels, points, lo, hi, _d2_subtract_square(points))
+
+
+# ---------------------------------------------------------------------------
+# K5: matmul-form d2 in f32
+# ---------------------------------------------------------------------------
+
+def _sq_norm(x):
+    """|x|^2 over the last axis of (..., 3), summed x, y, z in that order
+    as ``jnp.sum(x * x, axis=1)`` is in the JAX package's wrapper."""
+    return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
+
+
+def mxu_operands(voxels, points):
+    """The matmul form's operands, built once for the kernel and its plain
+    version alike: ``(|v|^2, -2p, |p|^2)``."""
+    return _sq_norm(voxels), -2.0 * points, _sq_norm(points)
+
+
+def vote_counts_mxu_cuda(voxels, points, lo, hi):
+    """Launch K5 on CUDA tensors; returns (B, V) f32 counts.
+    ``vote_counts_mxu_cuda.launches`` counts the launches."""
+    _check_args(voxels, points, lo, hi)
+    voxels, points, lo, hi = _on_card("vote_counts_mxu_cuda",
+                                      (voxels, points, lo, hi))
+    v2, pm2, p2 = mxu_operands(voxels, points)
+    b, n, _ = points.shape
+    v = voxels.shape[-2]
+    out = torch.empty((b, v), dtype=torch.float32, device=points.device)
+    _launch("vote_counts_mxu_cuda", "vote_counts_mxu_f32", _K5_ARGTYPES,
+            (voxels.data_ptr(), v2.data_ptr(), pm2.data_ptr(), p2.data_ptr(),
+             lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+             int(voxels.dim() == 2), b, v, n), out, b, v, n)
+    if b and v:
+        vote_counts_mxu_cuda.launches += 1
+    return out
+
+
+vote_counts_mxu_cuda.launches = 0
+
+
+def vote_counts_mxu_plain(voxels, points, lo, hi):
+    """K5's counts in plain PyTorch: the same dot, in the same k order,
+    one rounded operation at a time."""
+    _check_args(voxels, points, lo, hi)
+    v2, pm2, p2 = mxu_operands(voxels, points)
+    b = points.shape[0]
+    v2 = v2.expand(b, -1) if voxels.dim() == 2 else v2
+
+    def d2(vox, c0, c1):
+        m = pm2[:, None, c0:c1, :]
+        acc = vox[:, :, None, 0] * m[..., 0] + vox[:, :, None, 1] * m[..., 1]
+        acc = acc + vox[:, :, None, 2] * m[..., 2]
+        acc = acc + v2[:, :, None]
+        return acc + p2[:, None, c0:c1]
+
+    return _plain_counts(voxels, points, lo, hi, d2)
+
+
+# ---------------------------------------------------------------------------
+# K6: subtract-square d2 in bf16
+# ---------------------------------------------------------------------------
+
+_COMPARES = ("f32", "bf16")
+
+
+def _bf16_operands(voxels, points, lo, hi, compare):
+    """Coordinates rounded to bf16; lo / hi too when ``compare="bf16"``."""
+    if compare not in _COMPARES:
+        raise ValueError(f"compare must be 'f32' or 'bf16', got {compare!r}")
+    _check_args(voxels, points, lo, hi)
+    bf16 = torch.bfloat16
+    band = bf16 if compare == "bf16" else torch.float32
+    return voxels.to(bf16), points.to(bf16), lo.to(band), hi.to(band)
+
+
+def vote_counts_bf16_cuda(voxels, points, lo, hi, compare="f32"):
+    """Launch K6 on CUDA tensors (f32 in; coordinates rounded to bf16
+    here); returns (B, V) f32 counts. ``vote_counts_bf16_cuda.launches``
+    counts the launches."""
+    voxels, points, lo, hi = _on_card(
+        "vote_counts_bf16_cuda",
+        _bf16_operands(voxels, points, lo, hi, compare))
+    b, n, _ = points.shape
+    v = voxels.shape[-2]
+    out = torch.empty((b, v), dtype=torch.float32, device=points.device)
+    _launch("vote_counts_bf16_cuda", "vote_counts_bf16", _K6_ARGTYPES,
+            (voxels.data_ptr(), points.data_ptr(), lo.data_ptr(),
+             hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v, n,
+             int(compare == "bf16")), out, b, v, n)
+    if b and v:
+        vote_counts_bf16_cuda.launches += 1
+    return out
+
+
+vote_counts_bf16_cuda.launches = 0
+
+
+def vote_counts_bf16_plain(voxels, points, lo, hi, compare="f32"):
+    """K6's counts in plain PyTorch: each op a separate bf16 tensor op."""
+    voxels, points, lo, hi = _bf16_operands(voxels, points, lo, hi, compare)
+    d2_bf16 = _d2_subtract_square(points)
+
+    def d2(vox, c0, c1):
+        out = d2_bf16(vox, c0, c1)
+        return out.float() if compare == "f32" else out
+
+    return _plain_counts(voxels, points, lo, hi, d2)
+

@@ -92,15 +92,21 @@ def vote_counts_reference(voxels, points, radii, point_mask):
     return votes.sum(dim=1).to(torch.float32)
 
 
-def vote_counts(voxels, points, lo, hi):
+def vote_counts(voxels, points, lo, hi, mxu=False):
     """Dispatch: K1 for CUDA tensors, its plain version for CPU tensors.
 
     voxels (V, 3) shared or (B, V, 3); points (B, N, 3); lo, hi (B, N).
-    Returns (B, V) f32.
+    Returns (B, V) f32. ``mxu=True`` takes the matmul form of d2 (K5,
+    ``|v|^2 - 2v.p + |p|^2``), whose cancellation moves counts at band
+    edges; as in the JAX package nothing passes it by default.
     """
     if points.device.type == "cuda":
+        if mxu:
+            return vote_cuda.vote_counts_mxu_cuda(voxels, points, lo, hi)
         return vote_cuda.vote_counts_cuda(voxels, points, lo, hi)
     if points.device.type == "cpu":
+        if mxu:
+            return vote_cuda.vote_counts_mxu_plain(voxels, points, lo, hi)
         return vote_cuda.vote_counts_plain(voxels, points, lo, hi)
     raise ValueError(f"unsupported device {points.device}")
 

@@ -1,6 +1,9 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and stage timers shared by the port's entry points."""
 
 from __future__ import annotations
+
+import contextlib
+import time
 
 import torch
 
@@ -21,3 +24,42 @@ def resolve_device(device=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is absent")
     return device
+
+
+def synchronize(device):
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU): the counterpart of ``jax.block_until_ready``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class StageTimers:
+    """Per-stage wall-clock accumulators that are actually reported —
+    the reference accumulated net_time/acc_time and never printed them
+    (AccumulatorSpace.py:510-511). ``time(stage, device)`` ends in a
+    synchronize of ``device`` when it is a CUDA device, so a stage is
+    billed the device work it queued."""
+
+    def __init__(self):
+        self.totals = {}
+        self.counts = {}
+
+    @contextlib.contextmanager
+    def time(self, stage, device=None):
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+            if device is not None:
+                synchronize(device)
+        finally:
+            dt = time.perf_counter_ns() - t0
+            self.totals[stage] = self.totals.get(stage, 0) + dt
+            self.counts[stage] = self.counts.get(stage, 0) + 1
+
+    def report(self):
+        return {stage: {"total_ms": self.totals[stage] / 1e6,
+                        "mean_ms": self.totals[stage] / 1e6
+                        / max(self.counts[stage], 1),
+                        "count": self.counts[stage]}
+                for stage in self.totals}

@@ -71,6 +71,75 @@ def test_vote_counts_cuda_takes_strided_points(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# (seed, B, N, V, side): V and N off every tile's multiple (chunks of
+# 256-2048 points, blocks of 128-2048 voxels), a single pair, and a
+# grid-192 scale where the d2 forms round.
+VARIANT_CASES = [(2, 3, 2501, 3001, 32), (3, 1, 1, 1, 32),
+                 (4, 3, 1025, 257, 32), (5, 3, 777, 2049, 192)]
+
+
+def _variant_args(cuda, seed, b, n, v, side):
+    pts, radii, mask, vox = _band_problem(seed, b, n, v, side)
+    lo, hi = voting.widened_band(radii, mask, 4.2)
+    return [t.to(cuda) for t in (vox, pts, lo, hi)]
+
+
+@pytest.mark.parametrize("tile", vote_cuda.TILES, ids=str)
+def test_vote_counts_cuda_every_tile_matches_plain(cuda, tile):
+    """Every tile of K1 equals the plain version exactly, per-batch and
+    shared voxels, on ragged V and N."""
+    for case in VARIANT_CASES:
+        args = _variant_args(cuda, *case)
+        before = vote_cuda.vote_counts_cuda.tiled_launches
+        got = vote_cuda.vote_counts_cuda(*args, tile=tile)
+        shared = vote_cuda.vote_counts_cuda(args[0][0], *args[1:], tile=tile)
+        torch.cuda.synchronize()
+        assert vote_cuda.vote_counts_cuda.tiled_launches == before + 2
+        assert torch.equal(got, vote_cuda.vote_counts_plain(*args)), case
+        assert torch.equal(shared, vote_cuda.vote_counts_plain(
+            args[0][0], *args[1:])), case
+
+
+def test_vote_counts_cuda_refuses_unbuilt_tile(cuda):
+    args = _variant_args(cuda, *VARIANT_CASES[0])
+    with pytest.raises(ValueError, match="tile"):
+        vote_cuda.vote_counts_cuda(*args, tile=(1024, 1, 256))
+
+
+@pytest.mark.parametrize("case", VARIANT_CASES, ids=str)
+def test_vote_counts_mxu_cuda_matches_plain(cuda, case):
+    """K5 equals its own plain version exactly (never K1: the matmul
+    form's cancellation moves band-edge pairs); the dispatcher's
+    ``mxu=True`` reaches it."""
+    args = _variant_args(cuda, *case)
+    before = vote_cuda.vote_counts_mxu_cuda.launches
+    got = vote_cuda.vote_counts_mxu_cuda(*args)
+    shared = vote_cuda.vote_counts_mxu_cuda(args[0][0], *args[1:])
+    via = voting.vote_counts(*args, mxu=True)
+    torch.cuda.synchronize()
+    assert vote_cuda.vote_counts_mxu_cuda.launches == before + 3
+    assert torch.equal(got, vote_cuda.vote_counts_mxu_plain(*args))
+    assert torch.equal(shared, vote_cuda.vote_counts_mxu_plain(
+        args[0][0], *args[1:]))
+    assert torch.equal(via, got)
+
+
+@pytest.mark.parametrize("compare", ["f32", "bf16"])
+@pytest.mark.parametrize("case", VARIANT_CASES, ids=str)
+def test_vote_counts_bf16_cuda_matches_plain(cuda, case, compare):
+    """K6 equals its plain version's separate bf16 tensor ops exactly, in
+    both compare modes; odd chunks end on a masked pair lane."""
+    args = _variant_args(cuda, *case)
+    before = vote_cuda.vote_counts_bf16_cuda.launches
+    got = vote_cuda.vote_counts_bf16_cuda(*args, compare)
+    shared = vote_cuda.vote_counts_bf16_cuda(args[0][0], *args[1:], compare)
+    torch.cuda.synchronize()
+    assert vote_cuda.vote_counts_bf16_cuda.launches == before + 2
+    assert torch.equal(got, vote_cuda.vote_counts_bf16_plain(*args, compare))
+    assert torch.equal(shared, vote_cuda.vote_counts_bf16_plain(
+        args[0][0], *args[1:], compare))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels_last", [False, True])
 def test_heads_channel_major_cuda_matches_plain(cuda, dtype, channels_last):

@@ -1,0 +1,272 @@
+"""The plain versions of K5 (matmul-form d2), K6 (bf16 pair arithmetic)
+and K1's tiles against the JAX package on the CPU.
+
+K5 is held against ``vote_pallas.vote_counts_pallas_mxu`` in interpret
+mode, K6 against ``vote_pallas.vote_counts_pallas(compute_dtype=bfloat16)``
+(bf16 compare) and against ``scripts/prof_vote_bf16.py``'s ``_kernel_bf16``
+(f32 compare) in interpret mode. Counts are exactly equal where every
+operand and partial result is exact in the working type; elsewhere K5 may
+move a pair whose f64 d2 lies within the form's rounding of a band edge,
+and XLA:CPU may keep K6's bf16 intermediates in f32.
+"""
+
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from rcvpose_tpu.ops import vote_pallas
+from rcvpose_tpu.ops import voting as jax_voting
+from rcvpose_tpu_torch.ops import vote_cuda
+from rcvpose_tpu_torch.ops import voting as port_voting
+from rcvpose_tpu_torch.scripts import coarse_problem, prof_vote_bf16
+from rcvpose_tpu_torch.scripts import prof_vote_tiles
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _jax_script(name):
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+JAX_BF16 = _jax_script("prof_vote_bf16")
+JAX_TILES = _jax_script("prof_vote_tiles")
+
+
+def _run_bf16_interpret(voxels, points, lo, hi):
+    """``prof_vote_bf16.run_bf16``'s layout around its ``_kernel_bf16``,
+    in the Pallas interpreter (the script's own function has no
+    ``interpret`` flag): -1e4 voxel padding, bf16 coordinates, f32 band."""
+    vb, pc = JAX_BF16.VOX_BLOCK, JAX_BF16.PT_CHUNK
+    v, n = voxels.shape[0], points.shape[0]
+    vox = jnp.pad(voxels, ((0, (-v) % vb), (0, 1)), constant_values=-1e4)
+    pts = jnp.concatenate([points.T, jnp.zeros((5, n))], axis=0)
+    pts = jnp.pad(pts, ((0, 0), (0, (-n) % pc)))
+    band = jnp.concatenate([lo[None, :], hi[None, :], jnp.zeros((6, n))],
+                           axis=0)
+    band = jnp.pad(band, ((0, 0), (0, (-n) % pc)))
+    out = pl.pallas_call(
+        JAX_BF16._kernel_bf16,
+        grid=(vox.shape[0] // vb, pts.shape[1] // pc),
+        in_specs=[pl.BlockSpec((vb, 4), lambda i, j: (i, 0),
+                               memory_space=pltpu.VMEM),
+                  pl.BlockSpec((8, pc), lambda i, j: (0, j),
+                               memory_space=pltpu.VMEM),
+                  pl.BlockSpec((8, pc), lambda i, j: (0, j),
+                               memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((vb, 1), lambda i, j: (i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((vox.shape[0], 1), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((vb, pc), jnp.float32)],
+        interpret=True,
+    )(vox.astype(jnp.bfloat16), pts.astype(jnp.bfloat16),
+      band.astype(jnp.float32))
+    return np.asarray(out[:v, 0])
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def _integer_problem(seed, b, n, v, side):
+    """Integer voxels and points in [0, side) with an exact band: with
+    side <= 32 every operand and partial sum of both d2 forms is an exact
+    f32 integer (|v|^2 + |p|^2 < 2^13)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(0, side, size=(b, n, 3)).astype(np.float32)
+    vox = rng.integers(0, side, size=(b, v, 3)).astype(np.float32)
+    radii = rng.integers(1, side // 2, size=(b, n)).astype(np.float32)
+    mask = rng.uniform(size=(b, n)) < 0.9
+    lo, hi = port_voting.exact_band(_t(radii), _t(mask))
+    return _t(vox), _t(pts), lo, hi
+
+
+def _jax_each(fn, vox, pts, lo, hi, **kw):
+    """A JAX vote function (one point set) over the batch."""
+    shared = vox.dim() == 2
+    return np.stack([np.asarray(fn(
+        jnp.asarray((vox if shared else vox[i]).numpy()),
+        jnp.asarray(pts[i].numpy()), jnp.asarray(lo[i].numpy()),
+        jnp.asarray(hi[i].numpy()), **kw)) for i in range(pts.shape[0])])
+
+
+# ---------------------------------------------------------------------------
+# K5: matmul-form d2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_mxu_plain_exact_on_integer_inputs(shared):
+    vox, pts, lo, hi = _integer_problem(0, 2, 333, 700, side=32)
+    if shared:
+        vox = vox[0]
+    got = vote_cuda.vote_counts_mxu_plain(vox, pts, lo, hi)
+    assert got.shape == (2, 700) and got.dtype == torch.float32
+    mxu = _jax_each(vote_pallas.vote_counts_pallas_mxu, vox, pts, lo, hi,
+                    interpret=True)
+    xla = _jax_each(jax_voting.vote_counts_xla, vox, pts, lo, hi)
+    np.testing.assert_array_equal(got.numpy(), mxu)
+    np.testing.assert_array_equal(got.numpy(), xla)
+    np.testing.assert_array_equal(
+        got.numpy(), vote_cuda.vote_counts_plain(vox, pts, lo, hi).numpy())
+    assert got.sum() > 0
+
+
+def _near_edge_pairs(vox, pts, lo, hi):
+    """Per voxel, the pairs whose f64 d2 lies within the matmul form's
+    rounding, 4 * 2^-24 * (|v|^2 + |p|^2), of lo or hi."""
+    v = vox.numpy().astype(np.float64)
+    p = pts.numpy().astype(np.float64)
+    if v.ndim == 2:
+        v = np.broadcast_to(v, (p.shape[0],) + v.shape)
+    d2 = ((v[:, :, None, :] - p[:, None, :, :]) ** 2).sum(-1)
+    tol = 4 * 2.0 ** -24 * ((v * v).sum(-1)[:, :, None]
+                            + (p * p).sum(-1)[:, None, :])
+    l = lo.numpy().astype(np.float64)[:, None, :]
+    h = hi.numpy().astype(np.float64)[:, None, :]
+    near = (np.abs(d2 - l) <= tol) | (np.abs(d2 - h) <= tol)
+    return (near & (h > 0)).sum(-1)
+
+
+def test_mxu_plain_within_band_edge_rounding_at_hier_scale():
+    """Coarse-cell centers of a grid-192 cube against random points: K5
+    differs from K1 and from the JAX MXU kernel per voxel by at most the
+    pairs that sit on a band edge within the form's rounding."""
+    rng = np.random.default_rng(1)
+    cells = rng.integers(0, 48, size=(2000, 3)).astype(np.float32) * 4 + 1.5
+    pts = rng.uniform(0, 192, size=(2, 600, 3)).astype(np.float32)
+    radii = np.round(rng.uniform(10, 60, size=(2, 600))).astype(np.float32)
+    mask = rng.uniform(size=(2, 600)) < 0.9
+    lo, hi = port_voting.widened_band(_t(radii), _t(mask), 4.2)
+    vox, pts = _t(cells), _t(pts)
+    got = vote_cuda.vote_counts_mxu_plain(vox, pts, lo, hi).numpy()
+    k1 = vote_cuda.vote_counts_plain(vox, pts, lo, hi).numpy()
+    mxu = _jax_each(vote_pallas.vote_counts_pallas_mxu, vox, pts, lo, hi,
+                    interpret=True)
+    near = _near_edge_pairs(vox, pts, lo, hi)
+    assert (np.abs(got - k1) <= near).all()
+    assert (np.abs(got - mxu) <= near).all()
+    assert got.sum() > 0
+
+
+def test_vote_counts_mxu_dispatches_to_k5_plain_on_cpu(monkeypatch):
+    vox, pts, lo, hi = _integer_problem(2, 3, 100, 50, side=32)
+    want = vote_cuda.vote_counts_mxu_plain(vox, pts, lo, hi)
+    torch.testing.assert_close(port_voting.vote_counts(vox, pts, lo, hi,
+                                                       mxu=True),
+                               want, rtol=0, atol=0)
+    calls = []
+
+    def spy(*args):
+        calls.append(len(args))
+        return want
+
+    monkeypatch.setattr(vote_cuda, "vote_counts_mxu_plain", spy)
+    port_voting.vote_counts(vox, pts, lo, hi, mxu=True)
+    port_voting.vote_counts(vox, pts, lo, hi)
+    assert calls == [4]
+
+
+# ---------------------------------------------------------------------------
+# K6: bf16 pair arithmetic
+# ---------------------------------------------------------------------------
+
+def test_bf16_plain_exact_where_bf16_is_exact():
+    """Coordinate differences of 0-7: every bf16 intermediate is exact, so
+    both compare modes equal the JAX kernels and K1."""
+    vox, pts, lo, hi = _integer_problem(3, 2, 700, 1100, side=8)
+    k1 = vote_cuda.vote_counts_plain(vox, pts, lo, hi).numpy()
+    for b in range(2):
+        args = [jnp.asarray(t[b].numpy()) for t in (vox, pts, lo, hi)]
+        f32 = vote_cuda.vote_counts_bf16_plain(vox, pts, lo, hi, "f32")
+        np.testing.assert_array_equal(f32[b].numpy(),
+                                      _run_bf16_interpret(*args))
+        np.testing.assert_array_equal(f32[b].numpy(), k1[b])
+        bf = vote_cuda.vote_counts_bf16_plain(vox, pts, lo, hi, "bf16")
+        want = vote_pallas.vote_counts_pallas(
+            *args, interpret=True, compute_dtype=jnp.bfloat16)
+        np.testing.assert_array_equal(bf[b].numpy(), np.asarray(want))
+    assert k1.sum() > 0
+
+
+def test_bf16_plain_close_on_the_coarse_problem():
+    """The JAX script's coarse-stage problem at a reduced size: counts
+    within 5% relative error on average and the same four best cells."""
+    vox, pts, lo, hi = coarse_problem(n=1024, v=4096, slack=4.2, seed=0,
+                                      device="cpu")
+    args = [jnp.asarray(t.numpy()) for t in (vox, pts[0], lo[0], hi[0])]
+    for compare, want in (
+            ("f32", _run_bf16_interpret(*args)),
+            ("bf16", np.asarray(vote_pallas.vote_counts_pallas(
+                *args, interpret=True, compute_dtype=jnp.bfloat16)))):
+        got = vote_cuda.vote_counts_bf16_plain(vox, pts, lo, hi, compare)[0]
+        mean, mx, overlap = prof_vote_bf16.count_errors(want, got.numpy())
+        assert mean <= 0.05 and overlap == 4, (compare, mean, mx, overlap)
+
+
+def test_bf16_rejects_unknown_compare():
+    vox, pts, lo, hi = _integer_problem(4, 1, 10, 10, side=8)
+    with pytest.raises(ValueError, match="compare"):
+        vote_cuda.vote_counts_bf16_plain(vox, pts, lo, hi, "f16")
+
+
+# ---------------------------------------------------------------------------
+# K1 tiles and the measurement entry points
+# ---------------------------------------------------------------------------
+
+def test_every_tile_plain_path_equal(monkeypatch):
+    """Every tile's plain path is ``vote_counts_plain``: it equals the JAX
+    sweep's tiled kernel (``make_runner``, in the Pallas interpreter) at
+    several of its tiles. Every port tile is built; on CPU tensors the
+    wrapper raises instead of launching, and an unbuilt tile is refused."""
+    vox, pts, lo, hi = _integer_problem(5, 2, 257, 1025, side=32)
+    want = vote_cuda.vote_counts_plain(vox, pts, lo, hi)
+    monkeypatch.setattr(JAX_TILES.pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    for vb, pc in [(256, 128), (512, 256), (1024, 512)]:
+        got = _jax_each(JAX_TILES.make_runner(vb, pc), vox, pts, lo, hi)
+        np.testing.assert_array_equal(want.numpy(), got)
+    assert want.sum() > 0
+    assert len(vote_cuda.TILES) == 36
+    assert vote_cuda.DEFAULT_TILE in vote_cuda.TILES
+    for tile in vote_cuda.TILES:
+        with pytest.raises(ValueError, match="CUDA device"):
+            vote_cuda.vote_counts_cuda(vox, pts, lo, hi, tile=tile)
+    with pytest.raises(ValueError, match="tile"):
+        vote_cuda.vote_counts_cuda(vox, pts, lo, hi, tile=(1024, 1, 256))
+
+
+def test_coarse_problem_is_the_jax_scripts_problem():
+    """Same numbers as the JAX scripts' ``main`` makes from seed 0."""
+    vox, pts, lo, hi = coarse_problem(n=64, v=128, slack=4.2, seed=0,
+                                      device="cpu")
+    rng = np.random.default_rng(0)
+    want_vox = jnp.asarray(
+        rng.integers(0, 32, size=(128, 3)).astype(np.float32) * 4 + 1.5)
+    want_pts = jnp.asarray(rng.uniform(0, 128, size=(64, 3))
+                           .astype(np.float32))
+    r = jnp.asarray(rng.uniform(10, 50, size=64).astype(np.float32))
+    np.testing.assert_array_equal(vox.numpy(), np.asarray(want_vox))
+    np.testing.assert_array_equal(pts[0].numpy(), np.asarray(want_pts))
+    np.testing.assert_array_equal(
+        lo[0].numpy(), np.asarray(jnp.maximum(r - 4.2, 0.0) ** 2))
+    np.testing.assert_array_equal(hi[0].numpy(),
+                                  np.asarray((r + 4.2) ** 2))
+
+
+@pytest.mark.parametrize("script", [prof_vote_tiles, prof_vote_bf16])
+def test_measurement_scripts_need_the_card(script):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        script.main()
