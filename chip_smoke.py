@@ -23,7 +23,11 @@ Phases, each printing its own line:
    run before the serving times are taken);
 7. K3 (decoder conv, forward and dx) and K4 (its weight gradient)
    against their plain versions at the six DenseFCN decoder shapes of a
-   batch-4 480x640 step, in bf16 and f32, and K2's backward bit for bit;
+   batch-4 480x640 step, in bf16 and f32, each also bit-identical over two
+   runs; then in bf16 at one shape for each branch of the conv planner
+   (split-K, two N = 96 tiles, 32-channel chunks, K4 at 9 and 3 taps,
+   padded channels, a misaligned base, K = 5); and K2's backward bit for
+   bit;
 8. training at full width (DenseFCNResNet152, ``Config`` defaults: bf16,
    Adam, batch 4, 480x640) on batches that ``labels.make_sample`` makes on
    the card from rendered frames: one f32 step (TF32 off) with the decoder
@@ -33,7 +37,8 @@ Phases, each printing its own line:
    from the restored weights, the launch counts of a step, and a profile;
 9. the device time of K3, K4 and K2's backward at the training shapes,
    beside their plain versions, their bounds and the cuDNN (or PyTorch)
-   call for the same function;
+   call for the same function (per conv entry also TFLOP/s, the share of
+   the bound and the factor against cuDNN);
 10. K5 (matmul-form votes), K6 (bf16 votes, f32 and bf16 compare) and
     every K1 tile against their plain versions, exactly, at the hier
     stages' shapes of serving (grid 128) and of the LM evaluator (grid
@@ -90,6 +95,16 @@ DECODER = [("conv_up5", 15, 20, 3072, 1024), ("conv_up4", 30, 40, 2048, 512),
            ("conv_up3", 60, 80, 1024, 256), ("conv_up2", 120, 160, 512, 128),
            ("conv_up1", 240, 320, 192, 64), ("conv7", 480, 640, 64, 32)]
 TRAIN_STEPS = 10
+# bf16 shapes (B, H, W, C, D, K) that take each branch of the conv planner
+# (ops/mmconv.py plan_conv), checked in phase 7 beside the decoder's own
+PLAN_BRANCHES = [((1, 15, 20, 3072, 256, 3), "split-K"),
+                 ((2, 24, 40, 64, 192, 3), "dx N = 96 x 2"),
+                 ((2, 24, 40, 32, 64, 3), "32-channel chunks"),
+                 ((2, 40, 48, 64, 32, 3), "K4 9 taps"),
+                 ((2, 24, 40, 192, 64, 3), "K4 3 taps"),
+                 ((2, 17, 23, 5, 7, 3), "padded channels"),
+                 ((2, 15, 20, 64, 32, 3), "misaligned"),
+                 ((1, 33, 47, 64, 32, 5), "K = 5")]
 
 
 def say(*parts):
@@ -131,12 +146,14 @@ def profile_ms(fn, reps, warmup=1):
 
 def event_ms(fn, reps, warmup=2):
     """Device ms of one call of ``fn`` from CUDA events around ``reps``
-    back-to-back calls. For calls that keep the card busy far longer than
-    the host takes to issue them (here 0.05 ms and up), the events time the
-    device work; microsecond kernels go through ``profile_ms`` instead."""
+    back-to-back calls, queued behind a ~10 ms spin kernel so that the
+    events time the device's work rather than the host's launch rate (for
+    calls of 0.05 ms and up; microsecond kernels go through ``profile_ms``
+    instead)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -528,11 +545,14 @@ def phase_kernel_times(k1_stages, k2_input, vote_cuda, heads):
 def check_conv(mmconv, x, kern, what):
     """K3 against its plain version: f32 within 1e-5 of the output's scale
     (two f32 summation orders); bf16 within one bf16 ulp of the plain
-    value, plus that f32 term where a sum cancels to near zero. Returns
-    max |kernel - plain|."""
+    value, plus that f32 term where a sum cancels to near zero; and
+    bit-identical across two runs. Returns max |kernel - plain|."""
     got = mmconv.conv_same_cuda(x, kern)
+    again = mmconv.conv_same_cuda(x, kern)
     want = mmconv.conv_same_plain(x, kern)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"K3 {what}: two runs differ")
     err = (got.float() - want.float()).abs()
     scale = float(want.float().abs().max())
     if x.dtype == torch.float32:
@@ -546,12 +566,12 @@ def check_conv(mmconv, x, kern, what):
     return float(err.max())
 
 
-def check_dk(mmconv, x, g, what):
+def check_dk(mmconv, x, g, what, ks=3):
     """K4 within 1e-4 of dk's scale and bit-identical across two runs.
     Returns max |kernel - plain|."""
-    got = mmconv.conv_same_dk_cuda(x, g, 3)
-    again = mmconv.conv_same_dk_cuda(x, g, 3)
-    want = mmconv.conv_same_dk_plain(x, g, 3)
+    got = mmconv.conv_same_dk_cuda(x, g, ks)
+    again = mmconv.conv_same_dk_cuda(x, g, ks)
+    want = mmconv.conv_same_dk_plain(x, g, ks)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if err > 1e-4 * float(want.abs().max()):
@@ -588,8 +608,31 @@ def phase_conv_kernels(mmconv, heads):
                         f"K4 {e4:.3g}")
         say(f"phase 7 {name} ({TRAIN_BATCH},{h},{w},{c})->{d} and dx "
             f"->{c}: max |kernel - plain| " + ", ".join(line)
-            + "; K4 repeats bit for bit")
+            + "; K3 and K4 repeat bit for bit")
         del x, kern, gy
+    for shape, why in PLAN_BRANCHES:
+        b, h, w, c, d, ks = shape
+        x = torch.randn(b * h * w * c + 1, device=dev, generator=g).to(
+            torch.bfloat16)
+        # "misaligned": a view 2 bytes past the buffer's 16-byte start
+        x = (x[1:] if why == "misaligned" else x[:-1]).view(b, h, w, c)
+        kern = (torch.randn(ks, ks, c, d, device=dev, generator=g)
+                / (ks * c ** 0.5)).to(torch.bfloat16)
+        gy = torch.randn(b, h, w, d, device=dev, generator=g).to(
+            torch.bfloat16)
+        e3 = check_conv(mmconv, x, kern, f"{shape} {why}")
+        e3dx = check_conv(mmconv, gy, mmconv.rot_transpose(kern),
+                          f"{shape} {why} dx")
+        e4 = check_dk(mmconv, x, gy, f"{shape} {why}", ks)
+        errs["conv_same"] = max(errs["conv_same"], e3, e3dx)
+        errs["conv_same_dk"] = max(errs["conv_same_dk"], e4)
+        plans = [mmconv.plan_conv(p, b, h, w, mmconv.round8(cc),
+                                  mmconv.round8(dd), ks)
+                 for p, cc, dd in (("fwd", c, d), ("fwd", d, c), ("dk", c, d))]
+        say(f"phase 7 bf16 {shape} ({why}): K3 {e3:.3g} K3 dx {e3dx:.3g} "
+            f"K4 {e4:.3g}, repeat bit for bit; plans "
+            + "; ".join(f"{p.variant} m{p.tile_m} n{p.tile_n} k{p.tile_k} "
+                        f"taps {p.taps} splits {p.splits}" for p in plans))
     for b in (1, TRAIN_BATCH):
         for dtype, cl in ((torch.bfloat16, True), (torch.float32, False)):
             ct = torch.randn(2, b, H, W, device=dev, generator=g)
@@ -930,7 +973,9 @@ def phase_train_kernel_times(mmconv, heads):
             t["plain_ms"] += plain_ms
             t["library_ms"] += lib_ms
             t["bound_ms"] += bound
-            parts.append(f"{part} kernel {ms:.4f} plain {plain_ms:.4f} "
+            parts.append(f"{part} kernel {ms:.4f} ({flop / ms / 1e9:.1f} "
+                         f"TFLOP/s, {100 * bound / ms:.1f}% of bound, "
+                         f"{ms / lib_ms:.2f}x cuDNN) plain {plain_ms:.4f} "
                          f"cuDNN {lib_ms:.4f} bound {bound:.4f}")
         say(f"phase 9 {name} ({b},{h},{w},{c})->{d} bf16, {flop / 1e9:.1f} "
             f"GFLOP each, device ms: " + "; ".join(parts))
@@ -954,8 +999,9 @@ def phase_train_kernel_times(mmconv, heads):
     for n in ("conv_same", "conv_same_dk"):
         t = tot[n]
         say(f"phase 9 {n} per step: device ms kernel {t['ms']:.3f}, plain "
-            f"{t['plain_ms']:.3f}, cuDNN {t['library_ms']:.3f}, bound "
-            f"{t['bound_ms']:.3f}")
+            f"{t['plain_ms']:.3f}, cuDNN {t['library_ms']:.3f} "
+            f"({t['ms'] / t['library_ms']:.2f}x), bound "
+            f"{t['bound_ms']:.3f} ({100 * t['bound_ms'] / t['ms']:.1f}%)")
     return tot
 
 

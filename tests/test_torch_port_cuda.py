@@ -177,12 +177,18 @@ def test_heads_bwd_cuda_matches_plain(cuda, dtype, channels_last, cotangent):
     assert torch.equal(got.float(), ct.permute(1, 0, 2, 3).to(dtype).float())
 
 
-# (B, H, W, C, D, K): H, W and C off the tiles' multiples, wide channels
-# that take the 16-byte load path (C, D multiples of 8), K = 5, and a long
-# reduction (9 * 2048 products per output, as at conv_up4)
+# (B, H, W, C, D, K): H, W and C off the tiles' multiples, channel counts
+# that the bf16 wrappers pad to multiples of 8 (5, 6, 130; 7, 3, 70), K = 5,
+# a long reduction (9 * 2048 products per output, as at conv_up4), and one
+# shape for each branch of the planner: split-K (conv_up5-like), N = 192
+# (conv_up1's dx), a 32-channel reduction (conv7's dx), and the tap-fused
+# K4 tiles (9 taps with the consumers splitting the pixels; 3 taps)
 CONV_SHAPES = [(2, 17, 23, 5, 7, 3), (1, 20, 16, 6, 3, 5),
                (2, 9, 13, 130, 70, 3), (2, 15, 20, 136, 72, 3),
-               (1, 33, 47, 64, 32, 5), (2, 15, 20, 2048, 64, 3)]
+               (1, 33, 47, 64, 32, 5), (2, 15, 20, 2048, 64, 3),
+               (1, 15, 20, 3072, 256, 3), (2, 24, 40, 64, 192, 3),
+               (2, 24, 40, 32, 64, 3), (2, 40, 48, 64, 32, 3),
+               (2, 24, 40, 192, 64, 3)]
 
 
 def _conv_problem(shape, dev, seed=0):
@@ -205,8 +211,11 @@ def test_conv_same_cuda_matches_plain(cuda, shape, dtype):
     x, kern = x.to(dtype), kern.to(dtype)
     before = mmconv.conv_same_cuda.launches
     got = mmconv.conv_same_cuda(x, kern)
+    again = mmconv.conv_same_cuda(x, kern)
     torch.cuda.synchronize()
-    assert mmconv.conv_same_cuda.launches == before + 1
+    assert mmconv.conv_same_cuda.launches == before + 2
+    # fixed-order split reduction, no atomics: bit-identical run to run
+    assert torch.equal(got, again)
     want = mmconv.conv_same_plain(x, kern)
     assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs()
@@ -236,19 +245,45 @@ def test_conv_same_dk_cuda_matches_plain(cuda, shape, dtype):
     assert torch.equal(got, again)
 
 
-def test_conv_same_dk_cuda_many_slices(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_same_dk_cuda_many_slices(cuda, dtype):
     """A long pixel reduction split into many slices (conv7's shape class:
     few channels, many pixels) still matches and repeats exactly."""
     x, _, gy = _conv_problem((2, 96, 128, 16, 8, 3), cuda)
-    per, n = mmconv.dk_slices(
-        2 * 96 * 128, 3, 16, 8,
+    x, gy = x.to(dtype), gy.to(dtype)
+    plan = mmconv.plan_conv(
+        "dk", 2, 96, 128, 16, 8, 3, dtype,
         torch.cuda.get_device_properties(0).multi_processor_count)
-    assert n > 10
+    assert plan.partials > 10
     got = mmconv.conv_same_dk_cuda(x, gy, 3)
     want = mmconv.conv_same_dk_plain(x, gy, 3)
     assert float((got - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
     assert torch.equal(got, mmconv.conv_same_dk_cuda(x, gy, 3))
+
+
+def test_conv_kernels_take_a_misaligned_base(cuda):
+    """bf16 operands that start 2 bytes past a 16-byte boundary (a view at
+    offset 1 of a flat buffer) go through the wrapper's aligned copy: K3
+    within one bf16 ulp of the plain version, K4 within 1e-4 of its
+    scale."""
+    b, h, w, c, d = 2, 15, 20, 64, 32
+    g = torch.Generator(device=cuda).manual_seed(3)
+    buf = torch.randn(1 + b * h * w * c, device=cuda, generator=g)
+    x = buf.to(torch.bfloat16)[1:].view(b, h, w, c)
+    assert x.data_ptr() % 16 != 0
+    kern = (torch.randn(3, 3, c, d, device=cuda, generator=g)
+            / (3 * c ** 0.5)).to(torch.bfloat16)
+    gy = torch.randn(b, h, w, d, device=cuda, generator=g).to(torch.bfloat16)
+    got = mmconv.conv_same_cuda(x, kern)
+    want = mmconv.conv_same_plain(x, kern)
+    err = (got.float() - want.float()).abs()
+    ulp = torch.finfo(torch.bfloat16).eps * want.float().abs()
+    assert bool((err <= ulp + 1e-5 * float(want.float().abs().max())).all())
+    dk = mmconv.conv_same_dk_cuda(x, gy, 3)
+    dk_want = mmconv.conv_same_dk_plain(x, gy, 3)
+    assert float((dk - dk_want).abs().max()) <= 1e-4 * float(
+        dk_want.abs().max())
 
 
 @pytest.mark.parametrize("conv_kernel", [False, True])

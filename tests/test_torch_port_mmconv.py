@@ -19,6 +19,8 @@ from rcvpose_tpu.ops.mmconv_pallas import (conv_same_pallas,
 from rcvpose_tpu_torch.checkpoint import from_flax_variables
 from rcvpose_tpu_torch.models import fcnresnet as port_fcn
 from rcvpose_tpu_torch.ops import mmconv
+from rcvpose_tpu_torch.scripts import prof_conv
+from tests.test_torch_port_cuda import CONV_SHAPES
 from tests.test_torch_port_model import _with_bn_stats
 
 # (B, H, W, C, D, K) of tests/test_mmconv_pallas.py: thin and wide (130)
@@ -126,16 +128,106 @@ def test_mmconv_function_gradcheck_f64(ks):
 
 
 def test_dk_slices_bound_the_scratch():
-    """K4's split: every pixel in exactly one slice, slices 32-aligned, and
-    the f32 partial sums within the scratch bound at the decoder's
-    full-width shapes (batch 4, 480x640) on a 132-multiprocessor card."""
-    for pixels, c, d in [(4 * 15 * 20, 3072, 1024), (4 * 240 * 320, 192, 64),
-                         (4 * 480 * 640, 64, 32), (37, 5, 7)]:
-        per, n = mmconv.dk_slices(pixels, 3, c, d, 132)
+    """K4's split of the pixel reduction: in f32 every pixel in exactly one
+    32-aligned slice; in bf16 every slice holds at least one 8x8 pixel
+    tile; both keep the f32 partial sums within the scratch bound at the
+    decoder's full-width shapes (batch 4, 480x640) on a 132-multiprocessor
+    card."""
+    for b, h, w, c, d in [(4, 15, 20, 3072, 1024), (4, 240, 320, 192, 64),
+                          (4, 480, 640, 64, 32), (1, 37, 1, 5, 7)]:
+        pixels = b * h * w
+        f32 = mmconv.plan_conv("dk", b, h, w, c, d, 3, torch.float32, 132)
+        per, n = f32.tile_m[1], f32.splits
         assert per % 32 == 0 and (n - 1) * per < pixels <= n * per
-        assert n == 1 or n * 9 * c * d * 4 <= mmconv.SCRATCH_BYTES
-    # conv_up5's 113 MB dk takes one slice, written in place
-    assert mmconv.dk_slices(4 * 15 * 20, 3, 3072, 1024, 132)[1] == 1
+        bf = mmconv.plan_conv("dk", b, h, w, mmconv.round8(c),
+                              mmconv.round8(d), 3, torch.bfloat16, 132)
+        tiles = b * -(-h // 8) * -(-w // 8)
+        assert bf.splits <= tiles
+        for plan, cc, dd in ((f32, c, d), (bf, mmconv.round8(c),
+                                           mmconv.round8(d))):
+            assert (plan.partials == 1
+                    or plan.partials * 9 * cc * dd * 4
+                    <= mmconv.SCRATCH_BYTES)
+    # conv_up5's 113 MB dk takes one partial, written in place
+    assert mmconv.plan_conv("dk", 4, 15, 20, 3072, 1024, 3, torch.bfloat16,
+                            132).partials == 1
+
+
+# The decoder convs of the card tests' train step (blocks (1,1,1,1), width
+# 0.125, batch 2, 64x64): (H = W, C, D)
+SMALL_DECODER = [(2, 384, 128), (4, 256, 64), (8, 128, 32), (16, 64, 16),
+                 (32, 24, 8), (64, 8, 8)]
+# The planner's cases: the 18 entries of a training step's decoder convs
+# (forward, dx, dk), the small net's, and the card tests' shapes in every
+# direction
+PLAN_CASES = (
+    [(part, (4, h, w, c, d, 3)) for _, h, w, c, d in prof_conv.DECODER
+     for part in ("fwd", "dx", "dk")]
+    + [(part, (2, hw, hw, c, d, 3)) for hw, c, d in SMALL_DECODER
+       for part in ("fwd", "dx", "dk")]
+    + [(part, shape) for shape in CONV_SHAPES
+       for part in ("fwd", "dx", "dk")])
+
+
+@pytest.mark.parametrize("part,shape", PLAN_CASES, ids=str)
+def test_planner_fits_the_card(part, shape):
+    """Every plan fits an H100 block (<= 232,448 bytes of shared memory,
+    a ring of >= 2 stages), names a built kernel with a tile width wgmma
+    takes, splits the same way on every call, and launches at least one
+    block per multiprocessor wherever its split cap allows."""
+    b, h, w, c, d, k = shape
+    c, d = mmconv.round8(c), mmconv.round8(d)
+    if part == "dx":
+        c, d = d, c
+    direction = "dk" if part == "dk" else "fwd"
+    plan = mmconv.plan_conv(direction, b, h, w, c, d, k, torch.bfloat16, 132)
+    assert plan == mmconv.plan_conv(direction, b, h, w, c, d, k,
+                                    torch.bfloat16, 132)
+    assert plan.smem_bytes <= mmconv.SMEM_LIMIT == 232_448
+    assert plan.stages >= 2 and plan.splits >= 1 and plan.partials >= 1
+    assert plan.tile_n % 8 == 0 and 8 <= plan.tile_n <= 256
+    if direction == "fwd":
+        assert (plan.tile_k, plan.tile_n, plan.blocks_per_sm,
+                plan.promote > 0) in mmconv.BUILT_FWD
+        assert plan.smem_bytes <= (mmconv.SMEM_LIMIT if plan.blocks_per_sm == 1
+                                   else mmconv.SMEM_LIMIT_2)
+        th, tw = plan.tile_m
+        assert tw % 8 == 0 and th * tw <= 128
+    else:
+        assert (plan.tile_n, plan.taps) in mmconv.BUILT_DK
+        assert plan.taps == 1 or k == 3
+    most = mmconv.plan_conv(direction, b, h, w, c, d, k, torch.bfloat16,
+                            10 ** 6)
+    assert plan.units >= 132 or plan.splits == most.splits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_channel_padding_is_exact(shape, dtype):
+    """The bf16 wrappers' zero padding of C and D to multiples of 8 (and
+    their aligned copy of a misaligned view) changes nothing: the plain
+    versions on the padded operands, sliced, equal the unpadded results
+    bit for bit. The operands are small integers, so that every sum is
+    exact in f32 whatever order the CPU's matmul takes (its blocking
+    changes with the reduction length, and with it the rounding of
+    random operands)."""
+    x, kern, g = (torch.from_numpy(np.round(4 * np.tanh(a))).to(dtype)
+                  for a in _problem(shape))
+    ks, c, d = kern.shape[0], x.shape[3], g.shape[3]
+    cp, dp = mmconv.round8(c), mmconv.round8(d)
+    xp, gp = mmconv.pad_channels(x, cp), mmconv.pad_channels(g, dp)
+    kp = mmconv.pad_kernel(kern, cp, dp)
+    assert xp.shape[3] == cp and gp.shape[3] == dp
+    assert xp.data_ptr() % 16 == 0 and kp.shape == (ks, ks, cp, dp)
+    assert torch.equal(mmconv.conv_same_plain(xp, kp)[..., :d],
+                       mmconv.conv_same_plain(x, kern))
+    assert torch.equal(mmconv.conv_same_dk_plain(xp, gp, ks)[:, :, :c, :d],
+                       mmconv.conv_same_dk_plain(x, g, ks))
+    flat = torch.cat([torch.zeros(1, dtype=dtype), x.reshape(-1)])
+    view = flat[1:].view(x.shape)
+    assert view.data_ptr() % 16 != 0
+    moved = mmconv.pad_channels(view, c)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, x)
 
 
 MODELS = {
