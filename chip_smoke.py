@@ -8,26 +8,33 @@ Phases, each printing its own line:
 
 1. build the kernels from ``rcvpose_tpu_torch/csrc`` with nvcc (into the
    git-ignored ``rcvpose_tpu_torch/_build``), print the card's name and
-   power limit and whether PIL imports;
+   power limit and whether PIL imports, and read the vote kernels' SASS
+   (``cuobjdump``): each pair loop's instructions a pair, no FFMA in K1 or
+   K5, no local memory;
 2. K1 (vote counts) against its plain version at the serving shapes, exact
-   equality;
-3. K2 (head split) against its plain version, bit for bit;
+   equality, repeatable bit for bit, also at each branch of its split
+   planner (one split, several, ragged N, shared voxels);
+3. K2 (head split) against its plain version, bit for bit, and K2's
+   backward at every layout (2K = 2 and 6, f32 and bf16, NCHW and
+   channels-last, contiguous, W % 8 != 0, misaligned and strided
+   cotangents);
 4. the frame program on perfect synthetic maps at 480x640, on the card and
    on the CPU through the plain versions;
 5. serving at full width (DenseFCNResNet152, bf16, 480x640, grid 128, 8192
    points, hier): ``PoseEstimator.estimate`` on a few frames in 3-net and in
    fused mode, with both kernels' launch counters reset just before and
    read just after, then a profiler view of where a frame's time goes;
-6. the device time of each kernel, its plain version and its bound, at
-   the shapes of phases 2 and 3 (after serving, so that no profiler has
-   run before the serving times are taken);
+6. the device time of each kernel (CUDA events behind a spin kernel), its
+   plain version and its bound, at the shapes of phases 2 and 3 (after
+   serving, so that no profiler has run before the serving times are
+   taken);
 7. K3 (decoder conv, forward and dx) and K4 (its weight gradient)
    against their plain versions at the six DenseFCN decoder shapes of a
    batch-4 480x640 step, in bf16 and f32, each also bit-identical over two
    runs; then in bf16 at one shape for each branch of the conv planner
    (split-K, two N = 96 tiles, 32-channel chunks, K4 at 9 and 3 taps,
-   padded channels, a misaligned base, K = 5); and K2's backward bit for
-   bit;
+   padded channels, a misaligned base, K = 5); and K2's backward at every
+   layout of phase 3, at batch 4;
 8. training at full width (DenseFCNResNet152, ``Config`` defaults: bf16,
    Adam, batch 4, 480x640) on batches that ``labels.make_sample`` makes on
    the card from rendered frames: one f32 step (TF32 off) with the decoder
@@ -54,7 +61,12 @@ Phases, each printing its own line:
     the precomputed-map route, which must score ADD 1.0 before and after
     ICP; then the ICP's device time;
 12. the device time of K5, K6 and K1 at the sweep's best tile at the
-    phase-10 shapes, beside their plain versions and bounds.
+    phase-10 shapes, beside their plain versions and bounds (CUDA
+    events).
+
+The vote kernels' bounds count instructions at the card's issue rate
+(``vote_cuda.ISSUE_RATE``), not FLOPs at the FP32 peak: none of their
+operations is an FMA.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -75,14 +87,10 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): non-tensor FP32
-# rate, dense bf16 tensor-core rate and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): dense bf16
+# tensor-core rate and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-# K1 operations per (voxel, point) pair: 3 sub, 3 mul, 2 add, 2 compare,
-# the and, the count add.
-OPS_PER_PAIR = 12
 
 GRID_L = 128
 N_POINTS = 8192
@@ -144,32 +152,19 @@ def profile_ms(fn, reps, warmup=1):
     return wall_ms, sum(by_kernel.values()), by_kernel
 
 
-def event_ms(fn, reps, warmup=2):
-    """Device ms of one call of ``fn`` from CUDA events around ``reps``
-    back-to-back calls, queued behind a ~10 ms spin kernel so that the
-    events time the device's work rather than the host's launch rate (for
-    calls of 0.05 ms and up; microsecond kernels go through ``profile_ms``
-    instead)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def event_ms(fn, reps, warmup=2, repeats=3):
+    """Device ms of one call of ``fn`` by CUDA events: ``scripts.device_ms``
+    (the median of ``repeats`` runs of ``reps`` back-to-back calls queued
+    behind a ~25 ms spin kernel)."""
+    from rcvpose_tpu_torch.scripts import device_ms
+
+    return device_ms(fn, reps, repeats, warmup)
 
 
 def card_line():
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return proc.stdout.strip().splitlines()[0]
+    from rcvpose_tpu_torch.scripts import card_line as line
+
+    return line()
 
 
 def random_pose(rng):
@@ -213,7 +208,136 @@ def render_synthetic_frame(rng, k):
     return pose, kpts_m, depth_mm, radials
 
 
-def phase_build():
+def sass_functions(lib):
+    """``cuobjdump -sass`` of a built library: {function: (instructions
+    [(address, text)], labels {name: address})}."""
+    import re
+    from pathlib import Path
+
+    from rcvpose_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, cur, pending = {}, None, []
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), ([], {}))
+            pending = []
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                cur[1][label] = addr
+            pending = []
+            cur[0].append((addr, m.group(2)))
+    return funcs
+
+
+def opcode(ins):
+    """The opcode of a SASS instruction without its predicate and
+    modifiers (``@!P0 IADD3.X R1, ...`` -> ``IADD3``)."""
+    parts = ins.split()
+    if parts and parts[0].startswith("@"):
+        parts = parts[1:]
+    return parts[0].split(".")[0] if parts else ""
+
+
+def inner_loop(instrs, labels, pair_ops, per_pair):
+    """Of the innermost loops (backward branches whose body holds no other
+    backward branch), the one with the most ``pair_ops`` instructions (the
+    unrolled pair loop), ``per_pair`` of them a pair: (instructions in the
+    body, pairs it evaluates, opcode histogram), or None if there is
+    none."""
+    import re
+
+    loops = []
+    for addr, ins in instrs:
+        if opcode(ins) != "BRA":
+            continue
+        m = re.search(r"`\((\.L_x_\d+)\)", ins)
+        target = labels.get(m.group(1)) if m else None
+        if target is None:
+            m = re.search(r"\b0x([0-9a-f]+)\b", ins)
+            target = int(m.group(1), 16) if m else None
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    best = None
+    for target, addr in loops:
+        if any(target <= t and a < addr for t, a in loops):
+            continue
+        body = [opcode(i) for a, i in instrs if target <= a <= addr]
+        muls = sum(op in pair_ops for op in body)
+        if muls and (best is None or (muls, -len(body)) > best[0]):
+            best = ((muls, -len(body)), body)
+    if best is None:
+        return None
+    body = best[1]
+    hist = {}
+    for op in body:
+        hist[op] = hist.get(op, 0) + 1
+    return len(body), best[0][0] / per_pair, hist
+
+
+def check_vote_sass(vote_cuda):
+    """The vote kernels' compiled inner loops: instructions a pair beside
+    the bound's count. Fails if a K1 tile or K5 contracts into an FMA, or
+    any vote kernel touches local memory. Returns {kernel: per pair}."""
+    from rcvpose_tpu_torch.ops import _build
+
+    funcs = sass_functions(_build.library_path("vote"))
+    t, v, c = vote_cuda.DEFAULT_TILE
+    # (function, the d2 instructions, how many of them a pair, the bound's
+    # count): 3 FMUL a pair in f32; in bf16x2 the 8 sub / mul / add of two
+    # pairs, each an HADD2, HMUL2 or HFMA2 (ptxas writes some as FMAs with
+    # an exact 1 or -0 operand), 4 a pair
+    f32, bf16 = ("FMUL",), ("HADD2", "HMUL2", "HFMA2")
+    ipp = vote_cuda.INSTRUCTIONS_PER_PAIR
+    targets = {
+        f"K1 {vote_cuda.DEFAULT_TILE}": (f"vote_counts_kernelILi{t}ELi{v}ELi"
+                                         f"{c}E", f32, 3, ipp["K1"]),
+        "K5": ("vote_counts_mxu_kernel", f32, 3, ipp["K5"]),
+        "K6 f32 compare": ("vote_counts_bf16_kernelILb0E", bf16, 4,
+                           ipp["K6 f32"]),
+        "K6 bf16 compare": ("vote_counts_bf16_kernelILb1E", bf16, 4,
+                            ipp["K6 bf16"])}
+    k1_names = [n for n in funcs if "vote_counts_kernel" in n]
+    if len(k1_names) != len(vote_cuda.TILES):
+        raise AssertionError(f"SASS: {len(k1_names)} K1 instances, "
+                             f"expected {len(vote_cuda.TILES)}")
+    for name, (instrs, _) in funcs.items():
+        ops = {opcode(i) for _, i in instrs}
+        if ops & {"LDL", "STL"}:
+            raise AssertionError(f"SASS {name}: local memory")
+        if ("vote_counts_kernel" in name or "mxu" in name) and "FFMA" in ops:
+            raise AssertionError(f"SASS {name}: an FFMA (contracted d2)")
+    result = {}
+    for what, (key, pair_ops, per_pair, ops) in targets.items():
+        name = next(n for n in funcs if key in n)
+        loop = inner_loop(*funcs[name], pair_ops, per_pair)
+        if loop is None:
+            say(f"phase 1 SASS {what}: no pair loop found")
+            continue
+        n, pairs, hist = loop
+        result[what] = n / pairs
+        top = sorted(hist.items(), key=lambda kv: -kv[1])
+        say(f"phase 1 SASS {what}: pair loop of {n} instructions for "
+            f"{pairs:g} pairs = {n / pairs:.3f} a pair (bound counts {ops}); "
+            + ", ".join(f"{op} {k / pairs:.3f}" for op, k in top))
+    say(f"phase 1 SASS: no FFMA in the {len(k1_names)} K1 tiles or K5, no "
+        f"local memory in any vote kernel")
+    return result
+
+
+def phase_build(vote_cuda):
     from rcvpose_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -232,58 +356,77 @@ def phase_build():
     except ImportError as exc:
         PIL, pil = None, f"PIL does not import ({exc})"
     say(f"phase 1 {pil}")
+    return check_vote_sass(vote_cuda)
 
 
 def phase_vote(voting, vote_cuda):
-    """K1 against its plain version at the serving shapes; returns
-    ``{stage: (kernel arguments, max |kernel - plain|)}``."""
-    dev = torch.device(DEVICE)
-    rng = np.random.default_rng(0)
-    center = np.array([0.05, -0.03, 0.8])
-    dirs = rng.normal(size=(N_POINTS, 3))
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    cloud = center + dirs * rng.uniform(0.03, 0.05, size=(N_POINTS, 1))
-    kpts = center + rng.normal(size=(3, 3)) * 0.08
-    radial = np.linalg.norm(cloud[None] - kpts[:, None], axis=-1) * 10.0
-    mask = rng.uniform(size=(3, N_POINTS)) >= 0.1   # ~10% masked
-    xyz = torch.tensor(np.broadcast_to(cloud, (3, N_POINTS, 3)),
-                       dtype=torch.float32, device=dev)
-    pts, rr, _, _, _ = voting._prepare(
-        xyz, torch.tensor(radial, dtype=torch.float32, device=dev),
-        torch.tensor(mask, device=dev))
-    mask_t = torch.tensor(mask, device=dev)
-    co = voting._COARSE
-    lc = GRID_L // co
-    coarse = (voting.enumerate_grid(lc, dev) + 0.5) * co - 0.5
-    slack = voting.VOTE_BAND + math.sqrt(3.0) * co / 2.0
-    lo_c, hi_c = voting.widened_band(rr, mask_t, slack)
-    s = voting._CPT_STRIDE
-    stages = {"coarse": (coarse, pts[:, ::s].contiguous(),
-                         lo_c[:, ::s].contiguous(), hi_c[:, ::s].contiguous())}
-    cv = vote_cuda.vote_counts_cuda(*stages["coarse"])
-    top = voting._top_indices(cv, voting._TOPK)
-    win = voting._WIN
-    bases = torch.clamp(voting._unravel3(top, lc) * co - (win - co) // 2, 0,
-                        GRID_L - win)
-    win_vox = (bases[:, :, None, :]
-               + voting.enumerate_grid(win, dev)[None, None]).reshape(3, -1, 3)
-    lo_f, hi_f = voting.exact_band(rr, mask_t)
-    stages["refine"] = (win_vox, pts, lo_f, hi_f)
-    stages["exact64"] = (voting.enumerate_grid(64, dev), pts, lo_f, hi_f)
+    """K1 against its plain version at the serving shapes, exact and
+    bit-identical over two runs, then at each branch of the split planner;
+    returns ``{stage: (kernel arguments, max |kernel - plain|)}``."""
+    from rcvpose_tpu_torch.scripts import hier_problem
 
+    dev = torch.device(DEVICE)
+    stages = hier_problem(GRID_L, voting._TOPK, n_points=N_POINTS,
+                          device=dev)
+    stages["exact64"] = (voting.enumerate_grid(64, dev), *stages["refine"][1:])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for name, args in stages.items():
         got = vote_cuda.vote_counts_cuda(*args)
+        again = vote_cuda.vote_counts_cuda(*args)
         want = vote_cuda.vote_counts_plain(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        if not torch.equal(got, want):
+        if not (torch.equal(got, want) and torch.equal(again, got)):
             raise AssertionError(f"K1 {name}: counts differ from the plain "
-                                 f"version (max |diff| {err})")
+                                 f"version (max |diff| {err}) or between "
+                                 f"runs")
         out[name] = (args, err)
+        plan = vote_cuda.plan_votes(args[1].shape[0], args[0].shape[-2],
+                                    args[1].shape[1], vote_cuda.DEFAULT_TILE,
+                                    sms)
         say(f"phase 2 K1 {name}: B=3 V={args[0].shape[-2]} "
-            f"N={args[1].shape[1]} counts equal (max votes {got.max():.0f})")
+            f"N={args[1].shape[1]} counts equal, repeat bit for bit (max "
+            f"votes {got.max():.0f}; {plan.splits} splits of {plan.split} "
+            f"points, {plan.blocks_per_sm:.2f} blocks an SM)")
+    for name in ("coarse", "refine"):
+        check_k1_splits(vote_cuda, name, stages[name], out)
     return out
+
+
+def check_k1_splits(vote_cuda, name, args, out):
+    """K1 at one serving stage through each branch of the split planner:
+    one split (stores, no atomics), 2 and 7 splits, splits of 32 points, a
+    split that is neither a multiple of the chunk nor of 4, the planner's
+    own; also N = 37 short of a chunk multiple (planned) and, at the refine
+    stage, the first keypoint's windows shared by the batch. Each exact
+    and bit-identical over two runs; folds the errors into ``out``."""
+    vox, pts, lo, hi = args
+    n = pts.shape[1]
+    cut = n - 37
+    cases = {"planner": (args, None), "one split": (args, n),
+             "2 splits": (args, -(-n // 2)), "7 splits": (args, -(-n // 7)),
+             "splits of 32": (args, 32), "splits of 1001": (args, 1001),
+             f"N={cut}": ((vox, pts[:, :cut], lo[:, :cut], hi[:, :cut]),
+                          None)}
+    if vox.dim() == 3:
+        cases["shared voxels"] = ((vox[0], pts, lo, hi), None)
+    wants = {}
+    for what, (a, split) in cases.items():
+        key = id(a)
+        if key not in wants:
+            wants[key] = vote_cuda.vote_counts_plain(*a)
+        got = vote_cuda.vote_counts_cuda(*a, split=split)
+        again = vote_cuda.vote_counts_cuda(*a, split=split)
+        torch.cuda.synchronize()
+        err = float((got - wants[key]).abs().max())
+        out[name] = (out[name][0], max(out[name][1], err))
+        if not (torch.equal(got, wants[key]) and torch.equal(again, got)):
+            raise AssertionError(f"K1 {name} {what}: differs from the plain "
+                                 f"version (max |diff| {err}) or between "
+                                 f"runs")
+    say(f"phase 2 K1 {name} split branches ({', '.join(cases)}): each equal "
+        f"to the plain version, repeat bit for bit")
 
 
 def phase_heads(heads):
@@ -312,7 +455,54 @@ def phase_heads(heads):
             f"bit-exact")
         if serving is None:
             serving = x
+    check_heads_bwd(heads, 1, g, "phase 3")
     return serving, err
+
+
+# K2 backward cotangents: contiguous (the training layout), a width that is
+# not a multiple of 8, a contiguous view 4 bytes past a 16-byte boundary,
+# and a strided view (the generic branch)
+BWD_COTANGENTS = ("contiguous", "W % 8 != 0", "misaligned", "strided")
+
+
+def check_heads_bwd(heads, b, gen, phase):
+    """K2's backward against its plain version, bit for bit and over two
+    runs, for 2K = 2 and 6, f32 and bf16, NCHW and channels-last, from each
+    of BWD_COTANGENTS at (2K, b, H, W). Returns the max |kernel - plain|
+    (0 when bit-exact)."""
+    dev = torch.device(DEVICE)
+    err, branches = 0.0, {}
+    for c in (2, 6):
+        for kind in BWD_COTANGENTS:
+            w = W - 3 if kind == "W % 8 != 0" else W
+            if kind == "misaligned":
+                ct = torch.randn(c * b * H * w + 1, device=dev,
+                                 generator=gen)[1:].view(c, b, H, w)
+            elif kind == "strided":
+                ct = torch.randn(c, b, w, H, device=dev,
+                                 generator=gen).transpose(2, 3)
+            else:
+                ct = torch.randn(c, b, H, w, device=dev, generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                for cl in (False, True):
+                    got = heads.heads_channel_major_bwd_cuda(ct, dtype, cl)
+                    again = heads.heads_channel_major_bwd_cuda(ct, dtype, cl)
+                    want = heads.heads_channel_major_bwd_plain(ct, dtype, cl)
+                    torch.cuda.synchronize()
+                    err = max(err, float((got.float() - want.float())
+                                         .abs().max()))
+                    what = (f"K2 backward ({b},{c},{H},{w}) {kind} "
+                            f"{str(dtype)[6:]} channels_last={cl}")
+                    if not (got.stride() == want.stride()
+                            and torch.equal(got, want)
+                            and torch.equal(again, got)):
+                        raise AssertionError(f"{what}: not bit-exact")
+                    branches.setdefault(heads.bwd_branch(ct, cl), []).append(
+                        f"{c}/{kind}/{str(dtype)[6:]}/{'cl' if cl else 'nchw'}")
+    say(f"{phase} K2 backward at B={b}: {sum(map(len, branches.values()))} "
+        f"layouts bit-exact, repeat bit for bit; by branch "
+        + "; ".join(f"{k} {len(v)}" for k, v in sorted(branches.items())))
+    return err
 
 
 def phase_frame(infer, geometry):
@@ -509,34 +699,39 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
 def phase_kernel_times(k1_stages, k2_input, vote_cuda, heads):
     """Device time of each kernel, its plain version and (K2) the one
     PyTorch call with the same result, at the shapes checked in phases 2
-    and 3, beside the bound. Run after serving, so that the serving times
-    are taken before the profiler first runs."""
+    and 3, beside the bound; CUDA events behind a spin kernel (``event_ms``:
+    short profiler sessions dropped events). Run after serving, so that the
+    serving times are taken before the profiler first runs."""
     k1 = {}
+    ipp = vote_cuda.INSTRUCTIONS_PER_PAIR["K1"]
     for name, (args, _) in k1_stages.items():
         pairs = args[1].shape[0] * args[0].shape[-2] * args[1].shape[1]
-        _, ms, _ = profile_ms(lambda a=args: vote_cuda.vote_counts_cuda(*a),
-                              reps=20 if name == "exact64" else 100)
-        _, plain_ms, _ = profile_ms(
-            lambda a=args: vote_cuda.vote_counts_plain(*a), reps=2)
-        bound_ms = pairs * OPS_PER_PAIR / PEAK_FP32_FLOPS * 1e3
+        ms = event_ms(lambda a=args: vote_cuda.vote_counts_cuda(*a),
+                      reps=5 if name == "exact64" else 40)
+        plain_ms = event_ms(lambda a=args: vote_cuda.vote_counts_plain(*a),
+                            reps=2, warmup=1, repeats=1)
+        bound_ms = pairs * ipp / vote_cuda.ISSUE_RATE * 1e3
         k1[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         say(f"phase 6 K1 {name}: pairs={pairs}; device ms: kernel "
             f"{ms:.4f}, plain {plain_ms:.3f}, bound {bound_ms:.4f} "
-            f"({OPS_PER_PAIR} ops/pair at {PEAK_FP32_FLOPS / 1e12:.0f} "
-            f"TFLOP/s)")
+            f"({ipp} instructions a pair at "
+            f"{vote_cuda.ISSUE_RATE / 1e12:.2f} T/s; "
+            f"{100 * bound_ms / ms:.1f}%)")
+    frame = {k: sum(k1[s][k] for s in ("coarse", "refine"))
+             for k in ("ms", "bound_ms")}
+    say(f"phase 6 K1 serving frame (coarse + refine): {frame['ms']:.4f} ms, "
+        f"bound {frame['bound_ms']:.4f} "
+        f"({100 * frame['bound_ms'] / frame['ms']:.1f}%)")
     x = k2_input
-    k_wall, ms, _ = profile_ms(lambda: heads.heads_channel_major_cuda(x),
-                               reps=200)
-    _, plain_ms, _ = profile_ms(lambda: heads.heads_channel_major_plain(x),
-                                reps=200)
-    _, library_ms, _ = profile_ms(
-        lambda: x.float().permute(1, 0, 2, 3).contiguous(), reps=200)
+    ms = event_ms(lambda: heads.heads_channel_major_cuda(x), reps=100)
+    plain_ms = event_ms(lambda: heads.heads_channel_major_plain(x), reps=100)
+    library_ms = event_ms(
+        lambda: x.float().permute(1, 0, 2, 3).contiguous(), reps=100)
     nbytes = x.numel() * (x.element_size() + 4)
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     say(f"phase 6 K2 {tuple(x.shape)} bf16 channels-last: device ms: "
-        f"kernel {ms:.4f}, plain {plain_ms:.4f}, library {library_ms:.4f}, "
-        f"bound {bound_ms:.5f} ({nbytes} bytes); kernel wall per call "
-        f"{k_wall:.4f} ms (host clock, profiler on)")
+        f"kernel {ms:.5f}, plain {plain_ms:.5f}, library {library_ms:.5f}, "
+        f"bound {bound_ms:.5f} ({nbytes} bytes)")
     k2 = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
               bound_ms=bound_ms)
     return k1, k2
@@ -633,20 +828,8 @@ def phase_conv_kernels(mmconv, heads):
             f"K4 {e4:.3g}, repeat bit for bit; plans "
             + "; ".join(f"{p.variant} m{p.tile_m} n{p.tile_n} k{p.tile_k} "
                         f"taps {p.taps} splits {p.splits}" for p in plans))
-    for b in (1, TRAIN_BATCH):
-        for dtype, cl in ((torch.bfloat16, True), (torch.float32, False)):
-            ct = torch.randn(2, b, H, W, device=dev, generator=g)
-            got = heads.heads_channel_major_bwd_cuda(ct, dtype, cl)
-            want = heads.heads_channel_major_bwd_plain(ct, dtype, cl)
-            torch.cuda.synchronize()
-            errs["heads_channel_major_bwd"] = max(
-                errs["heads_channel_major_bwd"],
-                float((got.float() - want.float()).abs().max()))
-            if not (got.stride() == want.stride() and torch.equal(got, want)):
-                raise AssertionError(f"K2 backward ({b},2,{H},{W}) {dtype}: "
-                                     f"not bit-exact")
-            say(f"phase 7 K2 backward ({b},2,{H},{W}) {dtype} channels_last="
-                f"{cl}: bit-exact")
+    errs["heads_channel_major_bwd"] = check_heads_bwd(heads, TRAIN_BATCH, g,
+                                                      "phase 7")
     return errs
 
 
@@ -916,9 +1099,9 @@ def serve_restored(config, train_mod, checkpoint, infer, ckpt, trainer, cfg):
 def phase_train_kernel_times(mmconv, heads):
     """Device ms of K3 (forward and dx), K4 and K2's backward at the
     training shapes, their plain versions, the PyTorch call for the same
-    function, and the bound. Returns per-kernel sums over one step. The
-    convs are timed with CUDA events (the profiler dropped events over
-    many short sessions), K2's backward with the profiler."""
+    function, and the bound. Returns per-kernel sums over one step. All
+    are timed with CUDA events behind a spin kernel (the profiler dropped
+    events over many short sessions)."""
     import torch.nn.functional as F
 
     dev = torch.device(DEVICE)
@@ -981,21 +1164,23 @@ def phase_train_kernel_times(mmconv, heads):
             f"GFLOP each, device ms: " + "; ".join(parts))
         del x, kern, gy, kt
     ct = torch.randn(2, TRAIN_BATCH, H, W, device=dev, generator=g)
-    _, ms, _ = profile_ms(
-        lambda: heads.heads_channel_major_bwd_cuda(ct, bf, True), reps=50)
-    _, plain_ms, _ = profile_ms(
-        lambda: heads.heads_channel_major_bwd_plain(ct, bf, True), reps=50)
-    _, lib_ms, _ = profile_ms(
+    ms = event_ms(lambda: heads.heads_channel_major_bwd_cuda(ct, bf, True),
+                  reps=100)
+    plain_ms = event_ms(
+        lambda: heads.heads_channel_major_bwd_plain(ct, bf, True), reps=100)
+    lib_ms = event_ms(
         lambda: ct.permute(1, 0, 2, 3).to(bf, memory_format=torch.channels_last),
-        reps=50)
+        reps=100)
     nbytes = ct.numel() * (4 + 2)
     tot["heads_channel_major_bwd"] = dict(
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+    bound = tot["heads_channel_major_bwd"]["bound_ms"]
     say(f"phase 9 K2 backward ({TRAIN_BATCH},2,{H},{W}) f32 -> bf16 "
-        f"channels-last: device ms kernel {ms:.4f}, plain {plain_ms:.4f}, "
-        f"library {lib_ms:.4f}, bound "
-        f"{tot['heads_channel_major_bwd']['bound_ms']:.5f} ({nbytes} bytes)")
+        f"channels-last ({heads.bwd_branch(ct, True)} branch): device ms "
+        f"kernel {ms:.5f}, plain {plain_ms:.5f}, library {lib_ms:.5f} "
+        f"({ms / lib_ms:.2f}x), bound {bound:.5f} ({100 * bound / ms:.1f}%, "
+        f"{nbytes} bytes)")
     for n in ("conv_same", "conv_same_dk"):
         t = tot[n]
         say(f"phase 9 {n} per step: device ms kernel {t['ms']:.3f}, plain "
@@ -1008,12 +1193,6 @@ def phase_train_kernel_times(mmconv, heads):
 # The hier stages' shapes (3 keypoints a launch): serving at grid 128 with
 # topk 32 and the LM evaluator at grid 192 with topk 64.
 HIER_CONFIGS = (("serving", 128, 32), ("lm", 192, 64))
-# Operations per (voxel, point) pair of K5 (3 mul, 4 add, 2 compare, the
-# and, the count add) and bf16 operations per pair of K6 (3 sub, 3 mul,
-# 2 add, in bf162 pair forms at twice the FP32 rate).
-OPS_PER_PAIR_MXU = 11
-OPS_PER_PAIR_BF16 = 8
-PEAK_BF16_PAIR_FLOPS = 2 * PEAK_FP32_FLOPS
 LM_FRAMES = 4
 
 
@@ -1348,37 +1527,38 @@ def phase_variant_times(stages, vote_cuda, best_tile):
     best tile, at the phase-10 stages, beside their plain versions and
     bounds. Returns the sums over the LM evaluator's two stages (one
     hier frame of 3 keypoints) by kernel name."""
+    ipp = vote_cuda.INSTRUCTIONS_PER_PAIR
     kernels = {
         "vote_counts_mxu": (
             vote_cuda.vote_counts_mxu_cuda, vote_cuda.vote_counts_mxu_plain,
-            OPS_PER_PAIR_MXU, PEAK_FP32_FLOPS, ()),
+            ipp["K5"], ()),
         "vote_counts_bf16": (
             vote_cuda.vote_counts_bf16_cuda, vote_cuda.vote_counts_bf16_plain,
-            OPS_PER_PAIR_BF16, PEAK_BF16_PAIR_FLOPS, ("f32",)),
+            ipp["K6 f32"], ("f32",)),
         "vote_counts_bf16 (bf16 compare)": (
             vote_cuda.vote_counts_bf16_cuda, vote_cuda.vote_counts_bf16_plain,
-            OPS_PER_PAIR_BF16, PEAK_BF16_PAIR_FLOPS, ("bf16",)),
+            ipp["K6 bf16"], ("bf16",)),
         "vote_counts_tiled": (
             lambda *a: vote_cuda.vote_counts_cuda(*a, tile=best_tile),
-            vote_cuda.vote_counts_plain, OPS_PER_PAIR, PEAK_FP32_FLOPS, ()),
+            vote_cuda.vote_counts_plain, ipp["K1"], ()),
         "vote_counts (default tile)": (
             vote_cuda.vote_counts_cuda, vote_cuda.vote_counts_plain,
-            OPS_PER_PAIR, PEAK_FP32_FLOPS, ()),
+            ipp["K1"], ()),
     }
     tot = {}
-    for kname, (kern, plain, ops, peak, extra) in kernels.items():
+    for kname, (kern, plain, ops, extra) in kernels.items():
         t = tot.setdefault(kname, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0))
         parts = []
         for name, args in stages.items():
             pairs = args[1].shape[0] * args[0].shape[-2] * args[1].shape[1]
-            _, ms, _ = profile_ms(lambda a=args: kern(*a, *extra), reps=20)
-            bound = pairs * ops / peak * 1e3
-            parts.append(f"{name} {ms:.4f} (bound {bound:.4f}, {pairs} "
-                         f"pairs)")
+            ms = event_ms(lambda a=args: kern(*a, *extra), reps=20)
+            bound = pairs * ops / vote_cuda.ISSUE_RATE * 1e3
+            parts.append(f"{name} {ms:.4f} (bound {bound:.4f}, "
+                         f"{100 * bound / ms:.1f}%, {pairs} pairs)")
             if name.startswith("lm "):
                 # the plain versions only where the kernels line reads them
-                _, plain_ms, _ = profile_ms(
-                    lambda a=args: plain(*a, *extra), reps=1)
+                plain_ms = event_ms(lambda a=args: plain(*a, *extra), reps=1,
+                                    warmup=1, repeats=1)
                 parts[-1] = parts[-1][:-1] + f", plain {plain_ms:.3f})"
                 t["ms"] += ms
                 t["plain_ms"] += plain_ms
@@ -1417,7 +1597,7 @@ def main():
         say(f"phase {phase} took {seconds[phase]} s")
         return out
 
-    run(1, phase_build)
+    run(1, phase_build, vote_cuda)
     k1_stages = run(2, phase_vote, voting, vote_cuda)
     k2_input, k2_err = run(3, phase_heads, heads)
     run(4, phase_frame, infer, geometry)

@@ -24,16 +24,33 @@
 // The backward (heads_channel_major_bwd_*) is the same relayout in reverse,
 // the VJP of _pinned_copy (layout.py _pinned_identity_bwd) fused with the
 // transpose and the cast back to conv8's dtype: in[b, c, h, w] =
-// round(g[c, b, h, w]) for the f32 (2K, B, H, W) cotangent with any strides
-// (the grads of the seg and radial views arrive as one tensor that need not
-// be contiguous), written in the forward input's dtype and strides. bf16
-// rounds to nearest even (__float2bfloat16_rn), as .to(torch.bfloat16)
-// does, so the result is bit-identical to
-// g.permute(1, 0, 2, 3).to(dtype) laid out like the input. The wrapper
-// orders the four dims by the output's strides, outermost first, so that
-// neighbouring threads write neighbouring addresses; reads follow g's
-// strides. Bound: device memory, 4 bytes read and 2 or 4 written per
-// element.
+// round(g[c, b, h, w]) for the f32 (2K, B, H, W) cotangent, written in the
+// forward input's dtype and strides. bf16 rounds to nearest even
+// (__float2bfloat16_rn), as .to(torch.bfloat16) does, so the result is
+// bit-identical to g.permute(1, 0, 2, 3).to(dtype) laid out like the input.
+//
+// Bound: device memory, 4 bytes read and 2 or 4 written per element. At
+// training, (4, 2, 480, 640) f32 -> bf16 channels-last moves 14.7 MB: 4.4 us
+// at 3.35 TB/s. A thread per element with the (c, b, h, w) index decomposed
+// by runtime divisions spends about 120 instructions an element and is
+// bound by that arithmetic (10.7 us), so the backward takes three branches,
+// chosen by the wrapper (ops/heads.py bwd_branch):
+// - ROWS: g contiguous, the output channels-last (B, H, W, 2K) with 2K in
+//   2/4/6/8 (training's layout: autograd sums the seg and radial slice
+//   grads into a fresh contiguous g). A thread owns a run of 8 consecutive
+//   w of one (b, h) row: it reads two float4s from each of the 2K planes
+//   (16-byte loads, neighbouring threads on neighbouring addresses), and
+//   writes the 8 * 2K interleaved values as 16-byte stores. Its index
+//   costs one division (the row) a thread, none an element.
+// - PLANES: g contiguous, the output NCHW: output plane (b, c) is g's plane
+//   (c, b), so a thread converts 8 consecutive elements of one plane (two
+//   float4 loads, one or two 16-byte stores); the plane is the block's y.
+// - GENERIC: any other g (a strided view) or channel count: one thread an
+//   element, the output's dims ordered by its strides (the wrapper's), reads
+//   following g's strides.
+// In ROWS and PLANES a run whose addresses are not all 16-byte aligned (a
+// row tail where W or H * W is not a multiple of 8, a view at an odd
+// offset) is done with scalar loads and stores by the same thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,18 +98,144 @@ channel_major_bwd_kernel(const float* __restrict__ g, T* __restrict__ out,
   }
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+// Eight consecutive values to a 16-byte aligned address: two float4 stores
+// in f32, one 16-byte store of four bf162 pairs in bf16 (each value rounded
+// to nearest even, low half at the lower address).
+__device__ __forceinline__ void store8(const float* v, float* out) {
+  reinterpret_cast<float4*>(out)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(out)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&p);
+}
+__device__ __forceinline__ void store8(const float* v, __nv_bfloat16* out) {
+  *reinterpret_cast<uint4*>(out) = make_uint4(
+      bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+      bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
+}
+
+// Eight consecutive floats from a 16-byte aligned address.
+__device__ __forceinline__ void load8(const float* src, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(src)[0];
+  const float4 b = reinterpret_cast<const float4*>(src)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// ROWS: g contiguous (kC, B, H, W), the output channels-last (B, H, W, kC).
+// Thread i owns w0 = 8 * (i % runs) .. +7 of row (b * H + h) = i / runs.
+template <typename T, int kC>
+__global__ void __launch_bounds__(kThreads)
+bwd_rows_kernel(const float* __restrict__ g, T* __restrict__ out, int rows,
+                int width, long long plane) {
+  const int runs = (width + 7) >> 3;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= rows * runs) return;
+  const int row = i / runs;
+  const int w0 = (i - row * runs) * 8;
+  const int n = min(8, width - w0);
+  const long long pix = static_cast<long long>(row) * width + w0;
+  const float* src = g + pix;
+  T* dst = out + pix * kC;
+  bool vec = n == 8 && aligned16(dst);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) vec = vec && aligned16(src + c * plane);
+  if (vec) {
+    float v[8 * kC];  // in the output's order: w-major, c-minor
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float p[8];
+      load8(src + c * plane, p);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k * kC + c] = p[k];
+    }
+#pragma unroll
+    for (int q = 0; q < kC; ++q) store8(v + 8 * q, dst + 8 * q);
+  } else {
+    for (int k = 0; k < n; ++k) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        from_f32(src[c * plane + k], dst + k * kC + c);
+      }
+    }
+  }
+}
+
+// PLANES: g contiguous (C, B, H, W), the output NCHW (B, C, H, W): output
+// plane blockIdx.y = b * C + c is g's plane c * B + b; thread i converts
+// elements 8i .. 8i + 7 of it.
 template <typename T>
-int launch_bwd(const void* g, void* out, const int* sizes,
-               const int* g_strides, const int* out_strides, void* stream) {
+__global__ void __launch_bounds__(kThreads)
+bwd_planes_kernel(const float* __restrict__ g, T* __restrict__ out,
+                  int batch, int chans, int plane) {
+  const int p = blockIdx.y;
+  const int b = p / chans;
+  const int c = p - b * chans;
+  const int e0 = (blockIdx.x * kThreads + threadIdx.x) * 8;
+  if (e0 >= plane) return;
+  const int n = min(8, plane - e0);
+  const float* src =
+      g + (static_cast<long long>(c) * batch + b) * plane + e0;
+  T* dst = out + static_cast<long long>(p) * plane + e0;
+  if (n == 8 && aligned16(src) && aligned16(dst)) {
+    float v[8];
+    load8(src, v);
+    store8(v, dst);
+  } else {
+    for (int k = 0; k < n; ++k) from_f32(src[k], dst + k);
+  }
+}
+
+enum BwdBranch { kGeneric = 0, kPlanes = 1, kRows = 2 };
+
+template <typename T, int kC>
+int launch_rows(const float* g, T* out, const int* sizes, cudaStream_t s) {
+  const int rows = sizes[0] * sizes[1];
+  const int runs = (sizes[2] + 7) / 8;
+  const int blocks = (rows * runs + kThreads - 1) / kThreads;
+  bwd_rows_kernel<T, kC><<<blocks, kThreads, 0, s>>>(
+      g, out, rows, sizes[2],
+      static_cast<long long>(rows) * sizes[2]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* g_v, void* out_v, const int* sizes,
+               const int* g_strides, const int* out_strides, int branch,
+               void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* g = static_cast<const float*>(g_v);
+  auto* out = static_cast<T*>(out_v);
+  if (branch == kRows) {  // sizes (B, H, W, C)
+    switch (sizes[3]) {
+      case 2: return launch_rows<T, 2>(g, out, sizes, s);
+      case 4: return launch_rows<T, 4>(g, out, sizes, s);
+      case 6: return launch_rows<T, 6>(g, out, sizes, s);
+      case 8: return launch_rows<T, 8>(g, out, sizes, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (branch == kPlanes) {  // sizes (B, C, H, W)
+    const int plane = sizes[2] * sizes[3];
+    const dim3 grid((plane + 8 * kThreads - 1) / (8 * kThreads),
+                    sizes[0] * sizes[1]);
+    bwd_planes_kernel<T><<<grid, kThreads, 0, s>>>(g, out, sizes[0],
+                                                   sizes[1], plane);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (branch != kGeneric) return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{sizes[0], sizes[1], sizes[2], sizes[3],
                g_strides[0], g_strides[1], g_strides[2], g_strides[3],
                out_strides[0], out_strides[1], out_strides[2],
                out_strides[3]};
   const int total = d.n0 * d.n1 * d.n2 * d.n3;
   const int blocks = std::min((total + kThreads - 1) / kThreads, 65535 * 16);
-  channel_major_bwd_kernel<T><<<blocks, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<T*>(out), d);
+  channel_major_bwd_kernel<T><<<blocks, kThreads, 0, s>>>(g, out, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -151,21 +294,26 @@ extern "C" int heads_channel_major_bf16(const void* in, void* out, int batch,
 }
 
 // g: the f32 cotangent; out: the (B, 2K, H, W) gradient of the forward's
-// input. sizes/g_strides/out_strides: four dims in the output's memory
-// order, outermost first (element strides). Returns cudaGetLastError().
+// input. branch: 0 GENERIC (sizes/g_strides/out_strides: four dims in the
+// output's memory order, outermost first, element strides), 1 PLANES
+// (sizes (B, 2K, H, W), g contiguous, out NCHW), 2 ROWS (sizes
+// (B, H, W, 2K), g contiguous, out channels-last, 2K in 2/4/6/8); the
+// strides are read by GENERIC only. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a branch or channel count it does not take.
 extern "C" int heads_channel_major_bwd_f32(const void* g, void* out,
                                            const int* sizes,
                                            const int* g_strides,
                                            const int* out_strides,
-                                           void* stream) {
-  return launch_bwd<float>(g, out, sizes, g_strides, out_strides, stream);
+                                           int branch, void* stream) {
+  return launch_bwd<float>(g, out, sizes, g_strides, out_strides, branch,
+                           stream);
 }
 
 extern "C" int heads_channel_major_bwd_bf16(const void* g, void* out,
                                             const int* sizes,
                                             const int* g_strides,
                                             const int* out_strides,
-                                            void* stream) {
+                                            int branch, void* stream) {
   return launch_bwd<__nv_bfloat16>(g, out, sizes, g_strides, out_strides,
-                                   stream);
+                                   branch, stream);
 }

@@ -7,8 +7,12 @@
 // vote. Voxels may be shared by the whole batch (the coarse stage) or given
 // per batch entry (the refine windows): vox_shared selects a batch stride
 // of 0. Ragged edges (voxels and points) are masked here, so callers pad
-// nothing. Each thread keeps its counts in registers as ints, written once
-// as f32: no atomics, so the counts are deterministic.
+// nothing. K5 and K6 keep each thread's counts in registers as ints,
+// written once as f32, with no atomics. K1 splits the point axis across
+// blocks and adds each block's integer counts into a zeroed f32 output
+// with atomicAdd; every partial sum is an integer below 2^24 (the wrapper
+// refuses N >= 2^24), so every f32 add is exact, the result does not
+// depend on the order, and the counts stay deterministic.
 //
 // ---------------------------------------------------------------------------
 // K1. Replaces rcvpose_tpu/ops/vote_pallas.py vote_counts_pallas
@@ -22,29 +26,42 @@
 // version in ops/vote_cuda.py writes the same expression as separate
 // elementwise ops, and the counts agree exactly.
 //
-// Bound: FP32 ALU. About 12 operations per (voxel, point) pair (3 sub,
-// 3 mul, 2 add, 2 compare, the and and the count add) and no memory traffic
-// per pair. The serving frame makes 3 * (32768 * 1024 + 16384 * 8192),
-// about 5.0e8 pairs (hier: coarse stage at grid 128 with every 8th point,
-// refine stage with 32 windows of 8^3 voxels and every point), so about
-// 6e9 operations: 0.09 ms at the H100 SXM's 67 TFLOP/s non-tensor FP32 rate.
+// Bound: the issue rate. Each (voxel, point) pair needs 11 separately
+// rounded or integer instructions (3 sub, 3 mul, 2 add, 2 compares, the
+// predicated count add: count_in_band) and no memory traffic. None is an FMA, so the
+// card's 67 TFLOP/s FP32 peak (which counts an FMA as two) does not apply:
+// an SM issues at most one warp instruction a clock in each of its four
+// sub-partitions, 132 * 4 * 32 * 1.98 GHz = 33.45 T lane-instructions/s.
+// The serving frame makes 3 * (32768 * 1024 + 16384 * 8192), about 5.0e8
+// pairs (hier: coarse stage at grid 128 with every 8th point, refine stage
+// with 32 windows of 8^3 voxels and every point): 0.166 ms at that rate.
 //
-// Design: the grid is (voxel tiles, batch). A block of kThreads threads
-// owns kThreads * kVpt voxels, each thread kVpt of them (strided by
-// kThreads, so the voxel loads of a warp stay coalesced). The block walks
-// the points in chunks of kChunk staged in shared memory as SoA x / y / z /
-// lo / hi, so every point is read from device memory once per block and
-// then reused by all threads from shared memory (a broadcast read); with
-// kVpt > 1 each staged point is also reused from registers kVpt times. The
-// chunk loop inside the block takes the place of the TPU kernel's
-// sequential point-chunk grid axis. The tile (threads per block, voxels
-// per thread, points per chunk) is a template parameter chosen at launch
-// from 128/256/512 x 1/2/4 x 256/512/1024/2048; the default (256, 1, 1024)
-// is the serving path's. The TPU sweep's VOX_BLOCK x PT_CHUNK tiles sized a
-// VMEM scratch; here the tile sizes a block and its shared memory (at most
-// 5 * 2048 * 4 = 40 KB, under the 48 KB of static shared memory). Every
-// tile gives the same counts, bit for bit: only the order in which a
-// thread visits the points changes, and the count is an integer.
+// Design, for that bound:
+// - Fill the card: the grid is (voxel tiles, point splits, batch). A
+//   block owns kThreads * kVpt voxels and a split of the points; the split
+//   comes from the wrapper's planner (ops/vote_cuda.py plan_votes), which
+//   makes enough blocks for 32 resident warps an SM (4 blocks of 256
+//   threads) at the serving and LM stages, where voxel tiles alone gave
+//   1.45 blocks an SM. A block with one split stores its counts; with
+//   several, each adds its partial counts (atomicAdd, skipping zeros).
+// - Feed the ALUs from registers: each thread owns kVpt voxels (strided by
+//   kThreads, so a warp's voxel loads stay coalesced), so one staged point
+//   feeds kVpt pairs. A chunk of kChunk points is staged in shared memory
+//   as float4 {x, y, z, lo} plus hi packed four points to a float4; the
+//   loop walks four points at a time with five 128-bit broadcast loads,
+//   so kVpt = 4 issues 5 / 16 of a shared load a pair (the SoA staging of
+//   PR 1 issued five 32-bit loads a pair at kVpt = 1). A chunk is padded
+//   to a multiple of four with masked points (lo = hi = 0: at most three
+//   pairs that never vote).
+// - __launch_bounds__(kThreads, 1024 / kThreads) caps a thread at 64
+//   registers, so 32 warps an SM stay resident.
+// The tile (threads per block, voxels per thread, points per chunk) is a
+// template parameter chosen at launch from 128/256/512 x 1/2/4 x
+// 256/512/1024/2048 (shared memory at most 20 * 2048 = 40 KB, under the 48
+// KB of static shared memory). Every tile and every split gives the same
+// counts, bit for bit: only the order in which the points are visited
+// changes, and the count is an integer. Nothing is culled: every pair of
+// the problem is evaluated, masked points included.
 //
 // ---------------------------------------------------------------------------
 // K5. Replaces rcvpose_tpu/ops/vote_pallas.py vote_counts_pallas_mxu
@@ -109,26 +126,42 @@ struct VoteArgs {
   int batch;
   int n_vox;
   int n_pts;
+  int split;  // K1: points a block (the last block of a row takes the rest)
   cudaStream_t stream;
 };
 
 // ----------------------------------------------------------------- K1 ----
 
+// count += (lo < d2 < hi) as two compares into one predicate and a
+// predicated add: written as C++ (count += (d2 > lo) & (d2 < hi)) it
+// compiles to an add and a predicated move, one more instruction a pair.
+// Both compares are ordered (false on a NaN), as the C++ ones are.
+__device__ __forceinline__ void count_in_band(int& count, float d2, float lo,
+                                              float hi) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.gt.f32 p, %1, %2;\n\t"
+      "setp.lt.and.f32 p, %1, %3, p;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(count)
+      : "f"(d2), "f"(lo), "f"(hi));
+}
+
 template <int kThreads, int kVpt, int kChunk>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 vote_counts_kernel(const float* __restrict__ vox, long long vox_bstride,
                    const float* __restrict__ pts,
                    const float* __restrict__ lo,
                    const float* __restrict__ hi,
-                   float* __restrict__ out, int n_vox, int n_pts) {
-  __shared__ float sx[kChunk];
-  __shared__ float sy[kChunk];
-  __shared__ float sz[kChunk];
-  __shared__ float slo[kChunk];
-  __shared__ float shi[kChunk];
+                   float* __restrict__ out, int n_vox, int n_pts, int split,
+                   int accumulate) {
+  static_assert(kChunk % 4 == 0, "points are walked four at a time");
+  __shared__ float4 spt[kChunk];      // x, y, z, lo
+  __shared__ float4 shi[kChunk / 4];  // hi of points 4g .. 4g + 3
 
-  const long long b = blockIdx.y;
+  const long long b = blockIdx.z;
   const int v0 = blockIdx.x * (kThreads * kVpt) + threadIdx.x;
+  const int p_begin = blockIdx.y * split;
+  const int p_end = min(n_pts, p_begin + split);
   float vx[kVpt], vy[kVpt], vz[kVpt];
   int count[kVpt];
 #pragma unroll
@@ -146,30 +179,40 @@ vote_counts_kernel(const float* __restrict__ vox, long long vox_bstride,
   const float* bp = pts + b * n_pts * 3LL;
   const float* bl = lo + b * n_pts;
   const float* bh = hi + b * n_pts;
+  float* shi_f = reinterpret_cast<float*>(shi);
 
-  for (int c0 = 0; c0 < n_pts; c0 += kChunk) {
-    const int n = min(kChunk, n_pts - c0);
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const long long j = c0 + i;
-      sx[i] = bp[3 * j];
-      sy[i] = bp[3 * j + 1];
-      sz[i] = bp[3 * j + 2];
-      slo[i] = bl[j];
-      shi[i] = bh[j];
+  for (int c0 = p_begin; c0 < p_end; c0 += kChunk) {
+    const int n = min(kChunk, p_end - c0);
+    const int n4 = (n + 3) & ~3;
+    for (int i = threadIdx.x; i < n4; i += kThreads) {
+      float4 p = make_float4(0.f, 0.f, 0.f, 0.f);  // masked padding
+      float h = 0.f;
+      if (i < n) {
+        const long long j = c0 + i;
+        p = make_float4(bp[3 * j], bp[3 * j + 1], bp[3 * j + 2], bl[j]);
+        h = bh[j];
+      }
+      spt[i] = p;
+      shi_f[i] = h;
     }
     __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float px = sx[i], py = sy[i], pz = sz[i];
-      const float l = slo[i], h = shi[i];
+#pragma unroll 2
+    for (int g = 0; g < n4 / 4; ++g) {
+      const float4 h4 = shi[g];
+      const float hs[4] = {h4.x, h4.y, h4.z, h4.w};
 #pragma unroll
-      for (int j = 0; j < kVpt; ++j) {
-        const float dx = __fsub_rn(vx[j], px);
-        const float dy = __fsub_rn(vy[j], py);
-        const float dz = __fsub_rn(vz[j], pz);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                             __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        count[j] += (d2 > l) & (d2 < h);
+      for (int k = 0; k < 4; ++k) {
+        const float4 p = spt[4 * g + k];
+#pragma unroll
+        for (int j = 0; j < kVpt; ++j) {
+          const float dx = __fsub_rn(vx[j], p.x);
+          const float dy = __fsub_rn(vy[j], p.y);
+          const float dz = __fsub_rn(vz[j], p.z);
+          const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                               __fmul_rn(dy, dy)),
+                                     __fmul_rn(dz, dz));
+          count_in_band(count[j], d2, p.w, hs[k]);
+        }
       }
     }
     __syncthreads();
@@ -177,19 +220,28 @@ vote_counts_kernel(const float* __restrict__ vox, long long vox_bstride,
 #pragma unroll
   for (int j = 0; j < kVpt; ++j) {
     const int v = v0 + j * kThreads;
-    if (v < n_vox) out[b * n_vox + v] = static_cast<float>(count[j]);
+    if (v >= n_vox) continue;
+    float* o = out + b * n_vox + v;
+    if (!accumulate) {
+      *o = static_cast<float>(count[j]);
+    } else if (count[j] != 0) {
+      atomicAdd(o, static_cast<float>(count[j]));
+    }
   }
 }
 
 template <int kThreads, int kVpt, int kChunk>
 int launch_k1(const VoteArgs& a) {
   constexpr int kPerBlock = kThreads * kVpt;
-  const dim3 grid((a.n_vox + kPerBlock - 1) / kPerBlock, a.batch);
+  const int splits = a.n_pts > a.split ? (a.n_pts + a.split - 1) / a.split
+                                       : 1;
+  const dim3 grid((a.n_vox + kPerBlock - 1) / kPerBlock, splits, a.batch);
   vote_counts_kernel<kThreads, kVpt, kChunk>
       <<<grid, kThreads, 0, a.stream>>>(
           static_cast<const float*>(a.vox), a.vox_bstride,
           static_cast<const float*>(a.pts), static_cast<const float*>(a.lo),
-          static_cast<const float*>(a.hi), a.out, a.n_vox, a.n_pts);
+          static_cast<const float*>(a.hi), a.out, a.n_vox, a.n_pts, a.split,
+          splits > 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,15 +414,18 @@ vote_counts_bf16_kernel(const __nv_bfloat16* __restrict__ vox,
 // vox: (V, 3) when vox_shared, else (batch, V, 3); pts: (batch, N, 3);
 // lo, hi: (batch, N); out: (batch, V). All f32, contiguous, on the device.
 // threads / vpt / chunk select K1's tile (128/256/512, 1/2/4,
-// 256/512/1024/2048). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a tile that is not instantiated.
+// 256/512/1024/2048); split (>= 1) is the points a block: with N > split
+// the ceil(N / split) blocks of a voxel tile add into out, which must then
+// hold zeros. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a tile that is not instantiated or a split < 1.
 extern "C" int vote_counts_f32(const void* vox, const void* pts,
                                const void* lo, const void* hi, void* out,
                                int vox_shared, int batch, int n_vox,
                                int n_pts, int threads, int vpt, int chunk,
-                               void* stream) {
+                               int split, void* stream) {
+  if (split < 1) return static_cast<int>(cudaErrorInvalidValue);
   const VoteArgs a{vox, vox_shared ? 0 : 3LL * n_vox, pts, lo, hi,
-                   static_cast<float*>(out), batch, n_vox, n_pts,
+                   static_cast<float*>(out), batch, n_vox, n_pts, split,
                    static_cast<cudaStream_t>(stream)};
   switch (threads) {
     case 128: return launch_k1_vpt<128>(a, vpt, chunk);

@@ -97,6 +97,27 @@ def function(name, symbol, argtypes):
         return fn
 
 
+def load_other(source):
+    """Build another ``.cu`` file (an earlier version of a source, for a
+    before-and-after timing) with the same flags into ``_build/other/`` and
+    load it; returns the ``ctypes.CDLL``. Rebuilt only when its content
+    changes."""
+    source = Path(source)
+    key = hashlib.sha256(source.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / "other" / f"lib{source.stem}_{key}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
 def check(err, what):
     """Raise if a C entry returned a CUDA error code."""
     if err != 0:

@@ -20,7 +20,12 @@ from rcvpose_tpu_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
-                 + [ctypes.c_void_p])
+                 + [ctypes.c_int, ctypes.c_void_p])
+# The backward's branches (csrc/heads.cu): one thread a run of 8 elements
+# where g is contiguous (PLANES for an NCHW output, ROWS for a channels-last
+# one with 2K in ROWS_CHANNELS), one thread an element otherwise.
+BWD_BRANCHES = ("generic", "planes", "rows")
+ROWS_CHANNELS = (2, 4, 6, 8)
 _ENTRY = {torch.float32: "heads_channel_major_f32",
           torch.bfloat16: "heads_channel_major_bf16"}
 _BWD_ENTRY = {torch.float32: "heads_channel_major_bwd_f32",
@@ -79,11 +84,26 @@ def _grad_buffer(g, dtype, channels_last):
                        memory_format=fmt)
 
 
+def bwd_branch(g, channels_last):
+    """Which branch of K2's backward takes the cotangent ``g`` (2K, B, H, W)
+    for an NCHW or channels-last output: "planes" or "rows" where ``g`` is
+    contiguous (any base offset: misaligned runs go scalar in the kernel),
+    "generic" for a strided ``g``, a channels-last 2K outside
+    ``ROWS_CHANNELS``, or more than 65535 output planes (the planes grid's
+    y)."""
+    c, b = g.shape[:2]
+    if not g.is_contiguous():
+        return "generic"
+    if channels_last:
+        return "rows" if c in ROWS_CHANNELS else "generic"
+    return "planes" if b * c <= 65535 else "generic"
+
+
 def heads_channel_major_bwd_cuda(g, dtype, channels_last=False):
     """Launch K2's backward: the f32 ``(2K, B, H, W)`` cotangent ``g`` (any
     strides) -> ``(B, 2K, H, W)`` in ``dtype``, NCHW or channels-last (the
-    forward input's dtype and layout).
-    ``heads_channel_major_bwd_cuda.launches`` counts the launches."""
+    forward input's dtype and layout), through the branch ``bwd_branch``
+    picks. ``heads_channel_major_bwd_cuda.launches`` counts the launches."""
     if g.device.type != "cuda":
         raise ValueError("heads_channel_major_bwd_cuda needs a CUDA tensor")
     if g.dim() != 4 or g.dtype != torch.float32:
@@ -95,19 +115,27 @@ def heads_channel_major_bwd_cuda(g, dtype, channels_last=False):
     res = _grad_buffer(g, dtype, channels_last)
     if res.numel() == 0:
         return res
-    # (b, c, h, w) of the output <- (c, b, h, w) of g; dims ordered by the
-    # output's strides, outermost first (a stable sort keeps b, c, h, w
-    # order among ties)
-    g_strides = dict(zip("cbhw", g.stride()))
-    dims = sorted(zip("bchw", res.shape, res.stride()), key=lambda d: -d[2])
+    branch = bwd_branch(g, channels_last)
+    c, b, h, w = g.shape
     ints = ctypes.c_int * 4
-    sizes = ints(*(n for _, n, _ in dims))
-    gs = ints(*(g_strides[name] for name, _, _ in dims))
-    os_ = ints(*(st for _, _, st in dims))
+    if branch == "generic":
+        # (b, c, h, w) of the output <- (c, b, h, w) of g; dims ordered by
+        # the output's strides, outermost first (a stable sort keeps b, c,
+        # h, w order among ties)
+        g_strides = dict(zip("cbhw", g.stride()))
+        dims = sorted(zip("bchw", res.shape, res.stride()),
+                      key=lambda d: -d[2])
+        sizes = ints(*(n for _, n, _ in dims))
+        gs = ints(*(g_strides[name] for name, _, _ in dims))
+        os_ = ints(*(st for _, _, st in dims))
+    else:
+        sizes = ints(*((b, h, w, c) if branch == "rows" else (b, c, h, w)))
+        gs = os_ = ints(0, 0, 0, 0)
     fn = _build.function("heads", _BWD_ENTRY[dtype], _BWD_ARGTYPES)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g.data_ptr(), res.data_ptr(), sizes, gs, os_, stream)
+        err = fn(g.data_ptr(), res.data_ptr(), sizes, gs, os_,
+                 BWD_BRANCHES.index(branch), stream)
     _build.check(err, _BWD_ENTRY[dtype])
     heads_channel_major_bwd_cuda.launches += 1
     return res

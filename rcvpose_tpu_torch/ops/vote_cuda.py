@@ -7,7 +7,8 @@ points are ``(B, N, 3)`` and the bands ``(B, N)``. Masked points carry
 ``lo == hi == 0`` and never vote. Three forms of d2:
 
 - **K1** (``vote_counts_cuda``): ``dx*dx + dy*dy + dz*dz`` in f32, every
-  operation rounded on its own, at a tile chosen from ``TILES``.
+  operation rounded on its own, at a tile chosen from ``TILES``, with the
+  point axis split across blocks as ``plan_votes`` says.
 - **K5** (``vote_counts_mxu_cuda``): the matmul form
   ``vx*(-2px) + vy*(-2py) + vz*(-2pz) + |v|^2 + |p|^2`` in f32.
 - **K6** (``vote_counts_bf16_cuda``): the subtract-square form in bf16,
@@ -22,6 +23,8 @@ kernel for CUDA tensors, the plain version for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import itertools
 
 import torch
@@ -31,11 +34,27 @@ from rcvpose_tpu_torch.ops import _build
 # K1 tiles: (threads per block, voxels per thread, points per staged chunk).
 TILES = tuple(itertools.product((128, 256, 512), (1, 2, 4),
                                 (256, 512, 1024, 2048)))
-DEFAULT_TILE = (256, 1, 1024)
+DEFAULT_TILE = (256, 4, 1024)
+# The H100 SXM's multiprocessors: the planner's default (the wrapper passes
+# the card's own count).
+H100_SMS = 132
+# The vote kernels' bound. None of their operations is an FMA, so the 67
+# TFLOP/s FP32 peak (an FMA counted as two) does not apply: an SM issues at
+# most one warp instruction a clock in each of its 4 sub-partitions, 132 x
+# 4 x 32 lanes x 1.98 GHz lane-instructions a second. The instructions a
+# (voxel, point) pair needs: K1 3 sub, 3 mul, 2 add, 2 compares, the
+# predicated count add; K5 3 mul, 4 add, 2 compares, the count; K6 the 8
+# sub / mul / add in bf16x2 pair forms (4 a pair), then 2 f32 compares and
+# the count ("f32" compare) or one bf16x2 compare pair and the count
+# ("bf16").
+ISSUE_RATE = H100_SMS * 4 * 32 * 1.98e9
+INSTRUCTIONS_PER_PAIR = {"K1": 11, "K5": 10, "K6 f32": 7, "K6 bf16": 6}
+# K1's counts are f32 sums of integer partial counts: exact below 2^24.
+MAX_POINTS = 1 << 24
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_K1_ARGTYPES = [_PTR] * 5 + [_INT] * 7 + [_PTR]
+_K1_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [_PTR]
 _K5_ARGTYPES = [_PTR] * 7 + [_INT] * 4 + [_PTR]
 _K6_ARGTYPES = [_PTR] * 5 + [_INT] * 5 + [_PTR]
 
@@ -85,14 +104,112 @@ def _launch(what, symbol, argtypes, args, out, b, v, n):
 # K1: subtract-square d2 in f32, at a chosen tile
 # ---------------------------------------------------------------------------
 
-def vote_counts_cuda(voxels, points, lo, hi, tile=None):
+# The planner's aim: 32 resident warps an SM (4 blocks of 256 threads).
+# csrc/vote.cu caps a K1 thread at 64 registers (__launch_bounds__(threads,
+# 1024 / threads)), so that many always fit.
+TARGET_WARPS = 32
+# Points a split is rounded to (a warp's staging width).
+SPLIT_ALIGN = 32
+_SM_THREADS = 2048
+_SM_BLOCKS = 32
+_SM_SHARED = 233472        # bytes an SM can give its blocks
+_BLOCK_RESERVED = 1024     # shared memory the runtime keeps a block
+
+
+@dataclasses.dataclass(frozen=True)
+class VotePlan:
+    """How K1 covers a (B, V, N) problem at a tile: ``splits`` blocks of
+    ``split`` points (the last takes the rest) for each of ``voxel_blocks``
+    (B times the voxel tiles). ``resident`` is the blocks an SM holds at
+    once, ``target`` the blocks an SM the planner aims for, ``blocks_per_sm``
+    what the grid gives over ``sms`` multiprocessors."""
+    tile: tuple
+    split: int
+    splits: int
+    voxel_blocks: int
+    resident: int
+    target: int
+    sms: int
+
+    @property
+    def blocks(self):
+        return self.voxel_blocks * self.splits
+
+    @property
+    def blocks_per_sm(self):
+        return self.blocks / self.sms
+
+
+def resident_blocks(tile):
+    """K1 blocks an SM holds at once at ``tile``: the least of the thread,
+    block, shared-memory (20 bytes a staged point) and register (64 a
+    thread) limits."""
+    threads, _, chunk = tile
+    return min(_SM_THREADS // threads, _SM_BLOCKS,
+               _SM_SHARED // (20 * chunk + _BLOCK_RESERVED),
+               65536 // (64 * threads))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_votes(b, v, n, tile=DEFAULT_TILE, sms=H100_SMS):
+    """Split K1's point axis so that the grid holds at least ``target``
+    blocks an SM, ``min(resident, TARGET_WARPS warps)``: the voxel tiles of
+    the serving refine stage alone give 1.45 blocks an SM at the default
+    tile. Splits are multiples of ``SPLIT_ALIGN`` points. Among the split
+    counts from the least that reaches the target to twice it, takes the
+    one that balances the SMs best (the busiest SM's share of the points
+    over the mean), then the fewest splits. Where N is too short to reach
+    the target, every split is ``SPLIT_ALIGN`` points. Pure Python; the
+    wrapper passes the card's multiprocessor count."""
+    threads, vpt, _ = tile
+    voxel_blocks = max(1, b * -(-v // (threads * vpt)))
+    resident = resident_blocks(tile)
+    target = min(resident, max(1, TARGET_WARPS * 32 // threads))
+    want = -(-target * sms // voxel_blocks)
+    max_splits = max(1, -(-n // SPLIT_ALIGN))
+
+    def split_of(s):
+        per = -(-n // s)
+        per = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
+        return max(per, 1), max(1, -(-n // max(per, 1)))
+
+    if want <= 1 or n <= SPLIT_ALIGN:
+        split, splits = max(n, 1), 1
+    elif want >= max_splits:
+        split, splits = split_of(max_splits)
+    else:
+        best = None
+        for s in range(want, min(2 * want, max_splits) + 1):
+            per, got = split_of(s)
+            if got * voxel_blocks < target * sms:
+                continue
+            # the busiest SM runs ceil(blocks / sms) blocks of `per` points
+            # against a mean of voxel_blocks * n / sms points
+            busiest = -(-got * voxel_blocks // sms) * per
+            key = (busiest, got)
+            if best is None or key < best[0]:
+                best = (key, per, got)
+        if best is None:
+            split, splits = split_of(max_splits)
+        else:
+            _, split, splits = best
+    return VotePlan(tuple(tile), split, splits, voxel_blocks, resident,
+                    target, sms)
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def vote_counts_cuda(voxels, points, lo, hi, tile=None, split=None):
     """Launch K1 on CUDA tensors; returns (B, V) f32 counts.
 
     ``tile``: ``(threads, voxels per thread, points per chunk)`` from
-    ``TILES``; None is ``DEFAULT_TILE``, the serving path's. Every tile
-    gives the same counts. ``vote_counts_cuda.launches`` counts every
-    launch, ``vote_counts_cuda.tiled_launches`` those with an explicit
-    ``tile``.
+    ``TILES``; None is ``DEFAULT_TILE``, the serving path's. ``split``:
+    points a block, None for ``plan_votes``'s choice on this card. Every
+    tile and split gives the same counts. ``vote_counts_cuda.launches``
+    counts every launch, ``vote_counts_cuda.tiled_launches`` those with an
+    explicit ``tile``.
     """
     _check_args(voxels, points, lo, hi)
     explicit = tile is not None
@@ -101,15 +218,28 @@ def vote_counts_cuda(voxels, points, lo, hi, tile=None):
         raise ValueError(f"tile {tile} is not one of the built tiles "
                          f"(threads 128/256/512, voxels per thread 1/2/4, "
                          f"chunk 256/512/1024/2048)")
+    if split is not None and int(split) < 1:
+        raise ValueError(f"split must be >= 1 point, got {split}")
     voxels, points, lo, hi = _on_card("vote_counts_cuda",
                                       (voxels, points, lo, hi))
     b, n, _ = points.shape
     v = voxels.shape[-2]
-    out = torch.empty((b, v), dtype=torch.float32, device=points.device)
+    if n >= MAX_POINTS:
+        raise ValueError(f"vote_counts_cuda: N = {n} points; the f32 counts "
+                         f"are exact only below 2^24")
+    if split is None:
+        split = plan_votes(b, v, n, tile, _sm_count(points.device)).split
+    split = min(int(split), max(n, 1))
+    splits = -(-n // split) if n > split else 1
+    if splits > 65535 or b > 65535:
+        raise ValueError(f"vote_counts_cuda: {splits} point splits, batch "
+                         f"{b} (grid y and z hold 65535)")
+    alloc = torch.zeros if splits > 1 else torch.empty
+    out = alloc((b, v), dtype=torch.float32, device=points.device)
     _launch("vote_counts_cuda", "vote_counts_f32", _K1_ARGTYPES,
             (voxels.data_ptr(), points.data_ptr(), lo.data_ptr(),
              hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v, n,
-             *tile), out, b, v, n)
+             *tile, int(split)), out, b, v, n)
     if b and v:
         vote_counts_cuda.launches += 1
         vote_counts_cuda.tiled_launches += explicit

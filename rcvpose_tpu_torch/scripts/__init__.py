@@ -1,31 +1,39 @@
 """Measurement entry points of the port, run on the CUDA card:
 
+    python -m rcvpose_tpu_torch.scripts.prof_vote [--old OLD.cu]
+        [--old-heads OLD.cu] [--tiles]
     python -m rcvpose_tpu_torch.scripts.prof_vote_tiles
     python -m rcvpose_tpu_torch.scripts.prof_vote_bf16
+    python -m rcvpose_tpu_torch.scripts.prof_conv [--old OLD.cu]
 
-Both need the card and raise without one. ``device_ms`` and
-``coarse_problem`` are shared by them.
+Each needs the card and raises without one. ``device_ms``, ``card_line``,
+``coarse_problem`` and ``hier_problem`` are shared by them.
 """
 
 from __future__ import annotations
 
+import math
+import subprocess
+
 import numpy as np
 import torch
 
-# Cycles of the spin kernel queued ahead of a timed run: about 10 ms, long
-# enough for the host to queue every timed launch behind it.
-_SPIN_CYCLES = 20_000_000
+# Cycles of the spin kernel queued ahead of a timed run: about 25 ms, long
+# enough for the host to queue every timed launch behind it (keep reps x
+# the host's ~30 us a call well under it).
+_SPIN_CYCLES = 50_000_000
 
 
-def device_ms(fn, reps=20, repeats=5):
+def device_ms(fn, reps=20, repeats=5, warmup=1):
     """Median over ``repeats`` of the device ms of one call of ``fn``.
 
-    Each repeat queues a spin kernel, then a start event, ``reps`` calls and
-    an end event; the host enqueues the calls while the spin runs, so the
-    events time the device's work back to back rather than the host's
-    launch rate.
+    After ``warmup`` calls, each repeat queues a spin kernel, then a start
+    event, ``reps`` calls and an end event; the host enqueues the calls
+    while the spin runs, so the events time the device's work back to back
+    rather than the host's launch rate.
     """
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
@@ -39,6 +47,15 @@ def device_ms(fn, reps=20, repeats=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def coarse_problem(n, v, slack, seed, device):
@@ -59,3 +76,47 @@ def coarse_problem(n, v, slack, seed, device):
         return torch.tensor(x, dtype=torch.float32, device=device)
 
     return put(voxels), put(points[None]), put(lo[None]), put(hi[None])
+
+
+def hier_problem(grid_l, topk, seed=0, n_points=8192, device="cpu"):
+    """The hier accumulator's two K1 stages for three keypoints voting from
+    one synthetic object: ``n_points`` points on a 3-5 cm shell around a
+    center 0.8 m out, about 10% of them masked, radii from three keypoints
+    about 8 cm off. Returns ``{"coarse": args, "refine": args}``, each
+    ``(voxels, points, lo, hi)`` for ``vote_counts_*``: the coarse stage
+    votes every 8th point on the grid-``grid_l / 4`` cell centers (shared
+    voxels, widened band), the refine stage every point in the 8^3 windows
+    around the ``topk`` best coarse cells (per-keypoint voxels, exact
+    band); the windows come from ``voting.vote_counts`` on ``device``."""
+    from rcvpose_tpu_torch.ops import voting
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    center = np.array([0.05, -0.03, 0.8])
+    dirs = rng.normal(size=(n_points, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    cloud = center + dirs * rng.uniform(0.03, 0.05, size=(n_points, 1))
+    kpts = center + rng.normal(size=(3, 3)) * 0.08
+    radial = np.linalg.norm(cloud[None] - kpts[:, None], axis=-1) * 10.0
+    mask = torch.tensor(rng.uniform(size=(3, n_points)) >= 0.1, device=dev)
+    xyz = torch.tensor(np.broadcast_to(cloud, (3, n_points, 3)),
+                       dtype=torch.float32, device=dev)
+    pts, rr, _, _, _ = voting._prepare(
+        xyz, torch.tensor(radial, dtype=torch.float32, device=dev), mask)
+    co = voting._COARSE
+    lc = grid_l // co
+    coarse = (voting.enumerate_grid(lc, dev) + 0.5) * co - 0.5
+    slack = voting.VOTE_BAND + math.sqrt(3.0) * co / 2.0
+    lo_c, hi_c = voting.widened_band(rr, mask, slack)
+    s = voting._CPT_STRIDE
+    stages = {"coarse": (coarse, pts[:, ::s].contiguous(),
+                         lo_c[:, ::s].contiguous(), hi_c[:, ::s].contiguous())}
+    top = voting._top_indices(voting.vote_counts(*stages["coarse"]), topk)
+    win = voting._WIN
+    bases = torch.clamp(voting._unravel3(top, lc) * co - (win - co) // 2, 0,
+                        grid_l - win)
+    win_vox = (bases[:, :, None, :]
+               + voting.enumerate_grid(win, dev)[None, None]).reshape(3, -1, 3)
+    lo_f, hi_f = voting.exact_band(rr, mask)
+    stages["refine"] = (win_vox, pts, lo_f, hi_f)
+    return stages

@@ -26,15 +26,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from rcvpose_tpu_torch.ops import _build, mmconv
-from rcvpose_tpu_torch.scripts import device_ms
+from rcvpose_tpu_torch.scripts import card_line, device_ms
 from rcvpose_tpu_torch.utils import resolve_device
 
 BATCH = 4
@@ -49,12 +47,9 @@ PROMOTE_SHAPES = [("conv_up5", (BATCH, 15, 20, 3072, 1024)),
 
 
 def old_kernels(source):
-    """(K3, K4) callables of an older mmconv.cu, built into a temporary
-    directory with the current flags."""
-    out = Path(tempfile.mkdtemp()) / "libmmconv_old.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                    str(source)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    """(K3, K4) callables of an older mmconv.cu, built with the current
+    flags (``_build.load_other``)."""
+    lib = _build.load_other(source)
     fwd, dk = lib.conv_same_bf16, lib.conv_same_dk_bf16
     fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
@@ -165,10 +160,7 @@ def run(old=None, promote=(), reps=10):
     dev = resolve_device(None)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     olds = old_kernels(old) if old else None
     rows = []

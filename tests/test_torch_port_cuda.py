@@ -106,6 +106,41 @@ def test_vote_counts_cuda_refuses_unbuilt_tile(cuda):
         vote_cuda.vote_counts_cuda(*args, tile=(1024, 1, 256))
 
 
+# K1's split branches on a (3, 4096, 8155) problem (N off every chunk and
+# split multiple): the planner's split, one split (stores, no atomics), 2
+# and 7 splits, splits of 32 and 1001 points; and the planner on shared
+# voxels
+SPLIT_CASES = ["planner", "one", 2, 7, "32", "1001", "shared"]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_vote_counts_cuda_every_split_branch(cuda, case):
+    """K1 equals its plain version exactly at each branch of its point
+    split, and two runs agree bit for bit (the split blocks' atomic adds
+    are of integers below 2^24)."""
+    pts, radii, mask, vox = _band_problem(6, 3, 8155, 4096)
+    lo, hi = voting.exact_band(radii, mask)
+    args = [t.to(cuda) for t in (vox, pts, lo, hi)]
+    n = args[1].shape[1]
+    split = {"planner": None, "one": n, 2: -(-n // 2), 7: -(-n // 7),
+             "32": 32, "1001": 1001, "shared": None}[case]
+    if case == "shared":
+        args[0] = args[0][0]
+    got = vote_cuda.vote_counts_cuda(*args, split=split)
+    again = vote_cuda.vote_counts_cuda(*args, split=split)
+    torch.cuda.synchronize()
+    assert torch.equal(got, vote_cuda.vote_counts_plain(*args))
+    assert torch.equal(again, got)
+
+
+def test_vote_counts_cuda_refuses_2_24_points(cuda):
+    args = [torch.zeros(s, device=cuda) for s in ((4, 3), (1, 1 << 24, 3),
+                                                   (1, 1 << 24),
+                                                   (1, 1 << 24))]
+    with pytest.raises(ValueError, match="2\\^24"):
+        vote_cuda.vote_counts_cuda(*args)
+
+
 @pytest.mark.parametrize("case", VARIANT_CASES, ids=str)
 def test_vote_counts_mxu_cuda_matches_plain(cuda, case):
     """K5 equals its own plain version exactly (never K1: the matmul
@@ -175,6 +210,36 @@ def test_heads_bwd_cuda_matches_plain(cuda, dtype, channels_last, cotangent):
     assert got.dtype == dtype and got.stride() == want.stride()
     assert torch.equal(got, want)
     assert torch.equal(got.float(), ct.permute(1, 0, 2, 3).to(dtype).float())
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["contiguous", "W % 8 != 0", "misaligned",
+                                  "strided"])
+@pytest.mark.parametrize("c", [2, 6])
+def test_heads_bwd_cuda_every_branch(cuda, c, kind, dtype, channels_last):
+    """K2's backward bit for bit at each branch and layout: the vectorized
+    rows (channels-last) and planes (NCHW) branches from a contiguous g,
+    their scalar runs (a width off a multiple of 8, a base 4 bytes past a
+    16-byte boundary), the generic branch from a strided g; repeatable."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, h, w = 2, 24, 61 if kind == "W % 8 != 0" else 64
+    if kind == "misaligned":
+        ct = torch.randn(c * b * h * w + 1, device=cuda,
+                         generator=g)[1:].view(c, b, h, w)
+    elif kind == "strided":
+        ct = torch.randn(c, b, w, h, device=cuda, generator=g).transpose(2, 3)
+    else:
+        ct = torch.randn(c, b, h, w, device=cuda, generator=g)
+    want_branch = ("generic" if kind == "strided"
+                   else "rows" if channels_last else "planes")
+    assert heads.bwd_branch(ct, channels_last) == want_branch
+    got = heads.heads_channel_major_bwd_cuda(ct, dtype, channels_last)
+    again = heads.heads_channel_major_bwd_cuda(ct, dtype, channels_last)
+    want = heads.heads_channel_major_bwd_plain(ct, dtype, channels_last)
+    torch.cuda.synchronize()
+    assert got.stride() == want.stride()
+    assert torch.equal(got, want) and torch.equal(again, got)
 
 
 # (B, H, W, C, D, K): H, W and C off the tiles' multiples, channel counts

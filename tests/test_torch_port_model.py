@@ -117,3 +117,45 @@ def test_head_split_plain_matches_jax(dtype, channels_last):
     jseg, jrad = jax_fcn._split_heads(jnp.asarray(nhwc))
     np.testing.assert_array_equal(seg.numpy(), np.asarray(jseg))
     np.testing.assert_array_equal(rad.numpy(), np.asarray(jrad))
+
+
+def _cotangent(kind, c, b=3, h=5, w=16):
+    """A (2K, B, H, W) f32 cotangent laid out as ``kind``."""
+    if kind == "strided":
+        return torch.zeros(c, b, w, h).transpose(2, 3)
+    if kind == "permuted":
+        return torch.zeros(b, c, h, w).permute(1, 0, 2, 3)
+    if kind == "misaligned":
+        return torch.zeros(c * b * h * w + 1)[1:].view(c, b, h, w)
+    return torch.zeros(c, b, h, w)
+
+
+@pytest.mark.parametrize("kind,c,channels_last,branch", [
+    ("contiguous", 2, True, "rows"), ("contiguous", 6, True, "rows"),
+    ("contiguous", 8, True, "rows"), ("contiguous", 10, True, "generic"),
+    ("contiguous", 2, False, "planes"), ("contiguous", 6, False, "planes"),
+    ("misaligned", 2, True, "rows"), ("misaligned", 6, False, "planes"),
+    ("strided", 2, True, "generic"), ("strided", 2, False, "generic"),
+    ("permuted", 6, True, "generic"), ("permuted", 2, False, "generic")])
+def test_head_split_backward_branch(kind, c, channels_last, branch):
+    """K2's backward takes its vectorized branches exactly where g is
+    contiguous (a misaligned base included: such runs go scalar inside the
+    kernel), "rows" only for a 2K it is built for, and "generic" for every
+    strided g; the plain backward is the same relayout on each."""
+    g = _cotangent(kind, c)
+    assert heads.bwd_branch(g, channels_last) == branch
+    g = torch.arange(g.numel(), dtype=torch.float32).reshape(
+        g.shape).as_strided(g.shape, g.stride()) if kind == "contiguous" \
+        else g.copy_(torch.randn(g.shape))
+    got = heads.heads_channel_major_bwd_plain(g, torch.bfloat16,
+                                              channels_last)
+    assert torch.equal(got, g.permute(1, 0, 2, 3).to(torch.bfloat16))
+    assert heads._is_channels_last(got) == channels_last
+
+
+def test_head_split_backward_branch_many_planes():
+    """An NCHW output of more than 65535 planes (the planes grid's y) takes
+    the generic branch."""
+    g = torch.empty(2, 40000, 1, 1)
+    assert heads.bwd_branch(g, False) == "generic"
+    assert heads.bwd_branch(torch.empty(2, 30000, 1, 1), False) == "planes"

@@ -1,5 +1,6 @@
 """The plain versions of K5 (matmul-form d2), K6 (bf16 pair arithmetic)
-and K1's tiles against the JAX package on the CPU.
+and K1's tiles against the JAX package on the CPU, and K1's point-split
+planner.
 
 K5 is held against ``vote_pallas.vote_counts_pallas_mxu`` in interpret
 mode, K6 against ``vote_pallas.vote_counts_pallas(compute_dtype=bfloat16)``
@@ -26,8 +27,8 @@ from rcvpose_tpu.ops import vote_pallas
 from rcvpose_tpu.ops import voting as jax_voting
 from rcvpose_tpu_torch.ops import vote_cuda
 from rcvpose_tpu_torch.ops import voting as port_voting
-from rcvpose_tpu_torch.scripts import coarse_problem, prof_vote_bf16
-from rcvpose_tpu_torch.scripts import prof_vote_tiles
+from rcvpose_tpu_torch.scripts import coarse_problem, hier_problem, prof_vote
+from rcvpose_tpu_torch.scripts import prof_vote_bf16, prof_vote_tiles
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -264,9 +265,122 @@ def test_coarse_problem_is_the_jax_scripts_problem():
                                   np.asarray((r + 4.2) ** 2))
 
 
-@pytest.mark.parametrize("script", [prof_vote_tiles, prof_vote_bf16])
+@pytest.mark.parametrize("script", [prof_vote_tiles, prof_vote_bf16,
+                                    prof_vote])
 def test_measurement_scripts_need_the_card(script):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         script.main()
+
+
+# ---------------------------------------------------------------------------
+# K1's point-split planner
+# ---------------------------------------------------------------------------
+
+# (B, V, N) of K1's launches: the serving hier stages (grid 128, topk 32),
+# the LM evaluator's (grid 192, topk 64), chip_smoke's exact64 stage, the
+# sweep scripts' coarse problem, and the card tests' shapes
+PLAN_SHAPES = [(3, 32768, 1024), (3, 16384, 8192), (3, 110592, 1024),
+               (3, 32768, 8192), (3, 262144, 8192), (1, 32768, 2048),
+               (3, 3000, 2500), (1, 1, 1), (2, 257, 1025), (3, 3001, 2501),
+               (3, 2049, 777), (3, 4096, 8155), (2, 5, 0)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_k1_plan_is_legal_covers_every_point_once_and_fills_the_card(shape):
+    """At every tile: the splits tile [0, N) without gap or overlap, fit
+    the grid, and give at least the planner's target of blocks an SM at
+    132 SMs unless N is too short for more splits; the target is 32 warps
+    an SM (4 blocks of 256 threads) or all a tile's blocks that fit."""
+    b, v, n = shape
+    for tile in vote_cuda.TILES:
+        plan = vote_cuda.plan_votes(b, v, n, tile, vote_cuda.H100_SMS)
+        threads, vpt, chunk = tile
+        assert plan.split >= 1 and 1 <= plan.splits <= 65535
+        assert plan.splits == (-(-n // plan.split) if n > plan.split else 1)
+        assert plan.splits == 1 or plan.split % vote_cuda.SPLIT_ALIGN == 0
+        ranges = [(i * plan.split, min(n, (i + 1) * plan.split))
+                  for i in range(plan.splits)]
+        covered = np.zeros(n, np.int64)
+        for lo_, hi_ in ranges:
+            covered[lo_:hi_] += 1
+        assert (covered == 1).all(), (tile, plan)
+        assert plan.voxel_blocks == max(1, b * -(-v // (threads * vpt)))
+        assert plan.resident == vote_cuda.resident_blocks(tile)
+        assert 20 * chunk * plan.resident <= 233472
+        assert plan.target == min(plan.resident,
+                                  vote_cuda.TARGET_WARPS * 32 // threads)
+        short = plan.split <= vote_cuda.SPLIT_ALIGN or plan.splits * \
+            vote_cuda.SPLIT_ALIGN >= n
+        assert plan.blocks >= plan.target * plan.sms or short, (tile, plan)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES[:4], ids=str)
+def test_k1_default_tile_gives_four_blocks_an_sm_at_the_hier_stages(shape):
+    """The serving and LM stages at the default tile: at least 4 blocks
+    (32 warps) an SM, where the voxel tiles alone gave 1.45 at the serving
+    refine stage, and the busiest SM within 25% of the mean's points."""
+    plan = vote_cuda.plan_votes(*shape)
+    b, v, n = shape
+    assert plan.tile == vote_cuda.DEFAULT_TILE
+    assert plan.blocks_per_sm >= 4
+    busiest = -(-plan.blocks // plan.sms) * plan.split
+    assert busiest <= 1.25 * plan.voxel_blocks * n / plan.sms
+
+
+def _k1_split_emulation(vox, pts, lo, hi, split, chunk, rng):
+    """K1's split kernel in plain PyTorch: each split of ``split`` points
+    staged in chunks of ``chunk``, each chunk padded to a multiple of 4
+    with masked points (coordinates 0, lo = hi = 0); each split's integer
+    counts added into a zeroed f32 output in a shuffled order, as the
+    blocks' atomicAdds land."""
+    b, n, _ = pts.shape
+    parts = []
+    for s0 in range(0, max(n, 1), split):
+        s1 = min(n, s0 + split)
+        count = torch.zeros((b, vox.shape[-2]), dtype=torch.int64)
+        for c0 in range(s0, s1, chunk):
+            c1 = min(s1, c0 + chunk)
+            pad = (-(c1 - c0)) % 4
+            p = torch.cat([pts[:, c0:c1], torch.zeros(b, pad, 3)], dim=1)
+            l_ = torch.cat([lo[:, c0:c1], torch.zeros(b, pad)], dim=1)
+            h_ = torch.cat([hi[:, c0:c1], torch.zeros(b, pad)], dim=1)
+            count += vote_cuda.vote_counts_plain(vox, p, l_, h_).long()
+        parts.append(count.float())
+    out = torch.zeros((b, vox.shape[-2]), dtype=torch.float32)
+    for i in rng.permutation(len(parts)):
+        out += parts[i]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _serving_refine_cut():
+    """The serving refine stage's 8192 points against its first 2048
+    voxels per keypoint, with the whole counts."""
+    stages = hier_problem(128, 32, device="cpu")
+    vox, pts, lo, hi = stages["refine"]
+    args = (vox[:, :2048].contiguous(), pts, lo, hi)
+    return args, vote_cuda.vote_counts_plain(*args)
+
+
+@pytest.mark.parametrize("split", ["planner", 8192, 4096, 1171, 1001, 32])
+def test_k1_split_partials_sum_to_the_whole_count(split):
+    """Partial counts of any split, summed in f32 in any order, equal the
+    whole count exactly (every partial sum is an integer below 2^24), and
+    the masked padding changes nothing: the kernel's atomics cannot change
+    a count."""
+    args, whole = _serving_refine_cut()
+    b, v, n = args[1].shape[0], args[0].shape[1], args[1].shape[1]
+    if split == "planner":
+        split = vote_cuda.plan_votes(b, v, n).split
+    got = _k1_split_emulation(*args, split, vote_cuda.DEFAULT_TILE[2],
+                              np.random.default_rng(split))
+    assert whole.sum() > 0 and whole.max() < 2 ** 24
+    assert torch.equal(got, whole)
+
+
+def test_k1_wrapper_refuses_a_split_below_one_point():
+    vox, pts, lo, hi = _integer_problem(5, 2, 17, 9, side=32)
+    with pytest.raises(ValueError, match="split"):
+        vote_cuda.vote_counts_cuda(vox, pts, lo, hi, split=0)
