@@ -9,15 +9,15 @@ Phases, each printing its own line:
 1. build the kernels from ``rcvpose_tpu_torch/csrc`` with nvcc (into the
    git-ignored ``rcvpose_tpu_torch/_build``), print the card's name and
    power limit and whether PIL imports, and read the vote kernels' SASS
-   (``cuobjdump``): each pair loop's instructions a pair, no FFMA in K1 or
-   K5, no local memory;
+   (``cuobjdump``): each pair loop's instructions a pair (K1, K5, and K6's
+   packed loop in both compares), no FFMA in K1 or K5, no local memory;
 2. K1 (vote counts) against its plain version at the serving shapes, exact
    equality, repeatable bit for bit, also at each branch of its split
    planner (one split, several, ragged N, shared voxels);
-3. K2 (head split) against its plain version, bit for bit, and K2's
-   backward at every layout (2K = 2 and 6, f32 and bf16, NCHW and
-   channels-last, contiguous, W % 8 != 0, misaligned and strided
-   cotangents);
+3. K2 (head split) and its backward against their plain versions, bit
+   for bit, at every layout (2K = 2 and 6, f32 and bf16, NCHW and
+   channels-last, contiguous, W % 8 != 0, misaligned and strided inputs
+   and cotangents: each branch of both);
 4. the frame program on perfect synthetic maps at 480x640, on the card and
    on the CPU through the plain versions;
 5. serving at full width (DenseFCNResNet152, bf16, 480x640, grid 128, 8192
@@ -25,7 +25,8 @@ Phases, each printing its own line:
    fused mode, with both kernels' launch counters reset just before and
    read just after, then a profiler view of where a frame's time goes;
 6. the device time of each kernel (CUDA events behind a spin kernel), its
-   plain version and its bound, at the shapes of phases 2 and 3 (after
+   plain version and its bound, at the shapes of phases 2 and 3, K2 also
+   at the fused and training shapes beside an empty kernel's time (after
    serving, so that no profiler has run before the serving times are
    taken);
 7. K3 (decoder conv, forward and dx) and K4 (its weight gradient)
@@ -33,8 +34,8 @@ Phases, each printing its own line:
    batch-4 480x640 step, in bf16 and f32, each also bit-identical over two
    runs; then in bf16 at one shape for each branch of the conv planner
    (split-K, two N = 96 tiles, 32-channel chunks, K4 at 9 and 3 taps,
-   padded channels, a misaligned base, K = 5); and K2's backward at every
-   layout of phase 3, at batch 4;
+   padded channels, a misaligned base, K = 5); and K2 and its backward at
+   every layout of phase 3, at batch 4;
 8. training at full width (DenseFCNResNet152, ``Config`` defaults: bf16,
    Adam, batch 4, 480x640) on batches that ``labels.make_sample`` makes on
    the card from rendered frames: one f32 step (TF32 off) with the decoder
@@ -46,7 +47,8 @@ Phases, each printing its own line:
    beside their plain versions, their bounds and the cuDNN (or PyTorch)
    call for the same function (per conv entry also TFLOP/s, the share of
    the bound and the factor against cuDNN);
-10. K5 (matmul-form votes), K6 (bf16 votes, f32 and bf16 compare) and
+10. K5 (matmul-form votes), K6 (bf16 votes, f32 and bf16 compare, also
+    at each branch of its split planner, repeatable bit for bit) and
     every K1 tile against their plain versions, exactly, at the hier
     stages' shapes of serving (grid 128) and of the LM evaluator (grid
     192) on the synthetic frame of phase 4; K5 against K1 within the
@@ -61,8 +63,8 @@ Phases, each printing its own line:
     the precomputed-map route, which must score ADD 1.0 before and after
     ICP; then the ICP's device time;
 12. the device time of K5, K6 and K1 at the sweep's best tile at the
-    phase-10 shapes, beside their plain versions and bounds (CUDA
-    events).
+    phase-10 shapes, beside their plain versions and bounds, and of K6 in
+    both compares at each of its split branches (CUDA events).
 
 The vote kernels' bounds count instructions at the card's issue rate
 (``vote_cuda.ISSUE_RATE``), not FLOPs at the FP32 peak: none of their
@@ -324,8 +326,7 @@ def check_vote_sass(vote_cuda):
         name = next(n for n in funcs if key in n)
         loop = inner_loop(*funcs[name], pair_ops, per_pair)
         if loop is None:
-            say(f"phase 1 SASS {what}: no pair loop found")
-            continue
+            raise AssertionError(f"SASS {what}: no pair loop found")
         n, pairs, hist = loop
         result[what] = n / pairs
         top = sorted(hist.items(), key=lambda kv: -kv[1])
@@ -394,13 +395,12 @@ def phase_vote(voting, vote_cuda):
     return out
 
 
-def check_k1_splits(vote_cuda, name, args, out):
-    """K1 at one serving stage through each branch of the split planner:
-    one split (stores, no atomics), 2 and 7 splits, splits of 32 points, a
-    split that is neither a multiple of the chunk nor of 4, the planner's
-    own; also N = 37 short of a chunk multiple (planned) and, at the refine
-    stage, the first keypoint's windows shared by the batch. Each exact
-    and bit-identical over two runs; folds the errors into ``out``."""
+def split_cases(args):
+    """A stage's split branches, {what: (arguments, split)}: the planner's
+    own, one split (stores, no atomics), 2 and 7 splits, splits of 32
+    points, a split that is neither a multiple of the chunk nor of 4; also
+    N = 37 short of a chunk multiple (planned) and, for per-keypoint voxels,
+    the first keypoint's voxels shared by the batch (planned)."""
     vox, pts, lo, hi = args
     n = pts.shape[1]
     cut = n - 37
@@ -411,69 +411,121 @@ def check_k1_splits(vote_cuda, name, args, out):
                           None)}
     if vox.dim() == 3:
         cases["shared voxels"] = ((vox[0], pts, lo, hi), None)
-    wants = {}
-    for what, (a, split) in cases.items():
+    return cases
+
+
+def check_splits(kernel, plain, what, args):
+    """``kernel(*a, split=s)`` at each of ``split_cases(args)`` against
+    ``plain(*a)``: exact and bit-identical over two runs. Returns the max
+    |kernel - plain| (0 when exact)."""
+    wants, worst = {}, 0.0
+    for case, (a, split) in split_cases(args).items():
         key = id(a)
         if key not in wants:
-            wants[key] = vote_cuda.vote_counts_plain(*a)
-        got = vote_cuda.vote_counts_cuda(*a, split=split)
-        again = vote_cuda.vote_counts_cuda(*a, split=split)
+            wants[key] = plain(*a)
+        got = kernel(*a, split=split)
+        again = kernel(*a, split=split)
         torch.cuda.synchronize()
         err = float((got - wants[key]).abs().max())
-        out[name] = (out[name][0], max(out[name][1], err))
+        worst = max(worst, err)
         if not (torch.equal(got, wants[key]) and torch.equal(again, got)):
-            raise AssertionError(f"K1 {name} {what}: differs from the plain "
+            raise AssertionError(f"{what} {case}: differs from the plain "
                                  f"version (max |diff| {err}) or between "
                                  f"runs")
-    say(f"phase 2 K1 {name} split branches ({', '.join(cases)}): each equal "
-        f"to the plain version, repeat bit for bit")
+    return worst
+
+
+def check_k1_splits(vote_cuda, name, args, out):
+    """K1 at one serving stage through each branch of the split planner
+    (``split_cases``), each exact and bit-identical over two runs; folds
+    the errors into ``out``."""
+    err = check_splits(vote_cuda.vote_counts_cuda, vote_cuda.vote_counts_plain,
+                       f"K1 {name}", args)
+    out[name] = (out[name][0], max(out[name][1], err))
+    say(f"phase 2 K1 {name} split branches "
+        f"({', '.join(split_cases(args))}): each equal to the plain "
+        f"version, repeat bit for bit")
+
+
+# K2's inputs (conv8's output) and its backward's cotangents: contiguous
+# (NCHW or channels-last; the cotangent's training layout), a width that
+# is not a multiple of 8, a contiguous view one element (the cotangent: 4
+# bytes) past a 16-byte boundary, and a strided view (the generic branch)
+LAYOUTS = ("contiguous", "W % 8 != 0", "misaligned", "strided")
+
+
+def heads_input(kind, b, c, dtype, channels_last, gen):
+    """conv8's output (b, c, H, w) laid out as ``kind`` of LAYOUTS, NCHW or
+    channels-last underneath."""
+    dev = torch.device(DEVICE)
+    w = W - 3 if kind == "W % 8 != 0" else W
+    shape = (b, H, w, c) if channels_last else (b, c, H, w)
+    to_bchw = (0, 3, 1, 2) if channels_last else (0, 1, 2, 3)
+    if kind == "misaligned":
+        x = torch.randn(b * c * H * w + 1, device=dev, generator=gen).to(
+            dtype)[1:].view(shape)
+    elif kind == "strided":
+        x = torch.randn(*shape[:-2], shape[-1], shape[-2], device=dev,
+                        generator=gen).to(dtype).transpose(-1, -2)
+    else:
+        x = torch.randn(*shape, device=dev, generator=gen).to(dtype)
+    return x.permute(*to_bchw)
+
+
+def check_heads_fwd(heads, b, gen, phase):
+    """K2 against its plain version, bit for bit and over two runs, for
+    2K = 2 and 6, f32 and bf16, NCHW and channels-last, at each of LAYOUTS
+    at (b, 2K, H, W). Returns the max |kernel - plain| (0 when
+    bit-exact)."""
+    err, branches = 0.0, {}
+    for c in (2, 6):
+        for kind in LAYOUTS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for cl in (False, True):
+                    x = heads_input(kind, b, c, dtype, cl, gen)
+                    got = heads.heads_channel_major_cuda(x)
+                    again = heads.heads_channel_major_cuda(x)
+                    want = heads.heads_channel_major_plain(x)
+                    torch.cuda.synchronize()
+                    err = max(err, float((got - want).abs().max()))
+                    if not (torch.equal(got, want)
+                            and torch.equal(again, got)):
+                        raise AssertionError(
+                            f"K2 {tuple(x.shape)} {kind} {str(dtype)[6:]} "
+                            f"channels_last={cl}: not bit-exact")
+                    branches.setdefault(heads.fwd_branch(x), []).append(
+                        f"{c}/{kind}/{str(dtype)[6:]}/{'cl' if cl else 'nchw'}")
+    say(f"{phase} K2 at B={b}: {sum(map(len, branches.values()))} layouts "
+        f"bit-exact, repeat bit for bit; by branch "
+        + "; ".join(f"{k} {len(v)}" for k, v in sorted(branches.items())))
+    return err
 
 
 def phase_heads(heads):
-    """K2 against its plain version, bit for bit; returns the serving-shape
-    input (one net's conv8 output, bf16, channels-last) and the max
-    |kernel - plain|."""
+    """K2 and its backward against their plain versions, bit for bit, at
+    every layout; returns the serving-shape input (one net's conv8 output,
+    bf16, channels-last) and K2's max |kernel - plain|."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
-    # the first case is the serving shape
-    cases = [(2, torch.bfloat16, True), (2, torch.bfloat16, False),
-             (2, torch.float32, False), (2, torch.float32, True),
-             (6, torch.bfloat16, True)]
-    err, serving = 0.0, None
-    for c, dtype, cl in cases:
-        x = torch.randn(1, c, H, W, device=dev, generator=g).to(dtype)
-        if cl:
-            x = x.contiguous(memory_format=torch.channels_last)
-        got = heads.heads_channel_major_cuda(x)
-        want = heads.heads_channel_major_plain(x)
-        torch.cuda.synchronize()
-        err = max(err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K2 (1,{c},{H},{W}) {dtype} channels_last="
-                                 f"{cl}: not bit-exact")
-        say(f"phase 3 K2 (1,{c},{H},{W}) {dtype} channels_last={cl}: "
-            f"bit-exact")
-        if serving is None:
-            serving = x
+    err = check_heads_fwd(heads, 1, g, "phase 3")
+    serving = torch.randn(1, 2, H, W, device=dev, generator=g).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    if not torch.equal(heads.heads_channel_major_cuda(serving),
+                       heads.heads_channel_major_plain(serving)):
+        raise AssertionError("K2 at the serving shape: not bit-exact")
     check_heads_bwd(heads, 1, g, "phase 3")
     return serving, err
-
-
-# K2 backward cotangents: contiguous (the training layout), a width that is
-# not a multiple of 8, a contiguous view 4 bytes past a 16-byte boundary,
-# and a strided view (the generic branch)
-BWD_COTANGENTS = ("contiguous", "W % 8 != 0", "misaligned", "strided")
 
 
 def check_heads_bwd(heads, b, gen, phase):
     """K2's backward against its plain version, bit for bit and over two
     runs, for 2K = 2 and 6, f32 and bf16, NCHW and channels-last, from each
-    of BWD_COTANGENTS at (2K, b, H, W). Returns the max |kernel - plain|
+    of LAYOUTS at (2K, b, H, W). Returns the max |kernel - plain|
     (0 when bit-exact)."""
     dev = torch.device(DEVICE)
     err, branches = 0.0, {}
     for c in (2, 6):
-        for kind in BWD_COTANGENTS:
+        for kind in LAYOUTS:
             w = W - 3 if kind == "W % 8 != 0" else W
             if kind == "misaligned":
                 ct = torch.randn(c * b * H * w + 1, device=dev,
@@ -699,9 +751,11 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
 def phase_kernel_times(k1_stages, k2_input, vote_cuda, heads):
     """Device time of each kernel, its plain version and (K2) the one
     PyTorch call with the same result, at the shapes checked in phases 2
-    and 3, beside the bound; CUDA events behind a spin kernel (``event_ms``:
-    short profiler sessions dropped events). Run after serving, so that the
-    serving times are taken before the profiler first runs."""
+    and 3 and K2 also at the fused and training shapes, beside the bound
+    and (K2) an empty kernel's time; CUDA events behind a spin kernel
+    (``event_ms``: short profiler sessions dropped events). Run after
+    serving, so that the serving times are taken before the profiler first
+    runs. Returns K1's times by stage and K2's at the serving shape."""
     k1 = {}
     ipp = vote_cuda.INSTRUCTIONS_PER_PAIR["K1"]
     for name, (args, _) in k1_stages.items():
@@ -722,19 +776,32 @@ def phase_kernel_times(k1_stages, k2_input, vote_cuda, heads):
     say(f"phase 6 K1 serving frame (coarse + refine): {frame['ms']:.4f} ms, "
         f"bound {frame['bound_ms']:.4f} "
         f"({100 * frame['bound_ms'] / frame['ms']:.1f}%)")
-    x = k2_input
-    ms = event_ms(lambda: heads.heads_channel_major_cuda(x), reps=100)
-    plain_ms = event_ms(lambda: heads.heads_channel_major_plain(x), reps=100)
-    library_ms = event_ms(
-        lambda: x.float().permute(1, 0, 2, 3).contiguous(), reps=100)
-    nbytes = x.numel() * (x.element_size() + 4)
-    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    say(f"phase 6 K2 {tuple(x.shape)} bf16 channels-last: device ms: "
-        f"kernel {ms:.5f}, plain {plain_ms:.5f}, library {library_ms:.5f}, "
-        f"bound {bound_ms:.5f} ({nbytes} bytes)")
-    k2 = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-              bound_ms=bound_ms)
-    return k1, k2
+    floor = event_ms(lambda: torch.cuda._sleep(0), reps=100)
+    say(f"phase 6 empty kernel (torch.cuda._sleep(0)): {floor:.5f} ms a "
+        f"launch")
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    shapes = {"serving": k2_input}
+    for what, shape in (("fused", (1, 6, H, W)),
+                        ("training", (TRAIN_BATCH, 2, H, W))):
+        shapes[what] = torch.randn(*shape, device=DEVICE, generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    k2 = {}
+    for what, x in shapes.items():
+        ms = event_ms(lambda: heads.heads_channel_major_cuda(x), reps=100)
+        plain_ms = event_ms(lambda: heads.heads_channel_major_plain(x),
+                            reps=100)
+        library_ms = event_ms(
+            lambda: x.float().permute(1, 0, 2, 3).contiguous(), reps=100)
+        nbytes = x.numel() * (x.element_size() + 4)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        say(f"phase 6 K2 {what} {tuple(x.shape)} bf16 channels-last "
+            f"({heads.fwd_branch(x)} branch): device ms: kernel {ms:.5f}, "
+            f"plain {plain_ms:.5f}, library {library_ms:.5f}, bound "
+            f"{bound_ms:.5f} ({100 * bound_ms / ms:.1f}%, {nbytes} bytes), "
+            f"above the empty kernel {ms - floor:.5f}")
+        k2[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms)
+    return k1, k2["serving"]
 
 
 def check_conv(mmconv, x, kern, what):
@@ -778,8 +845,8 @@ def check_dk(mmconv, x, g, what, ks=3):
 
 def phase_conv_kernels(mmconv, heads):
     """K3 (forward and dx) and K4 at the decoder shapes in bf16 and f32,
-    K2's backward at the training shapes; returns the max errors by kernel
-    name."""
+    K2 and its backward at every layout at the training batch; returns the
+    max errors by kernel name."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(7)
     errs = {"conv_same": 0.0, "conv_same_dk": 0.0,
@@ -828,6 +895,8 @@ def phase_conv_kernels(mmconv, heads):
             f"K4 {e4:.3g}, repeat bit for bit; plans "
             + "; ".join(f"{p.variant} m{p.tile_m} n{p.tile_n} k{p.tile_k} "
                         f"taps {p.taps} splits {p.splits}" for p in plans))
+    errs["heads_channel_major"] = check_heads_fwd(heads, TRAIN_BATCH, g,
+                                                  "phase 7")
     errs["heads_channel_major_bwd"] = check_heads_bwd(heads, TRAIN_BATCH, g,
                                                       "phase 7")
     return errs
@@ -1193,6 +1262,8 @@ def phase_train_kernel_times(mmconv, heads):
 # The hier stages' shapes (3 keypoints a launch): serving at grid 128 with
 # topk 32 and the LM evaluator at grid 192 with topk 64.
 HIER_CONFIGS = (("serving", 128, 32), ("lm", 192, 64))
+# K6's bf16-compare arm, a row of its own in the kernels line
+K6_BF16_COMPARE = "vote_counts_bf16 (bf16 compare)"
 LM_FRAMES = 4
 
 
@@ -1267,7 +1338,7 @@ def phase_vote_variants(voting, vote_cuda, geometry):
                                        grid_l, topk).items():
             stages[f"{cfg_name} {stage}"] = args
     errs = {"vote_counts_mxu": 0.0, "vote_counts_bf16": 0.0,
-            "vote_counts_tiled": 0.0}
+            K6_BF16_COMPARE: 0.0, "vote_counts_tiled": 0.0}
     for name, args in stages.items():
         b, v, n = args[1].shape[0], args[0].shape[-2], args[1].shape[1]
         k1 = vote_cuda.vote_counts_cuda(*args)
@@ -1281,7 +1352,7 @@ def phase_vote_variants(voting, vote_cuda, geometry):
                        "vote_counts_bf16"),
             "K6 bf16": (vote_cuda.vote_counts_bf16_cuda(*args, "bf16"),
                         vote_cuda.vote_counts_bf16_plain(*args, "bf16"),
-                        "vote_counts_bf16")}
+                        K6_BF16_COMPARE)}
         torch.cuda.synchronize()
         for what, (got, want, key) in checks.items():
             errs[key] = max(errs[key], float((got - want).abs().max()))
@@ -1306,16 +1377,27 @@ def phase_vote_variants(voting, vote_cuda, geometry):
         if bad:
             raise AssertionError(f"K1 {name}: tiles {bad} differ from the "
                                  f"plain version")
+        for compare, key in (("f32", "vote_counts_bf16"),
+                             ("bf16", K6_BF16_COMPARE)):
+            errs[key] = max(errs[key], check_splits(
+                lambda *a, split, c=compare: vote_cuda.vote_counts_bf16_cuda(
+                    *a, c, split=split),
+                lambda *a, c=compare: vote_cuda.vote_counts_bf16_plain(*a, c),
+                f"K6 {compare} compare {name}", args))
         say(f"phase 10 {name}: B={b} V={v} N={n}; K1, K5, K6 f32 and K6 "
             f"bf16 equal their plain versions; K5 vs K1 "
             f"{int((diff > 0).sum())} voxels differ (max "
             f"{float(diff.max()):.0f} votes, within the {int(near.sum())} "
             f"band-edge pairs); K6 f32 vs K1 count rel-err mean {rel:.4f}; "
-            f"all {len(vote_cuda.TILES)} K1 tiles equal the plain version")
+            f"all {len(vote_cuda.TILES)} K1 tiles equal the plain version; "
+            f"K6 in both compares at every split branch "
+            f"({', '.join(split_cases(args))}) equal to the plain version, "
+            f"repeat bit for bit")
 
     torch.cuda.synchronize()
     vote_cuda.vote_counts_mxu_cuda.launches = 0
     vote_cuda.vote_counts_bf16_cuda.launches = 0
+    vote_cuda.vote_counts_bf16_cuda.bf16_compare_launches = 0
     vote_cuda.vote_counts_cuda.tiled_launches = 0
     for args in stages.values():
         voting.vote_counts(*args, mxu=True)
@@ -1326,8 +1408,11 @@ def phase_vote_variants(voting, vote_cuda, geometry):
                    printer=lambda line: say(f"phase 10 prof_vote_bf16: "
                                             f"{line}"))}
     torch.cuda.synchronize()
+    k6_bf16 = vote_cuda.vote_counts_bf16_cuda.bf16_compare_launches
     launches = {"vote_counts_mxu": vote_cuda.vote_counts_mxu_cuda.launches,
-                "vote_counts_bf16": vote_cuda.vote_counts_bf16_cuda.launches,
+                "vote_counts_bf16":
+                    vote_cuda.vote_counts_bf16_cuda.launches - k6_bf16,
+                K6_BF16_COMPARE: k6_bf16,
                 "vote_counts_tiled":
                     vote_cuda.vote_counts_cuda.tiled_launches}
     say(f"phase 10 path launches (voting.vote_counts(mxu=True) over the "
@@ -1535,7 +1620,7 @@ def phase_variant_times(stages, vote_cuda, best_tile):
         "vote_counts_bf16": (
             vote_cuda.vote_counts_bf16_cuda, vote_cuda.vote_counts_bf16_plain,
             ipp["K6 f32"], ("f32",)),
-        "vote_counts_bf16 (bf16 compare)": (
+        K6_BF16_COMPARE: (
             vote_cuda.vote_counts_bf16_cuda, vote_cuda.vote_counts_bf16_plain,
             ipp["K6 bf16"], ("bf16",)),
         "vote_counts_tiled": (
@@ -1569,7 +1654,23 @@ def phase_variant_times(stages, vote_cuda, best_tile):
             f"keypoints): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f}, "
             f"bound {t['bound_ms']:.4f} ({t['bound_ms'] / t['ms']:.1%} of "
             f"it)")
+    k6_split_times(stages, vote_cuda)
     return tot
+
+
+def k6_split_times(stages, vote_cuda):
+    """Device ms of K6 in both compares at each of its split branches
+    (``split_cases``, checked in phase 10) at the phase-10 stages."""
+    for name, args in stages.items():
+        for compare in ("f32", "bf16"):
+            parts = []
+            for case, (a, split) in split_cases(args).items():
+                ms = event_ms(lambda a=a, s=split, c=compare:
+                              vote_cuda.vote_counts_bf16_cuda(*a, c, split=s),
+                              reps=20)
+                parts.append(f"{case} {ms:.4f}")
+            say(f"phase 12 K6 {compare} compare {name} by split branch, "
+                f"device ms: " + "; ".join(parts))
 
 
 def main():
@@ -1632,7 +1733,8 @@ def main():
          "source": "rcvpose_tpu_torch/csrc/heads.cu",
          "replaces": "rcvpose_tpu/ops/layout.py:25",
          "launches": launches["heads_channel_major"],
-         "max_abs_err": k2_err, "ms": k2["ms"],
+         "max_abs_err": max(k2_err, errs["heads_channel_major"]),
+         "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": k2["library_ms"]},
     ]
@@ -1650,7 +1752,8 @@ def main():
                         **times[name]})
     for name, replaces in (
             ("vote_counts_mxu", "rcvpose_tpu/ops/vote_pallas.py:115"),
-            ("vote_counts_bf16", "scripts/prof_vote_bf16.py:105"),
+            ("vote_counts_bf16", "scripts/prof_vote_bf16.py:116"),
+            (K6_BF16_COMPARE, "rcvpose_tpu/ops/vote_pallas.py:201"),
             ("vote_counts_tiled", "scripts/prof_vote_tiles.py:17")):
         kernels.append({"name": name, "route": "cuda",
                         "source": "rcvpose_tpu_torch/csrc/vote.cu",

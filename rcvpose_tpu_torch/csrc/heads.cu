@@ -15,11 +15,28 @@
 // Bound: device memory. Each element is read once (2 or 4 bytes) and
 // written once (4 bytes): at serving, (1, 2, 480, 640) bf16 per net moves
 // 614,400 elements * 6 bytes = 3.7 MB, about 1.1 us at 3.35 TB/s, so the
-// launch costs about as much as the copy.
-//
-// Design: one thread per output element in a grid-stride loop; the output
-// index is decomposed into (c, b, h, w), so writes are coalesced and reads
-// follow the input strides. Nothing is staged: each byte moves once.
+// launch costs about as much as the copy. A thread per output element
+// with its (c, b, h, w) decomposed by runtime divisions and a 2-byte
+// gather from the channels-last input is bound by that index arithmetic
+// instead, so the forward takes three branches, chosen by the wrapper
+// (ops/heads.py fwd_branch), the backward's in reverse:
+// - ROWS: the input channels-last and contiguous, (B, H, W, 2K) in memory
+//   with 2K in 2/4/6/8 (the serving, evaluation and training layout: the
+//   models run channels-last). A thread owns a run of 4 consecutive w of
+//   one (b, h) row: it reads the 4 * 2K interleaved values as 16-byte
+//   loads (1 for bf16 2K = 2, 3 for 2K = 6), splits them by channel in
+//   registers (2K is a template parameter), converts them, and writes 2K
+//   float4s, each one of a warp's 32 neighbouring 16-byte stores. Its
+//   index costs one division a thread, none an element.
+// - PLANES: the input NCHW and contiguous: output plane (c, b) is input
+//   plane (b, c), so a thread converts the 16 bytes of consecutive
+//   elements of one plane that one load brings (8 bf16 or 4 f32: one or
+//   two float4 stores); the plane is the block's y.
+// - GENERIC: any other input (a strided view) or channel count: one thread
+//   an output element, reads following the input's strides.
+// In ROWS and PLANES a run whose addresses are not all 16-byte aligned (a
+// row tail where W or H * W is not a multiple of 8, a view at an odd
+// offset) is done with scalar loads and stores by the same thread.
 //
 // The backward (heads_channel_major_bwd_*) is the same relayout in reverse,
 // the VJP of _pinned_copy (layout.py _pinned_identity_bwd) fused with the
@@ -191,7 +208,7 @@ bwd_planes_kernel(const float* __restrict__ g, T* __restrict__ out,
   }
 }
 
-enum BwdBranch { kGeneric = 0, kPlanes = 1, kRows = 2 };
+enum Branch { kGeneric = 0, kPlanes = 1, kRows = 2 };
 
 template <typename T, int kC>
 int launch_rows(const float* g, T* out, const int* sizes, cudaStream_t s) {
@@ -260,37 +277,186 @@ channel_major_kernel(const T* __restrict__ in, float* __restrict__ out,
   }
 }
 
+// 32-bit lane k of 16-byte words (k a constant once unrolled, so the
+// words stay in registers).
+__device__ __forceinline__ unsigned lane32(const uint4* words, int k) {
+  const uint4& w = words[k >> 2];
+  switch (k & 3) {
+    case 0: return w.x;
+    case 1: return w.y;
+    case 2: return w.z;
+  }
+  return w.w;
+}
+
+// Value k of 16-byte words holding values of T, as f32: a bf16 is the high
+// half of its f32 (the cast is exact), an f32 is itself.
+__device__ __forceinline__ float word_value(const uint4* words, int k,
+                                            float) {
+  return __uint_as_float(lane32(words, k));
+}
+__device__ __forceinline__ float word_value(const uint4* words, int k,
+                                            __nv_bfloat16) {
+  const unsigned w = lane32(words, k >> 1);
+  return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// n consecutive f32 values (n a multiple of 4) to a 16-byte aligned
+// address.
+template <int kN>
+__device__ __forceinline__ void store_f32(const float* v, float* out) {
+#pragma unroll
+  for (int q = 0; q < kN / 4; ++q) {
+    reinterpret_cast<float4*>(out)[q] =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  }
+}
+
+// Pixels a ROWS thread owns in the forward: 4, so that each of its float4
+// stores is one of 32 neighbouring 16-byte stores of a warp (with runs of
+// 8 each warp store half-filled its 32-byte sectors, and the kernel took
+// 1.7x the time at the training shape on the H100).
+constexpr int kFwdRun = 4;
+
+// ROWS: the input channels-last and contiguous, (B, H, W, kC) in memory;
+// the output (kC, B, H, W). Thread i owns w0 = kFwdRun * (i % runs) ..
+// + kFwdRun - 1 of row (b * H + h) = i / runs: it reads the kFwdRun * kC
+// interleaved values as 16-byte loads, splits them by channel in
+// registers and writes kC runs of kFwdRun f32.
+template <typename T, int kC>
+__global__ void __launch_bounds__(kThreads)
+fwd_rows_kernel(const T* __restrict__ in, float* __restrict__ out, int rows,
+                int width, long long plane) {
+  constexpr int kWords = kFwdRun * kC * static_cast<int>(sizeof(T)) / 16;
+  const int runs = (width + kFwdRun - 1) / kFwdRun;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= rows * runs) return;
+  const int row = i / runs;
+  const int w0 = (i - row * runs) * kFwdRun;
+  const int n = min(kFwdRun, width - w0);
+  const long long pix = static_cast<long long>(row) * width + w0;
+  const T* src = in + pix * kC;
+  float* dst = out + pix;
+  bool vec = n == kFwdRun && aligned16(src);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) vec = vec && aligned16(dst + c * plane);
+  if (vec) {
+    uint4 words[kWords];
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) {
+      words[q] = reinterpret_cast<const uint4*>(src)[q];
+    }
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float v[kFwdRun];
+#pragma unroll
+      for (int k = 0; k < kFwdRun; ++k) {
+        v[k] = word_value(words, k * kC + c, T());
+      }
+      store_f32<kFwdRun>(v, dst + c * plane);
+    }
+  } else {
+    for (int k = 0; k < n; ++k) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        dst[c * plane + k] = to_f32(src[k * kC + c]);
+      }
+    }
+  }
+}
+
+// PLANES: the input NCHW and contiguous (B, C, H, W); output plane
+// blockIdx.y = c * B + b is input plane b * C + c; thread i converts the
+// kElems = 16 / sizeof(T) elements kElems * i .. of it (one 16-byte load).
 template <typename T>
-int launch(const void* in, void* out, int batch, int chans, int height,
-           int width, int s_b, int s_c, int s_h, int s_w, void* stream) {
+__global__ void __launch_bounds__(kThreads)
+fwd_planes_kernel(const T* __restrict__ in, float* __restrict__ out,
+                  int batch, int chans, int plane) {
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));
+  const int p = blockIdx.y;
+  const int c = p / batch;
+  const int b = p - c * batch;
+  const int e0 = (blockIdx.x * kThreads + threadIdx.x) * kElems;
+  if (e0 >= plane) return;
+  const int n = min(kElems, plane - e0);
+  const T* src = in + (static_cast<long long>(b) * chans + c) * plane + e0;
+  float* dst = out + static_cast<long long>(p) * plane + e0;
+  if (n == kElems && aligned16(src) && aligned16(dst)) {
+    const uint4 word = *reinterpret_cast<const uint4*>(src);
+    float v[kElems];
+#pragma unroll
+    for (int k = 0; k < kElems; ++k) v[k] = word_value(&word, k, T());
+    store_f32<kElems>(v, dst);
+  } else {
+    for (int k = 0; k < n; ++k) dst[k] = to_f32(src[k]);
+  }
+}
+
+template <typename T, int kC>
+int launch_fwd_rows(const T* in, float* out, int batch, int height,
+                    int width, cudaStream_t s) {
+  const int rows = batch * height;
+  const int runs = (width + kFwdRun - 1) / kFwdRun;
+  const int blocks = (rows * runs + kThreads - 1) / kThreads;
+  fwd_rows_kernel<T, kC><<<blocks, kThreads, 0, s>>>(
+      in, out, rows, width, static_cast<long long>(rows) * width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* in_v, void* out_v, int batch, int chans, int height,
+           int width, int s_b, int s_c, int s_h, int s_w, int branch,
+           void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const T*>(in_v);
+  auto* out = static_cast<float*>(out_v);
+  if (branch == kRows) {
+    switch (chans) {
+      case 2: return launch_fwd_rows<T, 2>(in, out, batch, height, width, s);
+      case 4: return launch_fwd_rows<T, 4>(in, out, batch, height, width, s);
+      case 6: return launch_fwd_rows<T, 6>(in, out, batch, height, width, s);
+      case 8: return launch_fwd_rows<T, 8>(in, out, batch, height, width, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (branch == kPlanes) {
+    const int plane = height * width;
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T)) * kThreads;
+    const dim3 grid((plane + kPer - 1) / kPer, batch * chans);
+    fwd_planes_kernel<T><<<grid, kThreads, 0, s>>>(in, out, batch, chans,
+                                                   plane);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (branch != kGeneric) return static_cast<int>(cudaErrorInvalidValue);
   const int total = chans * batch * height * width;
   const int blocks = std::min((total + kThreads - 1) / kThreads, 65535 * 16);
-  channel_major_kernel<T><<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), static_cast<float*>(out), batch, chans,
-      height, width, s_b, s_c, s_h, s_w);
+  channel_major_kernel<T><<<blocks, kThreads, 0, s>>>(
+      in, out, batch, chans, height, width, s_b, s_c, s_h, s_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // in: (batch, chans, height, width) with element strides s_*; out: the
-// contiguous f32 (chans, batch, height, width) buffer. Returns
-// cudaGetLastError() after the launch.
+// contiguous f32 (chans, batch, height, width) buffer. branch: 0 GENERIC
+// (any strides), 1 PLANES (in NCHW and contiguous), 2 ROWS (in
+// channels-last and contiguous, chans in 2/4/6/8); the strides are read by
+// GENERIC only. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a branch or channel count it does not take.
 extern "C" int heads_channel_major_f32(const void* in, void* out, int batch,
                                        int chans, int height, int width,
                                        int s_b, int s_c, int s_h, int s_w,
-                                       void* stream) {
+                                       int branch, void* stream) {
   return launch<float>(in, out, batch, chans, height, width, s_b, s_c, s_h,
-                       s_w, stream);
+                       s_w, branch, stream);
 }
 
 extern "C" int heads_channel_major_bf16(const void* in, void* out, int batch,
                                         int chans, int height, int width,
                                         int s_b, int s_c, int s_h, int s_w,
-                                        void* stream) {
+                                        int branch, void* stream) {
   return launch<__nv_bfloat16>(in, out, batch, chans, height, width, s_b,
-                               s_c, s_h, s_w, stream);
+                               s_c, s_h, s_w, branch, stream);
 }
 
 // g: the f32 cotangent; out: the (B, 2K, H, W) gradient of the forward's

@@ -7,9 +7,9 @@
 // vote. Voxels may be shared by the whole batch (the coarse stage) or given
 // per batch entry (the refine windows): vox_shared selects a batch stride
 // of 0. Ragged edges (voxels and points) are masked here, so callers pad
-// nothing. K5 and K6 keep each thread's counts in registers as ints,
-// written once as f32, with no atomics. K1 splits the point axis across
-// blocks and adds each block's integer counts into a zeroed f32 output
+// nothing. K5 keeps each thread's counts in registers as ints, written
+// once as f32, with no atomics. K1 and K6 split the point axis across
+// blocks and add each block's integer counts into a zeroed f32 output
 // with atomicAdd; every partial sum is an integer below 2^24 (the wrapper
 // refuses N >= 2^24), so every f32 add is exact, the result does not
 // depend on the order, and the counts stay deterministic.
@@ -100,19 +100,41 @@
 // which gives the same bf16 value as one correctly rounded bf16 op (24 >=
 // 2 * 8 + 2 bits), so the counts agree exactly.
 //
-// Bound: non-tensor bf16 ALU. 8 bf16 operations per pair (3 sub, 3 mul,
-// 2 add), done two pairs at a time with the bf162 pair forms, whose rate
-// on the H100 is twice the FP32 rate (134 TFLOP/s), plus the compare and
-// count in f32 or on bf16 halves. Design: K1's default tile, one voxel per
-// thread; the points of a chunk are staged in shared memory as bf162
-// pairs (x, y, z and lo / hi), so one pair-form instruction evaluates a
-// voxel against two points. An odd chunk's last pair carries a masked
-// point (lo = hi = 0), which never votes.
+// Bound: the issue rate, as for K1 (none of these operations is an FMA).
+// A bf16x2 instruction evaluates two pairs, so a pair needs 4 for the 8
+// sub / mul / add, 1 for the band compare (two packed compares for two
+// pairs) and 0.75 for the count (an AND for two pairs, a three-input add
+// for four): 5.75 instructions, whichever compare (ops/vote_cuda.py
+// INSTRUCTIONS_PER_PAIR).
+//
+// Design, for that bound:
+// - Fill the card: the grid is (voxel tiles, point splits, batch), the
+//   split from the wrapper's planner (plan_votes with kernel "K6"), and
+//   split blocks add their counts with atomicAdd, as K1 does.
+// - Feed the ALUs from registers: a thread owns kK6Vpt = 4 voxels
+//   (strided by the block, so voxel loads stay coalesced), each coordinate
+//   broadcast to both halves of a bf16x2 register. A chunk's points are
+//   staged in pairs as one 16-byte word {x2, y2, z2, lo2} plus hi2 packed
+//   four pairs to a word, so each 128-bit broadcast load feeds two points
+//   times every voxel of the thread: 5 loads for 8 points x 4 voxels.
+// - Round in the kernel: it takes the f32 coordinates and band and rounds
+//   each to bf16 once, while loading its voxels and staging a chunk, so a
+//   call launches no conversion kernels.
+// - Compare in packed form in both arms. d2 is a bf16 value, so the f32
+//   test lo < d2 < hi is exactly the bf16 test rd(lo) < d2 < ru(hi), with
+//   lo rounded toward -inf and hi toward +inf (band_lo_bits /
+//   band_hi_bits): the f32 arm rounds its band once while staging, and
+//   both arms run the same loop. set.{gt,lt}.u32.bf16x2 give 0xffff a true
+//   half; ANDed with 0x00010001 they add two pairs at once into 16-bit lane
+//   counts (a lane counts one point of each staged pair, so a block takes
+//   at most 2 * 65535 points), folded into one count at the end.
+// A chunk is padded to a multiple of 8 points with masked points (lo = hi
+// = 0, coordinates 0), which never vote.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include <cstring>
 
 namespace {
 
@@ -329,84 +351,164 @@ vote_counts_mxu_kernel(const float* __restrict__ vox, long long vox_bstride,
 
 // ----------------------------------------------------------------- K6 ----
 
+constexpr int kK6Threads = 256;
+constexpr int kK6Vpt = 4;
+constexpr int kK6Chunk = 1024;  // points staged a chunk: 512 pairs
+// A lane of a half-count register counts at most one point a pair, so a
+// block takes at most 2 * 65535 points (the wrapper's planner caps it).
+constexpr int kK6MaxSplit = 2 * 65535;
+
+__device__ __forceinline__ unsigned bf16_bits(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(unsigned u) {
+  __nv_bfloat162 r;
+  memcpy(&r, &u, sizeof(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
+  unsigned u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// A coordinate, and the band edges, rounded to bf16 bits. Coordinates and
+// the bf16 compare's band round to nearest even, as the wrapper's
+// .to(torch.bfloat16) does in the plain version. The f32 compare of a bf16
+// d2 is the bf16 compare with lo rounded toward -inf and hi toward +inf:
+// d2 > lo <=> d2 > rd(lo), since no bf16 value lies in (rd(lo), lo], and
+// d2 < hi <=> d2 < ru(hi) likewise (NaN, +-inf and values beyond the
+// largest finite bf16 included).
+__device__ __forceinline__ unsigned rn_bits(float x) {
+  return bf16_bits(__float2bfloat16_rn(x));
+}
 template <bool kCmpBf16>
-__global__ void __launch_bounds__(kThreads)
-vote_counts_bf16_kernel(const __nv_bfloat16* __restrict__ vox,
-                        long long vox_bstride,
-                        const __nv_bfloat16* __restrict__ pts,
-                        const void* __restrict__ lo_v,
-                        const void* __restrict__ hi_v,
-                        float* __restrict__ out, int n_vox, int n_pts) {
-  using Band = std::conditional_t<kCmpBf16, __nv_bfloat16, float>;
-  using Band2 = std::conditional_t<kCmpBf16, __nv_bfloat162, float2>;
-  constexpr int kPairs = kChunk / 2;
-  __shared__ __nv_bfloat162 sx[kPairs];
-  __shared__ __nv_bfloat162 sy[kPairs];
-  __shared__ __nv_bfloat162 sz[kPairs];
-  __shared__ Band2 slo[kPairs];
-  __shared__ Band2 shi[kPairs];
+__device__ __forceinline__ unsigned band_lo_bits(float lo) {
+  return kCmpBf16 ? rn_bits(lo) : bf16_bits(__float2bfloat16_rd(lo));
+}
+template <bool kCmpBf16>
+__device__ __forceinline__ unsigned band_hi_bits(float hi) {
+  return kCmpBf16 ? rn_bits(hi) : bf16_bits(__float2bfloat16_ru(hi));
+}
 
-  const Band* lo = static_cast<const Band*>(lo_v);
-  const Band* hi = static_cast<const Band*>(hi_v);
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  const long long b = blockIdx.y;
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  __nv_bfloat16 vx = zero, vy = zero, vz = zero;
-  if (v < n_vox) {
-    const __nv_bfloat16* p = vox + b * vox_bstride + 3LL * v;
-    vx = p[0];
-    vy = p[1];
-    vz = p[2];
+// d2 of one voxel (its coordinates broadcast to both halves) against a
+// staged point pair {x2, y2, z2, lo2}: the 8 bf16 operations of two pairs
+// in pair form, each rounded on its own.
+__device__ __forceinline__ unsigned d2_pair(__nv_bfloat162 vx,
+                                            __nv_bfloat162 vy,
+                                            __nv_bfloat162 vz,
+                                            const uint4& p) {
+  const __nv_bfloat162 dx = __hsub2_rn(vx, as_bf162(p.x));
+  const __nv_bfloat162 dy = __hsub2_rn(vy, as_bf162(p.y));
+  const __nv_bfloat162 dz = __hsub2_rn(vz, as_bf162(p.z));
+  return as_u32(__hadd2_rn(__hadd2_rn(__hmul2_rn(dx, dx), __hmul2_rn(dy, dy)),
+                           __hmul2_rn(dz, dz)));
+}
+
+// 1 in each 16-bit half whose lo < d2 < hi, else 0: two packed compares
+// (0xffff a true half; ordered, so false on a NaN) and one AND.
+__device__ __forceinline__ unsigned in_band2(unsigned d2, unsigned lo,
+                                             unsigned hi) {
+  unsigned gt, lt;
+  asm("set.gt.u32.bf16x2 %0, %1, %2;" : "=r"(gt) : "r"(d2), "r"(lo));
+  asm("set.lt.u32.bf16x2 %0, %1, %2;" : "=r"(lt) : "r"(d2), "r"(hi));
+  return gt & lt & 0x00010001u;
+}
+
+template <bool kCmpBf16>
+__global__ void __launch_bounds__(kK6Threads, 1024 / kK6Threads)
+vote_counts_bf16_kernel(const float* __restrict__ vox, long long vox_bstride,
+                        const float* __restrict__ pts,
+                        const float* __restrict__ lo,
+                        const float* __restrict__ hi,
+                        float* __restrict__ out, int n_vox, int n_pts,
+                        int split, int accumulate) {
+  constexpr int kPairs = kK6Chunk / 2;
+  __shared__ uint4 spt[kPairs];      // x2, y2, z2, lo2 of point pair i
+  __shared__ uint4 shi[kPairs / 4];  // hi2 of pairs 4g .. 4g + 3
+
+  const long long b = blockIdx.z;
+  const int v0 = blockIdx.x * (kK6Threads * kK6Vpt) + threadIdx.x;
+  const int p_begin = blockIdx.y * split;
+  const int p_end = min(n_pts, p_begin + split);
+  __nv_bfloat162 vx[kK6Vpt], vy[kK6Vpt], vz[kK6Vpt];
+  unsigned count[kK6Vpt];  // two 16-bit lane counts: even and odd points
+#pragma unroll
+  for (int j = 0; j < kK6Vpt; ++j) {
+    const int v = v0 + j * kK6Threads;
+    float x = 0.f, y = 0.f, z = 0.f;
+    if (v < n_vox) {
+      const float* p = vox + b * vox_bstride + 3LL * v;
+      x = p[0];
+      y = p[1];
+      z = p[2];
+    }
+    vx[j] = __float2bfloat162_rn(x);
+    vy[j] = __float2bfloat162_rn(y);
+    vz[j] = __float2bfloat162_rn(z);
+    count[j] = 0;
   }
-  const __nv_bfloat162 vx2 = __bfloat162bfloat162(vx);
-  const __nv_bfloat162 vy2 = __bfloat162bfloat162(vy);
-  const __nv_bfloat162 vz2 = __bfloat162bfloat162(vz);
-  const __nv_bfloat16* bp = pts + b * n_pts * 3LL;
-  const Band* bl = lo + b * n_pts;
-  const Band* bh = hi + b * n_pts;
+  const float* bp = pts + b * n_pts * 3LL;
+  const float* bl = lo + b * n_pts;
+  const float* bh = hi + b * n_pts;
+  unsigned* shi_u = reinterpret_cast<unsigned*>(shi);
 
-  int count = 0;
-  for (int c0 = 0; c0 < n_pts; c0 += kChunk) {
-    const int n = min(kChunk, n_pts - c0);
-    const int np = (n + 1) / 2;
-    for (int i = threadIdx.x; i < np; i += kThreads) {
-      const long long j = c0 + 2 * i;
-      const bool two = 2 * i + 1 < n;  // else the pair's second is masked
-      sx[i] = __halves2bfloat162(bp[3 * j], two ? bp[3 * j + 3] : zero);
-      sy[i] = __halves2bfloat162(bp[3 * j + 1], two ? bp[3 * j + 4] : zero);
-      sz[i] = __halves2bfloat162(bp[3 * j + 2], two ? bp[3 * j + 5] : zero);
-      if constexpr (kCmpBf16) {
-        slo[i] = __halves2bfloat162(bl[j], two ? bl[j + 1] : zero);
-        shi[i] = __halves2bfloat162(bh[j], two ? bh[j + 1] : zero);
-      } else {
-        slo[i] = make_float2(bl[j], two ? bl[j + 1] : 0.f);
-        shi[i] = make_float2(bh[j], two ? bh[j + 1] : 0.f);
+  for (int c0 = p_begin; c0 < p_end; c0 += kK6Chunk) {
+    const int n = min(kK6Chunk, p_end - c0);
+    const int np4 = ((n + 1) / 2 + 3) & ~3;  // pairs, padded to a group
+    for (int i = threadIdx.x; i < np4; i += kK6Threads) {
+      // the pair's two points in the low and high halves; a point past n
+      // is masked (coordinates 0, lo = hi = 0: it never votes)
+      unsigned px = 0, py = 0, pz = 0, pl = 0, ph = 0;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int e = 2 * i + k;
+        if (e < n) {
+          const long long j = c0 + e;
+          const int sh = 16 * k;
+          px |= rn_bits(bp[3 * j]) << sh;
+          py |= rn_bits(bp[3 * j + 1]) << sh;
+          pz |= rn_bits(bp[3 * j + 2]) << sh;
+          pl |= band_lo_bits<kCmpBf16>(bl[j]) << sh;
+          ph |= band_hi_bits<kCmpBf16>(bh[j]) << sh;
+        }
+      }
+      spt[i] = make_uint4(px, py, pz, pl);
+      shi_u[i] = ph;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int g = 0; g < np4 / 4; ++g) {
+      const uint4 h4 = shi[g];
+      const unsigned hs[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int k = 0; k < 4; k += 2) {
+        const uint4 p = spt[4 * g + k];
+        const uint4 q = spt[4 * g + k + 1];
+#pragma unroll
+        for (int j = 0; j < kK6Vpt; ++j) {
+          count[j] += in_band2(d2_pair(vx[j], vy[j], vz[j], p), p.w, hs[k])
+                      + in_band2(d2_pair(vx[j], vy[j], vz[j], q), q.w,
+                                 hs[k + 1]);
+        }
       }
     }
     __syncthreads();
-    for (int i = 0; i < np; ++i) {
-      const __nv_bfloat162 dx = __hsub2_rn(vx2, sx[i]);
-      const __nv_bfloat162 dy = __hsub2_rn(vy2, sy[i]);
-      const __nv_bfloat162 dz = __hsub2_rn(vz2, sz[i]);
-      const __nv_bfloat162 d2 = __hadd2_rn(
-          __hadd2_rn(__hmul2_rn(dx, dx), __hmul2_rn(dy, dy)),
-          __hmul2_rn(dz, dz));
-      if constexpr (kCmpBf16) {
-        const __nv_bfloat162 l = slo[i], h = shi[i];
-        const __nv_bfloat16 d0 = __low2bfloat16(d2);
-        const __nv_bfloat16 d1 = __high2bfloat16(d2);
-        count += (__hgt(d0, __low2bfloat16(l)) & __hlt(d0, __low2bfloat16(h)))
-                 + (__hgt(d1, __high2bfloat16(l))
-                    & __hlt(d1, __high2bfloat16(h)));
-      } else {
-        const float2 f = __bfloat1622float2(d2);
-        const float2 l = slo[i], h = shi[i];
-        count += ((f.x > l.x) & (f.x < h.x)) + ((f.y > l.y) & (f.y < h.y));
-      }
-    }
-    __syncthreads();
   }
-  if (v < n_vox) out[b * n_vox + v] = static_cast<float>(count);
+#pragma unroll
+  for (int j = 0; j < kK6Vpt; ++j) {
+    const int v = v0 + j * kK6Threads;
+    if (v >= n_vox) continue;
+    const unsigned total = (count[j] & 0xffffu) + (count[j] >> 16);
+    float* o = out + b * n_vox + v;
+    if (!accumulate) {
+      *o = static_cast<float>(total);
+    } else if (total != 0) {
+      atomicAdd(o, static_cast<float>(total));
+    }
+  }
 }
 
 }  // namespace
@@ -454,25 +556,37 @@ extern "C" int vote_counts_mxu_f32(const void* vox, const void* v2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6. vox: (V, 3) or (batch, V, 3) bf16 by vox_shared; pts: (batch, N, 3)
-// bf16; lo, hi: (batch, N), f32 when cmp_bf16 == 0 and bf16 when it is 1;
-// out: (batch, V) f32. All contiguous.
+// K6. vox: (V, 3) or (batch, V, 3) by vox_shared; pts: (batch, N, 3); lo,
+// hi: (batch, N); out: (batch, V). All f32 and contiguous: the kernel
+// rounds the coordinates to bf16, and the band too (to nearest even when
+// cmp_bf16 == 1, outward when it is 0). split (1 .. 2 * 65535) is the points
+// a block, as for K1: with N > split the blocks of a voxel tile add into
+// out, which must then hold zeros. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a split out of range.
 extern "C" int vote_counts_bf16(const void* vox, const void* pts,
                                 const void* lo, const void* hi, void* out,
                                 int vox_shared, int batch, int n_vox,
-                                int n_pts, int cmp_bf16, void* stream) {
-  const dim3 grid((n_vox + kThreads - 1) / kThreads, batch);
+                                int n_pts, int cmp_bf16, int split,
+                                void* stream) {
+  if (split < 1 || split > kK6MaxSplit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kPerBlock = kK6Threads * kK6Vpt;
+  const int splits = n_pts > split ? (n_pts + split - 1) / split : 1;
+  const dim3 grid((n_vox + kPerBlock - 1) / kPerBlock, splits, batch);
   const long long vox_bstride = vox_shared ? 0 : 3LL * n_vox;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* vx = static_cast<const __nv_bfloat16*>(vox);
-  const auto* px = static_cast<const __nv_bfloat16*>(pts);
+  const auto* vx = static_cast<const float*>(vox);
+  const auto* px = static_cast<const float*>(pts);
+  const auto* l = static_cast<const float*>(lo);
+  const auto* h = static_cast<const float*>(hi);
   auto* o = static_cast<float*>(out);
   if (cmp_bf16) {
-    vote_counts_bf16_kernel<true><<<grid, kThreads, 0, s>>>(
-        vx, vox_bstride, px, lo, hi, o, n_vox, n_pts);
+    vote_counts_bf16_kernel<true><<<grid, kK6Threads, 0, s>>>(
+        vx, vox_bstride, px, l, h, o, n_vox, n_pts, split, splits > 1);
   } else {
-    vote_counts_bf16_kernel<false><<<grid, kThreads, 0, s>>>(
-        vx, vox_bstride, px, lo, hi, o, n_vox, n_pts);
+    vote_counts_bf16_kernel<false><<<grid, kK6Threads, 0, s>>>(
+        vx, vox_bstride, px, l, h, o, n_vox, n_pts, split, splits > 1);
   }
   return static_cast<int>(cudaGetLastError());
 }

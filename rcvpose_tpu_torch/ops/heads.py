@@ -18,13 +18,14 @@ import torch
 
 from rcvpose_tpu_torch.ops import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
                  + [ctypes.c_int, ctypes.c_void_p])
-# The backward's branches (csrc/heads.cu): one thread a run of 8 elements
-# where g is contiguous (PLANES for an NCHW output, ROWS for a channels-last
-# one with 2K in ROWS_CHANNELS), one thread an element otherwise.
-BWD_BRANCHES = ("generic", "planes", "rows")
+# The branches of K2 and its backward (csrc/heads.cu): one thread a run of 8
+# elements where the channels-last or NCHW side is contiguous (ROWS for a
+# channels-last one with 2K in ROWS_CHANNELS, PLANES for an NCHW one), one
+# thread an element otherwise.
+BRANCHES = ("generic", "planes", "rows")
 ROWS_CHANNELS = (2, 4, 6, 8)
 _ENTRY = {torch.float32: "heads_channel_major_f32",
           torch.bfloat16: "heads_channel_major_bf16"}
@@ -38,9 +39,25 @@ def _check_int32(t, what):
         raise ValueError(f"{what}: tensor too large for int32 indexing")
 
 
+def fwd_branch(out):
+    """Which branch of K2 takes conv8's output ``out`` (B, 2K, H, W):
+    "rows" where it is channels-last and contiguous with 2K in
+    ``ROWS_CHANNELS``, "planes" where it is NCHW and contiguous (at most
+    65535 planes, the planes grid's y), "generic" otherwise (a strided
+    view). Any base offset takes the vectorized branches: misaligned runs
+    go scalar in the kernel."""
+    b, c = out.shape[:2]
+    if out.is_contiguous(memory_format=torch.channels_last) and \
+            c in ROWS_CHANNELS:
+        return "rows"
+    if out.is_contiguous() and b * c <= 65535:
+        return "planes"
+    return "generic"
+
+
 def heads_channel_major_cuda(out):
-    """Launch K2 on a CUDA tensor; ``heads_channel_major_cuda.launches``
-    counts the launches."""
+    """Launch K2 on a CUDA tensor through the branch ``fwd_branch`` picks;
+    ``heads_channel_major_cuda.launches`` counts the launches."""
     if out.device.type != "cuda":
         raise ValueError("heads_channel_major_cuda needs a CUDA tensor")
     if out.dim() != 4:
@@ -56,7 +73,7 @@ def heads_channel_major_cuda(out):
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(out.data_ptr(), res.data_ptr(), b, c, h, w, *out.stride(),
-                 stream)
+                 BRANCHES.index(fwd_branch(out)), stream)
     _build.check(err, _ENTRY[out.dtype])
     heads_channel_major_cuda.launches += 1
     return res
@@ -135,7 +152,7 @@ def heads_channel_major_bwd_cuda(g, dtype, channels_last=False):
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g.data_ptr(), res.data_ptr(), sizes, gs, os_,
-                 BWD_BRANCHES.index(branch), stream)
+                 BRANCHES.index(branch), stream)
     _build.check(err, _BWD_ENTRY[dtype])
     heads_channel_major_bwd_cuda.launches += 1
     return res

@@ -12,7 +12,8 @@ points are ``(B, N, 3)`` and the bands ``(B, N)``. Masked points carry
 - **K5** (``vote_counts_mxu_cuda``): the matmul form
   ``vx*(-2px) + vy*(-2py) + vz*(-2pz) + |v|^2 + |p|^2`` in f32.
 - **K6** (``vote_counts_bf16_cuda``): the subtract-square form in bf16,
-  compared in f32 or in bf16.
+  compared in f32 or in bf16, with the point axis split as
+  ``plan_votes(..., kernel="K6")`` says.
 
 Each kernel and its plain version agree exactly. A ``*_cuda`` wrapper
 launches its kernel on CUDA tensors and counts the launches in its
@@ -43,20 +44,26 @@ H100_SMS = 132
 # most one warp instruction a clock in each of its 4 sub-partitions, 132 x
 # 4 x 32 lanes x 1.98 GHz lane-instructions a second. The instructions a
 # (voxel, point) pair needs: K1 3 sub, 3 mul, 2 add, 2 compares, the
-# predicated count add; K5 3 mul, 4 add, 2 compares, the count; K6 the 8
-# sub / mul / add in bf16x2 pair forms (4 a pair), then 2 f32 compares and
-# the count ("f32" compare) or one bf16x2 compare pair and the count
-# ("bf16").
+# predicated count add; K5 3 mul, 4 add, 2 compares, the count; K6, in
+# either compare, the 8 sub / mul / add in bf16x2 pair forms (4 a pair),
+# two packed band compares for two pairs (1 a pair: the f32 compare of a
+# bf16 d2 is a bf16 compare with the band rounded outward, once a point)
+# and the count, an AND for two pairs and a three-input add for four (0.75).
 ISSUE_RATE = H100_SMS * 4 * 32 * 1.98e9
-INSTRUCTIONS_PER_PAIR = {"K1": 11, "K5": 10, "K6 f32": 7, "K6 bf16": 6}
-# K1's counts are f32 sums of integer partial counts: exact below 2^24.
+INSTRUCTIONS_PER_PAIR = {"K1": 11, "K5": 10, "K6 f32": 5.75, "K6 bf16": 5.75}
+# K1's and K6's counts are f32 sums of integer partial counts: exact below
+# 2^24.
 MAX_POINTS = 1 << 24
+# K6's only tile, and the most points a K6 block takes: it counts the two
+# points of a staged pair in the 16-bit halves of a register.
+K6_TILE = (256, 4, 1024)
+K6_MAX_SPLIT = 2 * 65535
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _K1_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [_PTR]
 _K5_ARGTYPES = [_PTR] * 7 + [_INT] * 4 + [_PTR]
-_K6_ARGTYPES = [_PTR] * 5 + [_INT] * 5 + [_PTR]
+_K6_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [_PTR]
 
 
 def _check_args(voxels, points, lo, hi, dtype=torch.float32):
@@ -101,12 +108,13 @@ def _launch(what, symbol, argtypes, args, out, b, v, n):
 
 
 # ---------------------------------------------------------------------------
-# K1: subtract-square d2 in f32, at a chosen tile
+# K1: subtract-square d2 in f32, at a chosen tile; the point-split planner
+# of K1 and K6
 # ---------------------------------------------------------------------------
 
 # The planner's aim: 32 resident warps an SM (4 blocks of 256 threads).
-# csrc/vote.cu caps a K1 thread at 64 registers (__launch_bounds__(threads,
-# 1024 / threads)), so that many always fit.
+# csrc/vote.cu caps a K1 or K6 thread at 64 registers
+# (__launch_bounds__(threads, 1024 / threads)), so that many always fit.
 TARGET_WARPS = 32
 # Points a split is rounded to (a warp's staging width).
 SPLIT_ALIGN = 32
@@ -114,15 +122,20 @@ _SM_THREADS = 2048
 _SM_BLOCKS = 32
 _SM_SHARED = 233472        # bytes an SM can give its blocks
 _BLOCK_RESERVED = 1024     # shared memory the runtime keeps a block
+# By kernel: shared-memory bytes a staged point takes (K1 a float4 and a
+# quarter float4 a point; K6 a 16-byte word and a quarter word a pair) and
+# the most points a block may take
+_STAGED_BYTES = {"K1": 20, "K6": 10}
+_MAX_SPLIT = {"K1": None, "K6": K6_MAX_SPLIT}
 
 
 @dataclasses.dataclass(frozen=True)
 class VotePlan:
-    """How K1 covers a (B, V, N) problem at a tile: ``splits`` blocks of
-    ``split`` points (the last takes the rest) for each of ``voxel_blocks``
-    (B times the voxel tiles). ``resident`` is the blocks an SM holds at
-    once, ``target`` the blocks an SM the planner aims for, ``blocks_per_sm``
-    what the grid gives over ``sms`` multiprocessors."""
+    """How a split kernel covers a (B, V, N) problem at a tile: ``splits``
+    blocks of ``split`` points (the last takes the rest) for each of
+    ``voxel_blocks`` (B times the voxel tiles). ``resident`` is the blocks
+    an SM holds at once, ``target`` the blocks an SM the planner aims for,
+    ``blocks_per_sm`` what the grid gives over ``sms`` multiprocessors."""
     tile: tuple
     split: int
     splits: int
@@ -130,6 +143,7 @@ class VotePlan:
     resident: int
     target: int
     sms: int
+    kernel: str = "K1"
 
     @property
     def blocks(self):
@@ -140,32 +154,40 @@ class VotePlan:
         return self.blocks / self.sms
 
 
-def resident_blocks(tile):
-    """K1 blocks an SM holds at once at ``tile``: the least of the thread,
-    block, shared-memory (20 bytes a staged point) and register (64 a
-    thread) limits."""
+def resident_blocks(tile, kernel="K1"):
+    """Blocks of ``kernel`` an SM holds at once at ``tile``: the least of
+    the thread, block, shared-memory (``_STAGED_BYTES`` a staged point) and
+    register (64 a thread) limits."""
     threads, _, chunk = tile
     return min(_SM_THREADS // threads, _SM_BLOCKS,
-               _SM_SHARED // (20 * chunk + _BLOCK_RESERVED),
+               _SM_SHARED // (_STAGED_BYTES[kernel] * chunk
+                              + _BLOCK_RESERVED),
                65536 // (64 * threads))
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_votes(b, v, n, tile=DEFAULT_TILE, sms=H100_SMS):
-    """Split K1's point axis so that the grid holds at least ``target``
-    blocks an SM, ``min(resident, TARGET_WARPS warps)``: the voxel tiles of
-    the serving refine stage alone give 1.45 blocks an SM at the default
-    tile. Splits are multiples of ``SPLIT_ALIGN`` points. Among the split
-    counts from the least that reaches the target to twice it, takes the
-    one that balances the SMs best (the busiest SM's share of the points
-    over the mean), then the fewest splits. Where N is too short to reach
-    the target, every split is ``SPLIT_ALIGN`` points. Pure Python; the
-    wrapper passes the card's multiprocessor count."""
+def plan_votes(b, v, n, tile=DEFAULT_TILE, sms=H100_SMS, kernel="K1"):
+    """Split the point axis of ``kernel`` ("K1" at ``tile``, or "K6" at
+    ``K6_TILE``) so that the grid holds at least ``target`` blocks an SM,
+    ``min(resident, TARGET_WARPS warps)``: the voxel tiles of the serving
+    refine stage alone give 1.45 blocks an SM at K1's default tile. Splits
+    are multiples of ``SPLIT_ALIGN`` points, and K6's at most
+    ``K6_MAX_SPLIT``. Among the split counts from the least that reaches
+    the target (and the cap) to twice it, takes the one that balances the
+    SMs best (the busiest SM's share of the points over the mean), then the
+    fewest splits. Where N is too short to reach the target, every split
+    is ``SPLIT_ALIGN`` points. Pure Python; the wrapper passes the card's
+    multiprocessor count."""
+    if kernel == "K6" and tuple(tile) != K6_TILE:
+        raise ValueError(f"K6 is built at {K6_TILE} only, got {tile}")
     threads, vpt, _ = tile
+    cap = _MAX_SPLIT[kernel]
     voxel_blocks = max(1, b * -(-v // (threads * vpt)))
-    resident = resident_blocks(tile)
+    resident = resident_blocks(tile, kernel)
     target = min(resident, max(1, TARGET_WARPS * 32 // threads))
     want = -(-target * sms // voxel_blocks)
+    if cap is not None:
+        want = max(want, -(-n // cap))
     max_splits = max(1, -(-n // SPLIT_ALIGN))
 
     def split_of(s):
@@ -181,7 +203,8 @@ def plan_votes(b, v, n, tile=DEFAULT_TILE, sms=H100_SMS):
         best = None
         for s in range(want, min(2 * want, max_splits) + 1):
             per, got = split_of(s)
-            if got * voxel_blocks < target * sms:
+            if got * voxel_blocks < target * sms or (
+                    cap is not None and per > cap):
                 continue
             # the busiest SM runs ceil(blocks / sms) blocks of `per` points
             # against a mean of voxel_blocks * n / sms points
@@ -194,11 +217,35 @@ def plan_votes(b, v, n, tile=DEFAULT_TILE, sms=H100_SMS):
         else:
             _, split, splits = best
     return VotePlan(tuple(tile), split, splits, voxel_blocks, resident,
-                    target, sms)
+                    target, sms, kernel)
 
 
 def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_output(what, b, v, n, split, tile, kernel, device):
+    """The points a block of a split kernel takes (``split``, or the
+    planner's choice on this card for None; at most N) and its f32 (B, V)
+    output, zeroed where split blocks add into it. Raises for N >= 2^24
+    (the f32 sums of counts stop being exact), a split the kernel cannot
+    take, or a grid that does not fit."""
+    if n >= MAX_POINTS:
+        raise ValueError(f"{what}: N = {n} points; the f32 counts are "
+                         f"exact only below 2^24")
+    if split is None:
+        split = plan_votes(b, v, n, tile, _sm_count(device), kernel).split
+    split = min(int(split), max(n, 1))
+    cap = _MAX_SPLIT[kernel]
+    if cap is not None and split > cap:
+        raise ValueError(f"{what}: a split of {split} points; a block takes "
+                         f"at most {cap}")
+    splits = -(-n // split) if n > split else 1
+    if splits > 65535 or b > 65535:
+        raise ValueError(f"{what}: {splits} point splits, batch {b} (grid y "
+                         f"and z hold 65535)")
+    alloc = torch.zeros if splits > 1 else torch.empty
+    return split, alloc((b, v), dtype=torch.float32, device=device)
 
 
 def vote_counts_cuda(voxels, points, lo, hi, tile=None, split=None):
@@ -224,18 +271,8 @@ def vote_counts_cuda(voxels, points, lo, hi, tile=None, split=None):
                                       (voxels, points, lo, hi))
     b, n, _ = points.shape
     v = voxels.shape[-2]
-    if n >= MAX_POINTS:
-        raise ValueError(f"vote_counts_cuda: N = {n} points; the f32 counts "
-                         f"are exact only below 2^24")
-    if split is None:
-        split = plan_votes(b, v, n, tile, _sm_count(points.device)).split
-    split = min(int(split), max(n, 1))
-    splits = -(-n // split) if n > split else 1
-    if splits > 65535 or b > 65535:
-        raise ValueError(f"vote_counts_cuda: {splits} point splits, batch "
-                         f"{b} (grid y and z hold 65535)")
-    alloc = torch.zeros if splits > 1 else torch.empty
-    out = alloc((b, v), dtype=torch.float32, device=points.device)
+    split, out = _split_output("vote_counts_cuda", b, v, n, split, tile,
+                               "K1", points.device)
     _launch("vote_counts_cuda", "vote_counts_f32", _K1_ARGTYPES,
             (voxels.data_ptr(), points.data_ptr(), lo.data_ptr(),
              hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v, n,
@@ -350,36 +387,49 @@ def vote_counts_mxu_plain(voxels, points, lo, hi):
 _COMPARES = ("f32", "bf16")
 
 
-def _bf16_operands(voxels, points, lo, hi, compare):
-    """Coordinates rounded to bf16; lo / hi too when ``compare="bf16"``."""
+def _check_bf16_args(voxels, points, lo, hi, compare):
     if compare not in _COMPARES:
         raise ValueError(f"compare must be 'f32' or 'bf16', got {compare!r}")
     _check_args(voxels, points, lo, hi)
+
+
+def _bf16_operands(voxels, points, lo, hi, compare):
+    """Coordinates rounded to bf16; lo / hi too when ``compare="bf16"``."""
+    _check_bf16_args(voxels, points, lo, hi, compare)
     bf16 = torch.bfloat16
     band = bf16 if compare == "bf16" else torch.float32
     return voxels.to(bf16), points.to(bf16), lo.to(band), hi.to(band)
 
 
-def vote_counts_bf16_cuda(voxels, points, lo, hi, compare="f32"):
-    """Launch K6 on CUDA tensors (f32 in; coordinates rounded to bf16
-    here); returns (B, V) f32 counts. ``vote_counts_bf16_cuda.launches``
-    counts the launches."""
-    voxels, points, lo, hi = _on_card(
-        "vote_counts_bf16_cuda",
-        _bf16_operands(voxels, points, lo, hi, compare))
+def vote_counts_bf16_cuda(voxels, points, lo, hi, compare="f32", split=None):
+    """Launch K6 on CUDA tensors (f32 in: the kernel rounds the coordinates
+    to bf16, and the band as ``compare`` says); returns (B, V) f32 counts.
+    ``split``: points a block (at most ``K6_MAX_SPLIT``), None for
+    ``plan_votes(..., kernel="K6")``'s choice on this card; every split
+    gives the same counts. ``vote_counts_bf16_cuda.launches`` counts every
+    launch, ``vote_counts_bf16_cuda.bf16_compare_launches`` those with
+    ``compare="bf16"``."""
+    _check_bf16_args(voxels, points, lo, hi, compare)
+    if split is not None and int(split) < 1:
+        raise ValueError(f"split must be >= 1 point, got {split}")
+    voxels, points, lo, hi = _on_card("vote_counts_bf16_cuda",
+                                      (voxels, points, lo, hi))
     b, n, _ = points.shape
     v = voxels.shape[-2]
-    out = torch.empty((b, v), dtype=torch.float32, device=points.device)
+    split, out = _split_output("vote_counts_bf16_cuda", b, v, n, split,
+                               K6_TILE, "K6", points.device)
     _launch("vote_counts_bf16_cuda", "vote_counts_bf16", _K6_ARGTYPES,
             (voxels.data_ptr(), points.data_ptr(), lo.data_ptr(),
              hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v, n,
-             int(compare == "bf16")), out, b, v, n)
+             int(compare == "bf16"), int(split)), out, b, v, n)
     if b and v:
         vote_counts_bf16_cuda.launches += 1
+        vote_counts_bf16_cuda.bf16_compare_launches += compare == "bf16"
     return out
 
 
 vote_counts_bf16_cuda.launches = 0
+vote_counts_bf16_cuda.bf16_compare_launches = 0
 
 
 def vote_counts_bf16_plain(voxels, points, lo, hi, compare="f32"):

@@ -5,6 +5,7 @@
     python -m rcvpose_tpu_torch.scripts.prof_vote_tiles
     python -m rcvpose_tpu_torch.scripts.prof_vote_bf16
     python -m rcvpose_tpu_torch.scripts.prof_conv [--old OLD.cu]
+    python -m rcvpose_tpu_torch.scripts.prof_pipes
 
 Each needs the card and raises without one. ``device_ms``, ``card_line``,
 ``coarse_problem`` and ``hier_problem`` are shared by them.

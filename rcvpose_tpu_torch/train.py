@@ -98,11 +98,26 @@ class TrainState:
         return next(self.model.parameters()).device
 
 
+def refuse_remat(cfg):
+    """Raise where the port would train a model that ``cfg`` asks to
+    rematerialize: ``Config.remat`` (the JAX package's ``nn.remat`` per
+    Bottleneck) is not ported, and ignoring it would change the memory a
+    step needs without a word. Serving and evaluation take such a config:
+    a forward without gradients keeps no activations to rematerialize."""
+    if getattr(cfg, "remat", False):
+        raise NotImplementedError(
+            "Config.remat=True (activation rematerialization per "
+            "Bottleneck) is not ported yet (ROADMAP A5); train with remat "
+            "unset or False")
+
+
 def create_state(cfg, generator, steps_per_epoch=1000, blocks=None,
                  width=None, device=None, conv_kernel=False):
     """A fresh ``TrainState``: ``init_params`` from the CPU
     ``torch.Generator``, then the model moves to ``device`` (the card
-    unless ``device="cpu"``) in channels-last layout."""
+    unless ``device="cpu"``) in channels-last layout. Raises
+    ``NotImplementedError`` for ``cfg.remat`` (``refuse_remat``)."""
+    refuse_remat(cfg)
     dev = resolve_device(device)
     model = build_model(cfg, blocks, width, conv_kernel)
     init_params(model, generator)
@@ -228,7 +243,8 @@ class Trainer:
     Data loading and checkpointing are injected so the loop is testable
     without datasets on disk: ``train_batches(epoch)`` or
     ``train_batches(epoch, start_batch)`` and ``val_batches()`` yield dicts
-    of numpy arrays or tensors.
+    of numpy arrays or tensors. Raises ``NotImplementedError`` for
+    ``cfg.remat`` (``refuse_remat``), whatever made the state.
     """
     cfg: Any
     state: TrainState
@@ -242,6 +258,7 @@ class Trainer:
     steps_per_epoch: int = 0    # enables mid-epoch resume fast-forward
 
     def __post_init__(self):
+        refuse_remat(self.cfg)
         if self.steps is not None:
             self._train_step, self._eval_step = self.steps
         else:

@@ -175,6 +175,83 @@ def test_vote_counts_bf16_cuda_matches_plain(cuda, case, compare):
         args[0][0], *args[1:], compare))
 
 
+# K6's split branches on the same (3, 4096, 8155) problem: the planner's,
+# one split, 2 and 7 splits, splits of 32 and 1001 points, the largest split
+# a block takes (one block of 8155), and the planner on shared voxels
+K6_SPLIT_CASES = ["planner", "one", 2, 7, "32", "1001", "shared"]
+
+
+@pytest.mark.parametrize("compare", ["f32", "bf16"])
+@pytest.mark.parametrize("case", K6_SPLIT_CASES, ids=str)
+def test_vote_counts_bf16_cuda_every_split_branch(cuda, case, compare):
+    """K6 equals its plain version exactly at each branch of its point
+    split, in both compares, and two runs agree bit for bit."""
+    pts, radii, mask, vox = _band_problem(6, 3, 8155, 4096)
+    lo, hi = voting.widened_band(radii, mask, 4.2)
+    args = [t.to(cuda) for t in (vox, pts, lo, hi)]
+    n = args[1].shape[1]
+    split = {"planner": None, "one": n, 2: -(-n // 2), 7: -(-n // 7),
+             "32": 32, "1001": 1001, "shared": None}[case]
+    if case == "shared":
+        args[0] = args[0][0]
+    before = vote_cuda.vote_counts_bf16_cuda.bf16_compare_launches
+    got = vote_cuda.vote_counts_bf16_cuda(*args, compare, split=split)
+    again = vote_cuda.vote_counts_bf16_cuda(*args, compare, split=split)
+    torch.cuda.synchronize()
+    assert vote_cuda.vote_counts_bf16_cuda.bf16_compare_launches == before + (
+        2 if compare == "bf16" else 0)
+    assert torch.equal(got, vote_cuda.vote_counts_bf16_plain(*args, compare))
+    assert torch.equal(again, got)
+
+
+def test_vote_counts_bf16_cuda_band_edges(cuda):
+    """The f32 compare at its edges: each point's lo and hi sit on the bf16
+    d2 of a random voxel, one f32 ulp either side of it, or halfway to the
+    next bf16 value, so the kernel's outward-rounded bf16 band meets every
+    case of its identity; it must count exactly what the plain version's
+    f32 compare counts, at one split and at several."""
+    rng = np.random.default_rng(8)
+    b, n, v = 2, 3001, 700
+    pts = torch.tensor(rng.uniform(0, 24, size=(b, n, 3)), dtype=torch.float32)
+    vox = torch.tensor(rng.uniform(0, 24, size=(b, v, 3)), dtype=torch.float32)
+    bf = torch.bfloat16
+    d2 = vote_cuda._d2_subtract_square(pts.to(bf))(vox.to(bf), 0, n)
+    d2 = d2.float().numpy()  # (b, v, n), each a bf16 value
+    edges = []
+    for _ in range(2):
+        e = np.take_along_axis(d2, rng.integers(0, v, size=(b, 1, n)), 1)[:, 0]
+        bits = e.view(np.uint32)
+        variants = np.stack([e, np.nextafter(e, np.float32(np.inf)),
+                             np.nextafter(e, np.float32(-np.inf)),
+                             (bits + np.uint32(0x8000)).view(np.float32)])
+        pick = rng.integers(0, 4, size=(1, b, n))
+        edges.append(np.take_along_axis(variants, pick, 0)[0])
+    lo, hi = np.minimum(*edges), np.maximum(*edges)
+    args = [t.to(cuda) for t in (vox, pts, torch.tensor(lo), torch.tensor(hi))]
+    want = vote_cuda.vote_counts_bf16_plain(*args, "f32")
+    for split in (None, 512, n):
+        got = vote_cuda.vote_counts_bf16_cuda(*args, "f32", split=split)
+        assert torch.equal(got, want), split
+    assert float(want.sum()) > 0
+
+
+def test_vote_counts_bf16_cuda_refuses_what_it_cannot_count(cuda):
+    """2^24 points (f32 sums of counts stop being exact), and a split past
+    the 2 x 65535 points a block's 16-bit lane counts hold."""
+    args = [torch.zeros(s, device=cuda) for s in ((4, 3), (1, 1 << 24, 3),
+                                                   (1, 1 << 24),
+                                                   (1, 1 << 24))]
+    with pytest.raises(ValueError, match="2\\^24"):
+        vote_cuda.vote_counts_bf16_cuda(*args)
+    n = vote_cuda.K6_MAX_SPLIT + 1
+    args = [torch.zeros(s, device=cuda) for s in ((4, 3), (1, n, 3), (1, n),
+                                                   (1, n))]
+    with pytest.raises(ValueError, match="at most"):
+        vote_cuda.vote_counts_bf16_cuda(*args, split=n)
+    got = vote_cuda.vote_counts_bf16_cuda(*args)
+    assert torch.equal(got, torch.zeros(1, 4, device=cuda))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels_last", [False, True])
 def test_heads_channel_major_cuda_matches_plain(cuda, dtype, channels_last):
@@ -189,6 +266,48 @@ def test_heads_channel_major_cuda_matches_plain(cuda, dtype, channels_last):
     assert heads.heads_channel_major_cuda.launches == before + 1
     torch.testing.assert_close(got, heads.heads_channel_major_plain(x),
                                rtol=0, atol=0)
+
+
+def _heads_input(kind, c, dtype, channels_last, dev, gen, b=2, h=24, w=64):
+    """conv8's output (b, c, h, w) laid out as ``kind``: contiguous NCHW or
+    channels-last, a width off a multiple of 8, a contiguous view one
+    element past a 16-byte boundary, or a strided view."""
+    w = w - 3 if kind == "W % 8 != 0" else w
+    shape = (b, h, w, c) if channels_last else (b, c, h, w)
+    to_bchw = (0, 3, 1, 2) if channels_last else (0, 1, 2, 3)
+    if kind == "misaligned":
+        x = torch.randn(b * c * h * w + 1, device=dev, generator=gen).to(
+            dtype)[1:].view(shape)
+    elif kind == "strided":
+        x = torch.randn(*shape[:-2], shape[-1], shape[-2], device=dev,
+                        generator=gen).to(dtype).transpose(-1, -2)
+    else:
+        x = torch.randn(*shape, device=dev, generator=gen).to(dtype)
+    return x.permute(*to_bchw)
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["contiguous", "W % 8 != 0", "misaligned",
+                                  "strided"])
+@pytest.mark.parametrize("c", [2, 6])
+def test_heads_cuda_every_branch(cuda, c, kind, dtype, channels_last):
+    """K2 bit for bit at each branch and layout: the vectorized rows
+    (channels-last) and planes (NCHW) branches, their scalar runs (a width
+    off a multiple of 8, a base one element past a 16-byte boundary), the
+    generic branch from a strided view; repeatable."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = _heads_input(kind, c, dtype, channels_last, cuda, g)
+    assert x.shape[:2] == (2, c)
+    want_branch = ("generic" if kind == "strided"
+                   else "rows" if channels_last else "planes")
+    assert heads.fwd_branch(x) == want_branch
+    got = heads.heads_channel_major_cuda(x)
+    again = heads.heads_channel_major_cuda(x)
+    want = heads.heads_channel_major_plain(x)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == want.shape
+    assert torch.equal(got, want) and torch.equal(again, got)
 
 
 @pytest.mark.parametrize("cotangent", ["contiguous", "strided"])

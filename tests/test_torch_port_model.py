@@ -159,3 +159,45 @@ def test_head_split_backward_branch_many_planes():
     g = torch.empty(2, 40000, 1, 1)
     assert heads.bwd_branch(g, False) == "generic"
     assert heads.bwd_branch(torch.empty(2, 30000, 1, 1), False) == "planes"
+
+
+def _head_output(kind, c, b=3, h=5, w=16):
+    """conv8's (B, 2K, H, W) output laid out as ``kind``."""
+    if kind == "channels-last":
+        return torch.randn(b, h, w, c).permute(0, 3, 1, 2)
+    if kind == "misaligned channels-last":
+        return torch.randn(b * h * w * c + 1)[1:].view(b, h, w, c).permute(
+            0, 3, 1, 2)
+    if kind == "misaligned NCHW":
+        return torch.randn(b * c * h * w + 1)[1:].view(b, c, h, w)
+    if kind == "strided":
+        return torch.randn(b, c, w, h).transpose(2, 3)
+    if kind == "permuted":
+        return torch.randn(b, h, c, w).permute(0, 2, 1, 3)
+    return torch.randn(b, c, h, w)
+
+
+@pytest.mark.parametrize("kind,c,branch", [
+    ("channels-last", 2, "rows"), ("channels-last", 6, "rows"),
+    ("channels-last", 8, "rows"), ("channels-last", 10, "generic"),
+    ("misaligned channels-last", 2, "rows"), ("NCHW", 2, "planes"),
+    ("NCHW", 6, "planes"), ("misaligned NCHW", 6, "planes"),
+    ("strided", 2, "generic"), ("permuted", 6, "generic")])
+def test_head_split_forward_branch(kind, c, branch):
+    """K2 takes its vectorized branches exactly where conv8's output is
+    contiguous in one of the two layouts (a misaligned base included: such
+    runs go scalar inside the kernel), "rows" only for a 2K it is built
+    for, and "generic" for every strided view; the plain forward is the
+    same relayout on each."""
+    x = _head_output(kind, c)
+    assert heads.fwd_branch(x) == branch
+    got = heads.heads_channel_major_plain(x.to(torch.bfloat16))
+    assert got.is_contiguous() and got.dtype == torch.float32
+    assert torch.equal(got, x.to(torch.bfloat16).float().permute(1, 0, 2, 3))
+
+
+def test_head_split_forward_branch_many_planes():
+    """An NCHW input of more than 65535 planes (the planes grid's y) takes
+    the generic branch."""
+    assert heads.fwd_branch(torch.empty(40000, 2, 1, 2)) == "generic"
+    assert heads.fwd_branch(torch.empty(30000, 2, 1, 2)) == "planes"

@@ -20,7 +20,7 @@ from rcvpose_tpu import labels as jax_labels
 from rcvpose_tpu import train as jax_train
 from rcvpose_tpu.config import Config as JaxConfig
 from rcvpose_tpu.models import fcnresnet as jax_fcn
-from rcvpose_tpu_torch import labels, train
+from rcvpose_tpu_torch import infer, labels, train
 from rcvpose_tpu_torch.checkpoint import Checkpointer, from_flax_variables
 from rcvpose_tpu_torch.config import Config
 from rcvpose_tpu_torch.models import fcnresnet as port_fcn
@@ -512,3 +512,30 @@ def test_create_state_without_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         train.create_state(_cfg(), torch.Generator().manual_seed(0),
                            blocks=TINY, width=WIDTH)
+
+
+def test_training_refuses_remat_and_serving_takes_it(tiny_state):
+    """``Config.remat`` (the JAX package's ``nn.remat`` per Bottleneck) is
+    not ported: setting a model up for training with it raises
+    ``NotImplementedError`` naming remat, in ``create_state`` and in a
+    ``Trainer`` handed a state made elsewhere, rather than training
+    without it. ``build_model`` and the serving estimator take the same
+    config: a forward without gradients keeps no activations to
+    rematerialize."""
+    cfg = _cfg(remat=True)
+    with pytest.raises(NotImplementedError, match="remat"):
+        train.create_state(cfg, torch.Generator().manual_seed(0),
+                           blocks=TINY, width=WIDTH, device="cpu")
+    with pytest.raises(NotImplementedError, match="remat"):
+        train.Trainer(cfg=cfg, state=tiny_state,
+                      train_batches=lambda epoch: [], val_batches=lambda: [])
+    serve_cfg = Config(remat=True, compute_dtype="float32",
+                       model_blocks="1,1,1,1", model_width=WIDTH)
+    model = train.build_model(serve_cfg)
+    port_fcn.init_params(model, torch.Generator().manual_seed(0))
+    est = infer.PoseEstimator(serve_cfg, [model.state_dict()] * 3,
+                              np.zeros((9, 3)), [2.0] * 3, device="cpu")
+    x = torch.zeros(1, HW, HW, 3)
+    with torch.no_grad():
+        seg, radial = est.models[0](x)
+    assert seg.shape == radial.shape == (1, HW, HW, 1)

@@ -28,7 +28,8 @@ from rcvpose_tpu.ops import voting as jax_voting
 from rcvpose_tpu_torch.ops import vote_cuda
 from rcvpose_tpu_torch.ops import voting as port_voting
 from rcvpose_tpu_torch.scripts import coarse_problem, hier_problem, prof_vote
-from rcvpose_tpu_torch.scripts import prof_vote_bf16, prof_vote_tiles
+from rcvpose_tpu_torch.scripts import (prof_pipes, prof_vote_bf16,
+                                       prof_vote_tiles)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -215,6 +216,87 @@ def test_bf16_plain_close_on_the_coarse_problem():
         assert mean <= 0.05 and overlap == 4, (compare, mean, mx, overlap)
 
 
+def _round_bf16(x, up):
+    """f32 ``x`` rounded to a bf16 value toward +inf (``up``) or -inf, as
+    f32, with bit operations (the kernel's ``__float2bfloat16_ru`` /
+    ``_rd``): truncate the low 16 bits (toward zero), then step one bf16 ulp
+    away from zero where that is the rounding's direction and the value was
+    not exact. NaN stays NaN, +-inf stay, and a finite value beyond the
+    largest bf16 rounds outward to inf."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    trunc = bits & np.uint32(0xFFFF0000)
+    negative = (bits >> 31) == 1
+    away = ((bits & np.uint32(0xFFFF)) != 0) & (negative != up)
+    out = (trunc + np.where(away, np.uint32(0x10000), np.uint32(0))).view(
+        np.float32)
+    return np.where(np.isnan(x), x, out).astype(np.float32)
+
+
+def _band_edges():
+    """Band edges for the identity: every 64th bf16 value of either sign,
+    each also one f32 ulp either side and halfway to the next bf16 value,
+    then 0, -0, +-inf, NaN and the largest finite f32 (past the largest
+    bf16) of either sign."""
+    mags = (np.arange(0, 0x7F80, 64, dtype=np.uint32) << 16).view(np.float32)
+    bf = np.concatenate([mags, -mags[1:]])
+    halfway = (bf.view(np.uint32) + np.uint32(0x8000)).view(np.float32)
+    big = np.finfo(np.float32).max
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, big, -big],
+                       np.float32)
+    return np.concatenate([bf, np.nextafter(bf, np.float32(np.inf)),
+                           np.nextafter(bf, np.float32(-np.inf)),
+                           halfway, special]).astype(np.float32)
+
+
+def test_k6_band_rounded_outward_is_the_f32_compare():
+    """K6 compares in bf16 in both arms: for every finite non-negative bf16
+    d2, the f32 test ``lo < d2 < hi`` of ``vote_counts_bf16_plain`` equals
+    ``rd(lo) < d2 < ru(hi)`` with lo rounded to bf16 toward -inf and hi
+    toward +inf, whatever lo and hi are (bf16 values, one f32 ulp off them,
+    halfway between two, 0, inf, NaN, past the largest bf16)."""
+    d2 = (np.arange(0, 0x7F80, dtype=np.uint32) << 16).view(np.float32)
+    edges = _band_edges()
+    rd, ru = _round_bf16(edges, up=False), _round_bf16(edges, up=True)
+    finite = np.isfinite(rd) & np.isfinite(ru)
+    assert not ((rd.view(np.uint32)[finite] & 0xFFFF).any()
+                or (ru.view(np.uint32)[finite] & 0xFFFF).any())
+    for lo, lo_bf in zip(np.array_split(edges, 8), np.array_split(rd, 8)):
+        np.testing.assert_array_equal(lo_bf[:, None] < d2[None],
+                                      lo[:, None] < d2[None])
+    for hi, hi_bf in zip(np.array_split(edges, 8), np.array_split(ru, 8)):
+        np.testing.assert_array_equal(d2[None] < hi_bf[:, None],
+                                      d2[None] < hi[:, None])
+
+
+def test_k6_outward_band_counts_like_the_f32_compare():
+    """The identity through the plain version: on a problem whose d2 lie on
+    and around the band edges, the bf16 compare with the band rounded
+    outward (what K6's f32 arm runs) counts exactly what the f32 compare
+    counts, and rounding to nearest instead would not."""
+    rng = np.random.default_rng(3)
+    vox, pts, lo, hi = coarse_problem(n=700, v=300, slack=4.2, seed=3,
+                                      device="cpu")
+    d2 = vote_cuda._d2_subtract_square(pts.to(torch.bfloat16))(
+        vox.to(torch.bfloat16).expand(1, -1, -1), 0, 700).float()[0].numpy()
+    edges = []
+    for _ in range(2):
+        e = d2[rng.integers(0, 300, size=700), np.arange(700)]
+        halfway = (e.view(np.uint32) + np.uint32(0x8000)).view(np.float32)
+        cands = np.stack([e, np.nextafter(e, np.float32(np.inf)),
+                          np.nextafter(e, np.float32(-np.inf)), halfway])
+        edges.append(cands[rng.integers(0, 4, size=700), np.arange(700)])
+    lo_np, hi_np = np.minimum(*edges)[None], np.maximum(*edges)[None]
+    want = vote_cuda.vote_counts_bf16_plain(
+        vox, pts, torch.tensor(lo_np), torch.tensor(hi_np), "f32")
+    outward = vote_cuda.vote_counts_bf16_plain(
+        vox, pts, torch.tensor(_round_bf16(lo_np, up=False)),
+        torch.tensor(_round_bf16(hi_np, up=True)), "bf16")
+    nearest = vote_cuda.vote_counts_bf16_plain(
+        vox, pts, torch.tensor(lo_np), torch.tensor(hi_np), "bf16")
+    assert torch.equal(outward, want)
+    assert not torch.equal(nearest, want)
+
+
 def test_bf16_rejects_unknown_compare():
     vox, pts, lo, hi = _integer_problem(4, 1, 10, 10, side=8)
     with pytest.raises(ValueError, match="compare"):
@@ -266,7 +348,7 @@ def test_coarse_problem_is_the_jax_scripts_problem():
 
 
 @pytest.mark.parametrize("script", [prof_vote_tiles, prof_vote_bf16,
-                                    prof_vote])
+                                    prof_vote, prof_pipes])
 def test_measurement_scripts_need_the_card(script):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -384,3 +466,85 @@ def test_k1_wrapper_refuses_a_split_below_one_point():
     vox, pts, lo, hi = _integer_problem(5, 2, 17, 9, side=32)
     with pytest.raises(ValueError, match="split"):
         vote_cuda.vote_counts_cuda(vox, pts, lo, hi, split=0)
+
+
+# ---------------------------------------------------------------------------
+# K6's point-split planner
+# ---------------------------------------------------------------------------
+
+# K1's shapes, and N past the split cap (an exact-mode frame of 480 x 640
+# points, a cap plus one)
+K6_PLAN_SHAPES = PLAN_SHAPES + [(3, 1000, 307200), (1, 4096, 2 * 65535 + 1),
+                                (3, 262144, 307200)]
+
+
+@pytest.mark.parametrize("shape", K6_PLAN_SHAPES, ids=str)
+def test_k6_plan_covers_every_point_once_under_the_cap(shape):
+    """K6's splits tile [0, N) without gap or overlap, each at most
+    ``K6_MAX_SPLIT`` points (its 16-bit lane counts), fit the grid, and
+    give at least the target of blocks an SM at 132 SMs unless N is too
+    short for more splits."""
+    b, v, n = shape
+    plan = vote_cuda.plan_votes(b, v, n, vote_cuda.K6_TILE,
+                                vote_cuda.H100_SMS, "K6")
+    threads, vpt, chunk = vote_cuda.K6_TILE
+    assert plan.kernel == "K6" and plan.tile == vote_cuda.K6_TILE
+    assert 1 <= plan.split <= vote_cuda.K6_MAX_SPLIT
+    assert 1 <= plan.splits <= 65535
+    assert plan.splits == (-(-n // plan.split) if n > plan.split else 1)
+    assert plan.splits == 1 or plan.split % vote_cuda.SPLIT_ALIGN == 0
+    covered = np.zeros(n, np.int64)
+    for i in range(plan.splits):
+        covered[i * plan.split:min(n, (i + 1) * plan.split)] += 1
+    assert (covered == 1).all(), plan
+    assert plan.voxel_blocks == max(1, b * -(-v // (threads * vpt)))
+    assert plan.resident == vote_cuda.resident_blocks(vote_cuda.K6_TILE,
+                                                      "K6")
+    assert 10 * chunk * plan.resident <= 233472
+    short = plan.split <= vote_cuda.SPLIT_ALIGN or plan.splits * \
+        vote_cuda.SPLIT_ALIGN >= n
+    assert plan.blocks >= plan.target * plan.sms or short, plan
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES[:4], ids=str)
+def test_k6_plan_fills_the_card_at_the_hier_stages(shape):
+    """The serving and LM hier stages: at least 4 blocks (32 warps) an SM,
+    and the busiest SM within 25% of the mean's points."""
+    plan = vote_cuda.plan_votes(*shape, tile=vote_cuda.K6_TILE,
+                                kernel="K6")
+    assert plan.blocks_per_sm >= 4
+    busiest = -(-plan.blocks // plan.sms) * plan.split
+    assert busiest <= 1.25 * plan.voxel_blocks * shape[2] / plan.sms
+
+
+def test_k6_plan_and_split_refusals():
+    """K6 is built at one tile; an explicit split past the cap is refused
+    before anything is allocated on the card; N = 2^24 is refused."""
+    with pytest.raises(ValueError, match="K6"):
+        vote_cuda.plan_votes(3, 1000, 1000, vote_cuda.DEFAULT_TILE[:2]
+                             + (2048,), kernel="K6")
+    cap = vote_cuda.K6_MAX_SPLIT
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="at most"):
+        vote_cuda._split_output("K6", 1, 4, cap + 1, cap + 1,
+                                vote_cuda.K6_TILE, "K6", cpu)
+    split, out = vote_cuda._split_output("K6", 1, 4, cap + 1, cap,
+                                         vote_cuda.K6_TILE, "K6", cpu)
+    assert split == cap and torch.equal(out, torch.zeros(1, 4))
+    with pytest.raises(ValueError, match="2\\^24"):
+        vote_cuda._split_output("K6", 1, 4, 1 << 24, 1 << 20,
+                                vote_cuda.K6_TILE, "K6", cpu)
+
+
+@pytest.mark.parametrize("pairs", [1, 1000, 65535, 65536])
+def test_k6_lane_counts_are_exact_up_to_the_cap(pairs):
+    """K6 adds 0x00010001 into a uint32 for a staged pair whose two points
+    both vote and folds the two 16-bit lanes at the end: exact while a lane
+    counts at most 65535 points, which K6_MAX_SPLIT = 2 x 65535 points a
+    block guarantees; one pair more and the low lane carries into the high
+    one."""
+    acc = np.uint32(0)
+    step = np.uint32(0x00010001)
+    acc = np.uint32((int(acc) + pairs * int(step)) % (1 << 32))
+    folded = int(acc & np.uint32(0xFFFF)) + int(acc >> np.uint32(16))
+    assert (folded == 2 * pairs) == (2 * pairs <= vote_cuda.K6_MAX_SPLIT)
