@@ -64,7 +64,18 @@ Phases, each printing its own line:
     ICP; then the ICP's device time;
 12. the device time of K5, K6 and K1 at the sweep's best tile at the
     phase-10 shapes, beside their plain versions and bounds, and of K6 in
-    both compares at each of its split branches (CUDA events).
+    both compares at each of its split branches (CUDA events);
+13. in phase 11's tree and with its nets: the Occlusion-LINEMOD evaluator
+    ``estimate_6d_pose_lmo`` on both routes (a frame without a pose
+    skipped; ADD 1.0 before and after ICP on the precomputed maps), the
+    YCB-Video evaluator ``estimate_6d_pose_ycb`` on a rendered 480x640
+    YCB-layout tree (YCB-Video's camera-1 intrinsics, depth at 1/10000
+    m) through the nets and through exact maps (AUC before ICP >= 0.8, no
+    lower after; the converged ICP's updates a frame and its device time
+    beside the LM's 30 iterations), the RGB-only keypoint at its defaults
+    against the truth and the CPU, ``PoseEstimator.refine`` on phase 4's
+    frame and ``radial_labels_from_cad`` on the card against the CPU;
+    K1's and K2's launches on each path.
 
 The vote kernels' bounds count instructions at the card's issue rate
 (``vote_cuda.ISSUE_RATE``), not FLOPs at the FP32 peak: none of their
@@ -183,8 +194,9 @@ def random_pose(rng):
 
 
 def render_synthetic_frame(rng, k):
-    """A 4 cm sphere-surface object at a random pose, its depth map (mm)
-    and perfect radial maps (dm) for three keypoints."""
+    """A 3-4 cm thick-shell object at a random pose, its depth map (mm),
+    perfect radial maps (dm) for three keypoints and the object's points
+    (m): (pose, keypoints, depth, radials, model)."""
     pose = random_pose(rng)
     dirs = rng.normal(size=(4000, 3))
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
@@ -207,7 +219,7 @@ def render_synthetic_frame(rng, k):
     radials = np.stack([
         np.where(depth_mm > 0, np.linalg.norm(xyz_m - kc, axis=-1) * 10.0,
                  0.0) for kc in kpts_cam]).astype(np.float32)
-    return pose, kpts_m, depth_mm, radials
+    return pose, kpts_m, depth_mm, radials, model_m
 
 
 def sass_functions(lib):
@@ -562,7 +574,7 @@ def phase_frame(infer, geometry):
     the card's pose against the truth."""
     rng = np.random.default_rng(0)
     k = geometry.LINEMOD_K
-    pose, kpts_m, depth_mm, radials = render_synthetic_frame(rng, k)
+    pose, kpts_m, depth_mm, radials, _ = render_synthetic_frame(rng, k)
     sem = (radials > 0).astype(np.float32)
     results = {}
     for dev in (DEVICE, "cpu"):
@@ -1272,7 +1284,7 @@ def hier_stages(voting, vote_cuda, geometry, frame, grid_l, topk):
     three keypoints of a rendered frame, at ``grid_l`` with ``topk``
     refine windows (the refine windows from K1's coarse counts)."""
     dev = torch.device(DEVICE)
-    _, _, depth_mm, radials = frame
+    _, _, depth_mm, radials, _ = frame
     depth = torch.tensor(depth_mm, device=dev)
     xyz, valid = geometry.backproject_dense(depth, geometry.LINEMOD_K)
     order, mask = geometry.pack_valid_indices(valid.reshape(-1), N_POINTS)
@@ -1420,6 +1432,43 @@ def phase_vote_variants(voting, vote_cuda, geometry):
     return stages, errs, launches, scripts
 
 
+def pose_at(rng, u0, v0, z, k):
+    """A pose (3, 4), translation in m, that puts the model frame's origin
+    at pixel (u0, v0) and depth z, turned about the optical axis by up to
+    0.3 rad."""
+    angle = rng.uniform(-0.3, 0.3)
+    c, s_ = np.cos(angle), np.sin(angle)
+    rot = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1.0]])
+    t = np.array([(u0 - k[0, 2]) / k[0, 0] * z, (v0 - k[1, 2]) / k[1, 1] * z,
+                  z])
+    return np.concatenate([rot, t[:, None]], axis=1)
+
+
+def render_depth(model_m, pose, k):
+    """(H, W) f32 depth (mm) of a point model: each point's z at its
+    rounded pixel."""
+    cam = model_m @ pose[:, :3].T + pose[:, 3]
+    uv = cam @ k.T
+    us = np.round(uv[:, 0] / uv[:, 2]).astype(int)
+    vs = np.round(uv[:, 1] / uv[:, 2]).astype(int)
+    ok = (us >= 0) & (us < W) & (vs >= 0) & (vs < H)
+    depth = np.zeros((H, W), np.float32)
+    depth[vs[ok], us[ok]] = cam[ok, 2] * 1000.0
+    return depth
+
+
+def perfect_radials(depth_mm, pose, kpts9, k):
+    """(3, H, W) f32 radial maps (dm) of keypoints 1-3 from a depth map
+    (mm), 0 where the depth is."""
+    z = np.asarray(depth_mm, np.float64)
+    uu, vv = np.meshgrid(np.arange(W), np.arange(H))
+    xyz_m = np.stack([(uu - k[0, 2]) * z / k[0, 0],
+                      (vv - k[1, 2]) * z / k[1, 1], z], -1) / 1000.0
+    kc = kpts9[1:4] @ pose[:, :3].T + pose[:, 3]
+    return np.stack([np.where(z > 0, np.linalg.norm(xyz_m - c, axis=-1)
+                              * 10.0, 0.0) for c in kc]).astype(np.float32)
+
+
 def write_lm_tree(root, geometry):
     """A LINEMOD-layout tree for class ``ape`` at 480x640 with LM_FRAMES
     frames, as ``tests/test_eval_lm_format.py`` renders it: a 2-3 cm blob
@@ -1455,23 +1504,10 @@ def write_lm_tree(root, geometry):
     np.save(os.path.join(pv, "Outside9.npy"), kpts9)
     frames = []
     for i in range(LM_FRAMES):
-        angle = rng.uniform(-0.3, 0.3)
-        c, s_ = np.cos(angle), np.sin(angle)
-        rot = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1.0]])
-        z = 0.75 + 0.05 * i
-        u0, v0 = W // 2 - 20 + 20 * i, H // 2 - 20 + 10 * i
-        t = np.array([(u0 - k[0, 2]) / k[0, 0] * z,
-                      (v0 - k[1, 2]) / k[1, 1] * z, z])
-        pose = np.concatenate([rot, t[:, None]], axis=1)
+        pose = pose_at(rng, W // 2 - 20 + 20 * i, H // 2 - 20 + 10 * i,
+                       0.75 + 0.05 * i, k)
         np.save(os.path.join(pv, "pose", f"pose{i}.npy"), pose)
-        cam = model_m @ rot.T + t
-        uv = cam @ k.T
-        us = np.round(uv[:, 0] / uv[:, 2]).astype(int)
-        vs = np.round(uv[:, 1] / uv[:, 2]).astype(int)
-        ok = (us >= 0) & (us < W) & (vs >= 0) & (vs < H)
-        depth = np.zeros((H, W), np.float32)
-        depth[vs[ok], us[ok]] = cam[ok, 2] * 1000.0
-        depth_u16 = np.round(depth).astype(np.uint16)
+        depth_u16 = np.round(render_depth(model_m, pose, k)).astype(np.uint16)
         with open(os.path.join(orig, "data", f"depth{i}.dpt"), "wb") as f:
             f.write(np.asarray([H, W], np.uint32).tobytes())
             f.write(depth_u16.tobytes())
@@ -1479,15 +1515,8 @@ def write_lm_tree(root, geometry):
         fid = f"{i:06d}"
         Image.fromarray(img).save(
             os.path.join(pv, "JPEGImages", f"{fid}.jpg"))
-        zq = depth_u16.astype(np.float64)
-        uu, vv = np.meshgrid(np.arange(W), np.arange(H))
-        xyz_m = np.stack([(uu - k[0, 2]) * zq / k[0, 0],
-                          (vv - k[1, 2]) * zq / k[1, 1], zq], -1) / 1000.0
-        kc = kpts9[1:4] @ rot.T + t
-        for kp in range(1, 4):
-            r = np.linalg.norm(xyz_m - kc[kp - 1], axis=-1) * 10.0
-            np.save(os.path.join(rmap, f"Out_pt{kp}_dm", f"{fid}.npy"),
-                    np.where(zq > 0, r, 0.0).astype(np.float32))
+        for kp, r in enumerate(perfect_radials(depth_u16, pose, kpts9, k), 1):
+            np.save(os.path.join(rmap, f"Out_pt{kp}_dm", f"{fid}.npy"), r)
         frames.append((fid, img, depth_u16.astype(np.float32), pose))
     with open(os.path.join(pv, "Split", "val.txt"), "w") as f:
         f.write("\n".join(fid for fid, _, _, _ in frames) + "\n")
@@ -1495,83 +1524,94 @@ def write_lm_tree(root, geometry):
 
 
 def phase_lm_eval(config, eval_mod, train_mod, fcn, geometry, vote_cuda,
-                  heads):
+                  heads, root):
     """The LM evaluator at full width on both routes: 3-net .pth.tar
     checkpoints through RadialMapSource -> K2 -> keypoint_with_retry -> K1
     -> Horn -> ICP -> ADD, and the precomputed-map route, with K1's and
-    K2's counts set to 0 just before each and read just after. Returns
-    the network route's launches."""
+    K2's counts set to 0 just before each and read just after. The tree
+    and the nets stay in ``root`` for phase 13. Returns {"cad_m", "kpts9",
+    "model_dir", "icp_ms": (wall, device) of the 30-iteration ICP}."""
     import os
 
     if torch.get_float32_matmul_precision() != "highest" or \
             torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("nn_distances and ICP need full-f32 matmuls "
                              "(TF32 off)")
-    out = {}
-    with tempfile.TemporaryDirectory() as root:
-        frames, cad_m, kpts9 = write_lm_tree(root, geometry)
-        max_radii = eval_mod._per_kpt_max_radii_dm(cad_m, kpts9)
-        model_dir = os.path.join(root, "ckpts")
-        os.makedirs(model_dir)
-        cfg = config.Config(root_dataset=root, model_dir=model_dir)
-        assert (cfg.vote_grid_l, cfg.max_points, cfg.vote_mode, cfg.icp_iters,
-                cfg.sem_threshold, cfg.compute_dtype) == (
-                    192, 8192, "hier", 30, 0.8, "bfloat16")
-        t0 = time.perf_counter()
-        for i in range(1, 4):
-            net = fcn.init_params(train_mod.build_model(cfg),
-                                  torch.Generator().manual_seed(20 + i))
-            net = net.to(DEVICE, memory_format=torch.channels_last).eval()
-            calibrate_head(net, frames[0][1:3], cfg.sem_threshold,
-                           float(max_radii[i - 1]))
-            torch.save({"model_state_dict": {
-                k: v.detach().cpu() for k, v in net.state_dict().items()}},
-                os.path.join(model_dir, f"ape_pt{i}.pth.tar"))
-            del net
-        say(f"phase 11 tree: {LM_FRAMES} frames at {H}x{W}, 3 calibrated "
-            f"full-width .pth.tar nets written in "
-            f"{time.perf_counter() - t0:.1f} s; max radii "
-            f"{np.round(max_radii, 4).tolist()} dm")
+    frames, cad_m, kpts9 = write_lm_tree(root, geometry)
+    max_radii = eval_mod._per_kpt_max_radii_dm(cad_m, kpts9)
+    model_dir = os.path.join(root, "ckpts")
+    os.makedirs(model_dir)
+    cfg = config.Config(root_dataset=root, model_dir=model_dir)
+    assert (cfg.vote_grid_l, cfg.max_points, cfg.vote_mode, cfg.icp_iters,
+            cfg.sem_threshold, cfg.compute_dtype) == (
+                192, 8192, "hier", 30, 0.8, "bfloat16")
+    t0 = time.perf_counter()
+    for i in range(1, 4):
+        net = fcn.init_params(train_mod.build_model(cfg),
+                              torch.Generator().manual_seed(20 + i))
+        net = net.to(DEVICE, memory_format=torch.channels_last).eval()
+        calibrate_head(net, frames[0][1:3], cfg.sem_threshold,
+                       float(max_radii[i - 1]))
+        torch.save({"model_state_dict": {
+            k: v.detach().cpu() for k, v in net.state_dict().items()}},
+            os.path.join(model_dir, f"ape_pt{i}.pth.tar"))
+        del net
+    say(f"phase 11 tree: {LM_FRAMES} frames at {H}x{W}, 3 calibrated "
+        f"full-width .pth.tar nets written in "
+        f"{time.perf_counter() - t0:.1f} s; max radii "
+        f"{np.round(max_radii, 4).tolist()} dm")
 
-        for route, using in (("network", True), ("precomputed", False)):
-            rcfg = dataclasses.replace(cfg, using_ckpts=using)
-            torch.cuda.synchronize()
-            vote_cuda.vote_counts_cuda.launches = 0
-            heads.heads_channel_major_cuda.launches = 0
-            t0 = time.perf_counter()
-            res = eval_mod.estimate_6d_pose_lm(
-                rcfg, class_names=["ape"], progress=lambda m: None)["ape"]
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = {"vote_counts": vote_cuda.vote_counts_cuda.launches,
-                        "heads_channel_major":
-                            heads.heads_channel_major_cuda.launches}
-            say(f"phase 11 {route} route: {res['frames']} frames in "
-                f"{secs:.1f} s; ADD before ICP {res['add_before_icp']}, "
-                f"after ICP {res['add_after_icp']}; overflow frames "
-                f"{res['overflow_frames']}; net_ms_per_frame "
-                f"{res['net_ms_per_frame']:.3f}, acc_ms_per_frame "
-                f"{res['acc_ms_per_frame']:.3f} (host clock, each stage "
-                f"ending in a synchronize); launches K1 "
-                f"{launches['vote_counts']} K2 "
-                f"{launches['heads_channel_major']}")
-            if res["frames"] != LM_FRAMES:
-                raise AssertionError(f"{route}: {res['frames']} frames")
-            if launches["vote_counts"] == 0 or (
-                    using and launches["heads_channel_major"] == 0):
-                raise AssertionError(f"{route}: kernels not launched "
-                                     f"{launches}")
-            if not using and (res["add_before_icp"], res["add_after_icp"]) \
-                    != (1.0, 1.0):
-                raise AssertionError(f"precomputed route on perfect maps: "
-                                     f"ADD {res}")
-            out[route] = (res, launches)
-        icp_ms = icp_device_ms(eval_mod, cfg, root, frames[0], cad_m, kpts9,
-                               max_radii)
-        say(f"phase 11 ICP ({cfg.icp_iters} iterations, {cad_m.shape[0]} "
-            f"CAD points against 3 x {cfg.max_points} scene points): device "
-            f"{icp_ms[1]:.3f} ms, wall {icp_ms[0]:.3f} ms (profiler on)")
-    return out
+    for route, using in (("network", True), ("precomputed", False)):
+        rcfg = dataclasses.replace(cfg, using_ckpts=using)
+        res, launches, secs = counted_eval(
+            vote_cuda, heads, lambda c=rcfg: eval_mod.estimate_6d_pose_lm(
+                c, class_names=["ape"], progress=lambda m: None)["ape"])
+        say(f"phase 11 {route} route: {res['frames']} frames in "
+            f"{secs:.1f} s; ADD before ICP {res['add_before_icp']}, "
+            f"after ICP {res['add_after_icp']}; overflow frames "
+            f"{res['overflow_frames']}; net_ms_per_frame "
+            f"{res['net_ms_per_frame']:.3f}, acc_ms_per_frame "
+            f"{res['acc_ms_per_frame']:.3f} (host clock, each stage "
+            f"ending in a synchronize); launches K1 "
+            f"{launches['vote_counts']} K2 "
+            f"{launches['heads_channel_major']}")
+        check_route(f"phase 11 {route}", res, launches, LM_FRAMES, using,
+                    perfect=not using)
+    icp_ms = icp_device_ms(eval_mod, cfg, root, frames[0], cad_m, kpts9,
+                           max_radii)
+    say(f"phase 11 ICP ({cfg.icp_iters} iterations, {cad_m.shape[0]} "
+        f"CAD points against 3 x {cfg.max_points} scene points): device "
+        f"{icp_ms[1]:.3f} ms, wall {icp_ms[0]:.3f} ms (profiler on)")
+    return {"cad_m": cad_m, "kpts9": kpts9, "model_dir": model_dir,
+            "icp_ms": icp_ms}
+
+
+def counted_eval(vote_cuda, heads, run):
+    """``run()`` with K1's and K2's launch counts set to 0 just before and
+    read just after: (its result, launches, seconds)."""
+    torch.cuda.synchronize()
+    vote_cuda.vote_counts_cuda.launches = 0
+    heads.heads_channel_major_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return res, {"vote_counts": vote_cuda.vote_counts_cuda.launches,
+                 "heads_channel_major":
+                     heads.heads_channel_major_cuda.launches}, secs
+
+
+def check_route(what, res, launches, frames, network, perfect):
+    """An evaluator route's checks: the frame count; K1 launched, and K2 on
+    a network route; ADD 1.0 before and after ICP on perfect maps."""
+    if res["frames"] != frames:
+        raise AssertionError(f"{what}: {res['frames']} frames, not {frames}")
+    if launches["vote_counts"] == 0 or (
+            network and launches["heads_channel_major"] == 0):
+        raise AssertionError(f"{what}: kernels not launched {launches}")
+    if perfect and (res["add_before_icp"], res["add_after_icp"]) != (1.0,
+                                                                     1.0):
+        raise AssertionError(f"{what} on perfect maps: ADD {res}")
 
 
 def icp_device_ms(eval_mod, cfg, root, frame, cad_m, kpts9, max_radii):
@@ -1673,12 +1713,355 @@ def k6_split_times(stages, vote_cuda):
                 f"device ms: " + "; ".join(parts))
 
 
+# Phase 13: the LMO tree's frame without a pose, the YCB class, YCB-Video's
+# camera-1 intrinsics and depth scale, and its frames.
+LMO_UNPOSED = 9
+YCB_CLASS = (1, "002_master_chef_can")
+YCB_K = np.array([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109],
+                  [0.0, 0.0, 1.0]])
+YCB_FACTOR_DEPTH = 10000.0
+YCB_FRAMES = 3
+# The class's HDF5 file as h5py 3.14 (HDF5 1.14.6) writes it, zlib and
+# base64: empty datasets JPEGImages/0000_000001-0000_000004 (the last is
+# not in val.txt). The evaluator reads only these names; the machine with
+# the card has no h5py to write the file, and the port reads it there
+# with its own reader (readers.hdf5_group_keys).
+YCB_KEYS_HDF5 = (
+    "eNrr9HBx4+WS4mIAAQ4OBhYGAQZk8B8KNvCg8mHyCVCaEUp3QOkVTDBxRrCcBFRcEGo+urqQ"
+    "IFdXkOr/aABmzwNWCM3BMApGIvBwdQwA0RFQPiw9nWBCVecV4OrumZuYnlqMmi4dyLQXV/r1"
+    "YIbwM1iJS78W0IRrMRqVo+kXxIeVl6yo6gyAIB5EGBii8Y3Q+MZofBOU9A4rxYP9/F1AKRhW"
+    "biowo+YL9HQ8CnCVA6yQMGOE8SElAiMjI1b1zMAYYITGAyNSzcUKpEF8JiYmRogoxBxmRvQS"
+    "AwYmDMrwgKQrFni60mDHrx5WfjZw4lenAfM1F351sHJ0AfdouhpO6Wo0PEbDAx8AAPLTdZI=")
+
+
+def write_lmo_tree(root, geometry, cad_m, kpts9):
+    """The OCCLUSION_LINEMOD layout beside phase 11's LINEMOD tree (whose
+    CAD, keypoints and nets LMO reads): LM_FRAMES posed frames and frame
+    LMO_UNPOSED without a pose, PNG colour and 16-bit depth (mm), perfect
+    ``_NNNNN.npy`` radial maps of the depth."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(13)
+    k = np.asarray(geometry.LINEMOD_K)
+    occ = os.path.join(root, "OCCLUSION_LINEMOD")
+    rgb = os.path.join(occ, "RGB-D", "rgb_noseg")
+    dep = os.path.join(occ, "RGB-D", "depth_noseg")
+    poses = os.path.join(occ, "blender_poses", "ape")
+    rmap = os.path.join(occ, "estRadialMap", "ape")
+    for d in (rgb, dep, poses) + tuple(
+            os.path.join(rmap, f"Out_pt{kp}_dm") for kp in range(1, 4)):
+        os.makedirs(d)
+    for num in list(range(LM_FRAMES)) + [LMO_UNPOSED]:
+        pose = pose_at(rng, W // 2 + 30 - 15 * (num % 5),
+                       H // 2 - 10 + 8 * (num % 5), 0.7 + 0.04 * (num % 5), k)
+        depth = np.round(render_depth(cad_m, pose, k)).astype(np.uint16)
+        Image.fromarray(depth).save(os.path.join(dep, f"depth_{num:05d}.png"))
+        Image.fromarray(rng.integers(0, 256, size=(H, W, 3), dtype=np.uint8)
+                        ).save(os.path.join(rgb, f"color_{num:05d}.png"))
+        if num == LMO_UNPOSED:
+            continue
+        np.save(os.path.join(poses, f"pose{num}.npy"), pose)
+        for kp, r in enumerate(perfect_radials(depth, pose, kpts9, k), 1):
+            np.save(os.path.join(rmap, f"Out_pt{kp}_dm", f"_{num:05d}.npy"),
+                    r)
+
+
+def write_ycb_tree(root, cad_m, kpts9):
+    """A YCB-Video tree for YCB_CLASS at 480x640: the model as
+    ``points.xyz`` with its keypoints, YCB_FRAMES frames (PNG colour,
+    16-bit depth at YCB_FACTOR_DEPTH, a ``.mat`` with the pose, class,
+    depth scale and YCB_K), the HDF5 name list, and the exact radial maps
+    of the depth the evaluator reads under ``exact/``."""
+    import base64
+    import os
+    import zlib
+
+    import scipy.io
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    class_id, name = YCB_CLASS
+    mdir = os.path.join(root, "models", name)
+    data = os.path.join(root, "data", "0000")
+    for d in (mdir, data, os.path.join(root, "Split", name),
+              os.path.join(root, "exact")):
+        os.makedirs(d)
+    np.savetxt(os.path.join(mdir, "points.xyz"), cad_m)
+    np.save(os.path.join(mdir, "Outside9.npy"), kpts9)
+    with open(os.path.join(root, f"{name}.hdf5"), "wb") as f:
+        f.write(zlib.decompress(base64.b64decode(YCB_KEYS_HDF5)))
+    ids = []
+    for i in range(1, YCB_FRAMES + 1):
+        idx = f"{i:06d}"
+        pose = pose_at(rng, W // 2 - 40 + 30 * i, H // 2 + 20 - 15 * i,
+                       0.8 + 0.05 * i, YCB_K)
+        depth = np.round(render_depth(cad_m, pose, YCB_K) / 1000.0
+                         * YCB_FACTOR_DEPTH).astype(np.uint16)
+        Image.fromarray(depth).save(os.path.join(data, f"{idx}-depth.png"))
+        Image.fromarray(rng.integers(0, 256, size=(H, W, 3), dtype=np.uint8)
+                        ).save(os.path.join(data, f"{idx}-color.png"))
+        scipy.io.savemat(os.path.join(data, f"{idx}.mat"), {
+            "poses": pose[:, :, None], "cls_indexes": np.array([[class_id]]),
+            "factor_depth": np.array([[YCB_FACTOR_DEPTH]]),
+            "intrinsic_matrix": YCB_K})
+        seen = depth.astype(np.float32) / YCB_FACTOR_DEPTH * 1000.0
+        for kp, r in enumerate(perfect_radials(seen, pose, kpts9, YCB_K), 1):
+            np.save(os.path.join(root, "exact", f"0000_{idx}_pt{kp}.npy"), r)
+        ids.append(f"0000_{idx}")
+    with open(os.path.join(root, "Split", name, "val.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+
+
+class ExactMaps:
+    """``map_source_factory`` of the YCB exact-map route: the tree's exact
+    radial maps as f32 tensors on the card, sem = radial != 0."""
+
+    def __init__(self, cfg, class_name):
+        import os
+
+        self.dir = os.path.join(cfg.root_dataset, "exact")
+
+    def maps(self, kp, image_u8, frame_id, lmo=False):
+        import os
+
+        r = torch.tensor(np.load(os.path.join(self.dir,
+                                              f"{frame_id}_pt{kp}.npy")),
+                         device=DEVICE)
+        return (r != 0).to(torch.float32), r
+
+
+def phase_lmo_ycb(config, eval_mod, fit, infer, labels, geometry, metrics,
+                  train_mod, vote_cuda, heads, root, lm):
+    """The LMO and YCB evaluators at full width (phase 11's nets), the
+    RGB-only keypoint, ``PoseEstimator.refine`` and the CAD labels, each
+    with its checks. Returns the launches of K1 and K2 on each path."""
+    import os
+
+    launches = {}
+    base = config.Config(root_dataset=root, model_dir=lm["model_dir"])
+    write_lmo_tree(root, geometry, lm["cad_m"], lm["kpts9"])
+    for route, using in (("network", True), ("precomputed", False)):
+        cfg = dataclasses.replace(base, using_ckpts=using)
+        res, n, secs = counted_eval(
+            vote_cuda, heads, lambda c=cfg: eval_mod.estimate_6d_pose_lmo(
+                c, class_names=["ape"], progress=lambda m: None)["ape"])
+        say(f"phase 13 LMO {route} route: {res['frames']} frames (frame "
+            f"{LMO_UNPOSED} has no pose) in {secs:.1f} s; ADD before ICP "
+            f"{res['add_before_icp']}, after ICP {res['add_after_icp']}; "
+            f"net_ms_per_frame {res['net_ms_per_frame']:.3f}, "
+            f"acc_ms_per_frame {res['acc_ms_per_frame']:.3f}; launches K1 "
+            f"{n['vote_counts']} K2 {n['heads_channel_major']}")
+        check_route(f"phase 13 LMO {route}", res, n, LM_FRAMES, using,
+                    perfect=not using)
+        launches[f"LMO {route}"] = n
+
+    yroot = os.path.join(root, "ycb")
+    write_ycb_tree(yroot, lm["cad_m"], lm["kpts9"])
+    class_id, name = YCB_CLASS
+    for i in range(1, 4):   # phase 11's nets serve the YCB class too
+        os.symlink(os.path.join(lm["model_dir"], f"ape_pt{i}.pth.tar"),
+                   os.path.join(lm["model_dir"], f"{name}_pt{i}.pth.tar"))
+    ycfg = dataclasses.replace(base, root_dataset=yroot, dataset="ycb")
+    assert (ycfg.ycb_icp_converged, ycfg.icp_rel_tol,
+            ycfg.ycb_icp_max_iters) == (True, 1e-6, 10_000)
+    updates, finals, icp_args = [], [], []
+    icp, refine = fit.icp_point_to_point, eval_mod.refine_and_add
+
+    def counted_icp(*args, **kw):
+        rt, n = icp(*args, return_iters=True, **kw)
+        updates.append(n)
+        finals.append(rt)
+        return rt
+
+    def kept_refine(*args, **kw):
+        icp_args.append((args, kw))
+        return refine(*args, **kw)
+
+    for route, factory in (("network", None), ("exact-map", ExactMaps)):
+        updates.clear()
+        finals.clear()
+        fit.icp_point_to_point = counted_icp
+        eval_mod.refine_and_add = kept_refine
+        try:
+            res, n, secs = counted_eval(
+                vote_cuda, heads, lambda f=factory: eval_mod.
+                estimate_6d_pose_ycb(ycfg, class_ids=[class_id],
+                                     progress=lambda m: None,
+                                     map_source_factory=f)["all"])
+        finally:
+            fit.icp_point_to_point = icp
+            eval_mod.refine_and_add = refine
+        say(f"phase 13 YCB {route} route: {res['frames']} frames in "
+            f"{secs:.1f} s; ADD(-S) AUC before ICP "
+            f"{res['adds_auc_before_icp']:.4f}, after "
+            f"{res['adds_auc_after_icp']:.4f}; pass rate (1% of the "
+            f"diagonal) {res['add_before_icp']} / {res['add_after_icp']}; "
+            f"ICP updates a frame {updates}; net_ms_per_frame "
+            f"{res['net_ms_per_frame']:.3f}, acc_ms_per_frame "
+            f"{res['acc_ms_per_frame']:.3f}; launches K1 "
+            f"{n['vote_counts']} K2 {n['heads_channel_major']}")
+        check_route(f"phase 13 YCB {route}", res, n, YCB_FRAMES,
+                    factory is None, perfect=False)
+        if factory is not None:
+            check_ycb_exact(fit, res, updates, finals,
+                            icp_args[-YCB_FRAMES:], ycfg.ycb_icp_max_iters)
+        launches[f"YCB {route}"] = n
+    # the exact-map frame with the fewest updates
+    first = min(range(YCB_FRAMES), key=updates.__getitem__)
+    args, kw = icp_args[-YCB_FRAMES + first]
+    wall, dev_ms, _ = profile_ms(lambda: refine(*args, **kw), reps=2)
+    last = updates[first]
+    say(f"phase 13 YCB converged ICP (exact-map frame {first + 1}, {last} "
+        f"updates, "
+        f"{lm['cad_m'].shape[0]} CAD points against 3 x {ycfg.max_points}): "
+        f"device {dev_ms:.3f} ms ({dev_ms / max(last, 1):.3f} an update), "
+        f"wall {wall:.3f} ms (profiler on; one host read of the stop flag "
+        f"an update); the LM's 30-iteration ICP: device "
+        f"{lm['icp_ms'][1]:.3f} ms ({lm['icp_ms'][1] / 30:.3f} an update)")
+
+    launches["no-depth"] = phase_no_depth(eval_mod, vote_cuda)
+    check_refine(config, infer, metrics, train_mod, geometry, lm)
+    check_cad_labels(labels, geometry, lm)
+    return launches
+
+
+def check_ycb_exact(fit, res, updates, finals, icp_args, cap):
+    """The exact-map route's checks: AUC before ICP >= 0.8 and no lower
+    after; the converged ICP's stop test fires (some frame stops under the
+    cap). A frame at the cap is a limit cycle of the reference's criteria:
+    its next 8 updates' inlier counts and RMSE are printed."""
+    if not (res["adds_auc_before_icp"] >= 0.8 and res["adds_auc_after_icp"]
+            >= res["adds_auc_before_icp"] - 1e-6):
+        raise AssertionError(f"YCB exact maps: AUC {res}")
+    if min(updates) >= cap:
+        raise AssertionError(f"YCB exact maps: no ICP stopped {updates}")
+    for frame, (n, rt, (args, _)) in enumerate(zip(updates, finals,
+                                                    icp_args)):
+        if n < cap:
+            continue
+        _, cad, scene, mask, _, _, thr = args
+        t2 = (scene * scene).sum(dim=1)
+        tail = []
+        with torch.inference_mode():
+            for _ in range(8):
+                src = cad @ rt[:3, :3].T + rt[:3, 3]
+                idx, dist = fit._nn(src, scene, t2, mask)
+                w = (dist <= thr).to(torch.float32)
+                tail.append((int(w.sum()), round(float(torch.sqrt(
+                    (w * dist * dist).sum() / w.sum().clamp(min=1))), 6)))
+                rt = fit.horn_fit(src, scene[idx], weights=w) @ rt
+        say(f"phase 13 YCB exact-map frame {frame + 1} ran to the {cap} cap: "
+            f"the next 8 updates' (inliers, RMSE mm) {tail}")
+
+
+def phase_no_depth(eval_mod, vote_cuda):
+    """``tests/test_no_depth.py``'s planar scene at 480x640 (every 4th pixel
+    of the scaled patch, 1900 pixels) through the RGB-only keypoint at its
+    defaults (2048 points x 32 planes, grid 192): within 10 mm of the truth
+    and 1e-2 mm of the CPU's plain versions; K1 launched."""
+    k = np.array([[750.0, 0, W / 2], [0, 750.0, H / 2], [0, 0, 1]])
+    z0 = 0.72
+    mask = np.zeros((H, W), bool)
+    mask[175:325:4, 225:425:4] = True
+    vs, us = mask.nonzero()
+    pts = np.stack([(us - k[0, 2]) * z0 / k[0, 0],
+                    (vs - k[1, 2]) * z0 / k[1, 1], np.full(len(us), z0)], 1)
+    kpt = np.array([0.02, -0.01, 0.75])
+    radial = np.zeros((H, W), np.float32)
+    radial[mask] = np.linalg.norm(pts - kpt, axis=1) * 10.0
+    out = {}
+    for dev in ("cpu", DEVICE):
+        torch.cuda.synchronize()
+        vote_cuda.vote_counts_cuda.launches = 0
+        t0 = time.perf_counter()
+        center, overflow, count = eval_mod.keypoint_from_maps_no_depth(
+            torch.tensor(mask, dtype=torch.float32, device=dev),
+            torch.tensor(radial, device=dev),
+            torch.tensor(k, dtype=torch.float32, device=dev), z0 - 0.004,
+            100.0, 0.5)
+        torch.cuda.synchronize()
+        out[dev] = (center.cpu().numpy(), bool(overflow), int(count),
+                    vote_cuda.vote_counts_cuda.launches,
+                    (time.perf_counter() - t0) * 1e3)
+    (c_cpu, _, _, _, ms_cpu), (c, overflow, count, n, ms) = (
+        out["cpu"], out[DEVICE])
+    err = float(np.linalg.norm(c - kpt * 1000.0))
+    diff = float(np.abs(c - c_cpu).max())
+    say(f"phase 13 no-depth keypoint: {count} pixels x 32 planes, grid 192; "
+        f"center {np.round(c, 3).tolist()} mm, {err:.3f} mm from the truth, "
+        f"{diff:.2e} mm from the CPU's; K1 launches {n}; {ms:.1f} ms on "
+        f"the card, {ms_cpu:.1f} ms on the CPU (host clock)")
+    if not (err < 10.0 and diff <= 1e-2 and n > 0 and not overflow
+            and count == int(mask.sum())):
+        raise AssertionError(f"no-depth keypoint: {out}")
+    return {"vote_counts": n, "heads_channel_major": 0}
+
+
+def check_refine(config, infer, metrics, train_mod, geometry, lm):
+    """``PoseEstimator.refine`` on phase 4's perfect-map frame: the ICP
+    from the fitted pose against the frame's own scene keeps ADD at or
+    under its value before plus 1e-2 mm (threshold: that ADD, as the
+    evaluators set it)."""
+    k = geometry.LINEMOD_K
+    pose, kpts_m, depth_mm, radials, model_m = render_synthetic_frame(
+        np.random.default_rng(0), k)
+
+    def t(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=DEVICE)
+
+    result = infer._pose_from_maps(
+        t(radials > 0), t(radials), t(depth_mm), t(k), t([100.0] * 3),
+        t(kpts_m * 1000.0), 0.5, N_POINTS, GRID_L, "hier", False)
+    # the estimator's nets take no part in refine: a small one will do
+    cfg = config.Config(model_blocks="1,1,1,1", model_width=0.125)
+    kp9 = np.zeros((9, 3))
+    kp9[1:4] = kpts_m
+    est = infer.PoseEstimator(
+        cfg, [train_mod.build_model(cfg).state_dict() for _ in range(3)],
+        kp9, [100.0] * 3, cad_mm=model_m * 1000.0, k=k)
+    cad, gt = t(model_m * 1000.0), pose.copy()
+    gt[:, 3] *= 1000.0
+
+    def add(rt):
+        return float(metrics.nn_distances(metrics.transform(cad, t(gt)),
+                                          metrics.transform(cad, rt)).mean())
+
+    before = add(result["rt"])
+    after = add(est.refine(result, max(before, 1e-3)))
+    say(f"phase 13 PoseEstimator.refine on phase 4's frame "
+        f"({cfg.icp_iters} iterations, {len(model_m)} CAD points): ADD "
+        f"{before:.4f} -> {after:.4f} mm")
+    if not after <= before + 1e-2:
+        raise AssertionError(f"refine raised ADD {before} -> {after}")
+
+
+def check_cad_labels(labels, geometry, lm):
+    """``radial_labels_from_cad`` at 480x640 with phase 11's 3000-point
+    CAD, on the card against the CPU: the same sem map, radii within 1e-4
+    dm."""
+    k = geometry.LINEMOD_K
+    pose = pose_at(np.random.default_rng(19), W // 2, H // 2, 0.7, k)
+    args = (pose, lm["kpts9"][1], k, 2.0, (H, W))
+    want = labels.radial_labels_from_cad(torch.tensor(lm["cad_m"]), *args)
+    got = labels.radial_labels_from_cad(
+        torch.tensor(lm["cad_m"], device=DEVICE), *args)
+    diff = float((got[0].cpu() - want[0]).abs().max())
+    same = torch.equal(got[1].cpu(), want[1])
+    say(f"phase 13 CAD labels at {H}x{W}: {int((want[1] > 0).sum())} object "
+        f"pixels; sem maps equal {same}; radii max |card - CPU| {diff:.2e} dm")
+    if not (same and diff <= 1e-4 and bool((want[1] > 0).any())):
+        raise AssertionError("CAD labels: card differs from the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs the card",
               file=sys.stderr)
         return 1
-    from rcvpose_tpu_torch import checkpoint, config, geometry, infer, labels
+    from rcvpose_tpu_torch import (checkpoint, config, fit, geometry, infer,
+                                   labels, metrics)
     from rcvpose_tpu_torch import eval as eval_mod
     from rcvpose_tpu_torch import train as train_mod
     from rcvpose_tpu_torch.models import fcnresnet as fcn
@@ -1712,11 +2095,16 @@ def main():
     times = run(9, phase_train_kernel_times, mmconv, heads)
     stages, var_errs, var_launches, scripts = run(
         10, phase_vote_variants, voting, vote_cuda, geometry)
-    run(11, phase_lm_eval, config, eval_mod, train_mod, fcn, geometry,
-        vote_cuda, heads)
-    var_times = run(12, phase_variant_times, stages, vote_cuda,
-                    scripts["tiles"]["best"])
+    with tempfile.TemporaryDirectory() as root:
+        lm = run(11, phase_lm_eval, config, eval_mod, train_mod, fcn,
+                 geometry, vote_cuda, heads, root)
+        var_times = run(12, phase_variant_times, stages, vote_cuda,
+                        scripts["tiles"]["best"])
+        eval_launches = run(13, phase_lmo_ycb, config, eval_mod, fit, infer,
+                            labels, geometry, metrics, train_mod, vote_cuda,
+                            heads, root, lm)
     say(f"phase seconds {seconds}, total {sum(seconds.values()):.1f}")
+    say(f"phase 13 launches by path: {eval_launches}")
 
     main_path = ("coarse", "refine")
     kernels = [

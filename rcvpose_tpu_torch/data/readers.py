@@ -175,3 +175,131 @@ def dispersed_keypoints(cad_points_mm):
     oriented-bounding-box corners (rmap_dataset.py:43-51; 8 rows, indexed
     from 1 by train/eval so row 0 is effectively unused there)."""
     return oriented_bbox_corners(cad_points_mm) * 2.0
+
+
+def hdf5_group_keys(path, group):
+    """Member names of ``group`` (e.g. ``"JPEGImages"``) in an HDF5 file,
+    in the order h5py's ``keys()`` gives them (by name).
+
+    With h5py installed this is ``list(h5py.File(path)[group].keys())``.
+    Without it, the file is read directly, as far as the names go: the
+    superblock (version 0 or 1) and the symbol-table groups (v1 B-tree,
+    symbol-table nodes, local name heap) that h5py writes by default. Other
+    layouts (superblock 2+, link-message groups) raise ``ValueError``
+    naming h5py.
+    """
+    try:
+        import h5py
+    except ImportError:
+        return _Hdf5Names(path).keys(group)
+    with h5py.File(path, "r") as f:
+        return list(f[group].keys())
+
+
+class _Hdf5Names:
+    """Names of the members of symbol-table groups in an HDF5 file (format
+    specification 3.0: superblock v0/v1, v1 B-trees of group nodes,
+    ``SNOD`` symbol-table nodes, ``HEAP`` local heaps, v1 object
+    headers)."""
+
+    def __init__(self, path):
+        with open(path, "rb") as f:
+            self.data = f.read()
+        self.path = str(path)
+        if self.data[:8] != b"\x89HDF\r\n\x1a\n":
+            self._refuse("no HDF5 signature at offset 0")
+        version = self.data[8]
+        if version > 1:
+            self._refuse(f"superblock version {version}")
+        self.o, self.l = self.data[13], self.data[14]   # offset, length size
+        # fixed fields, the v1 extras, then base / free-space / EOF /
+        # driver addresses and the root group's symbol-table entry
+        at = 24 + (4 if version == 1 else 0)
+        self.base = self._uint(at, self.o)
+        self.root = at + 4 * self.o
+
+    def _refuse(self, why):
+        raise ValueError(f"{self.path}: {why}; reading this HDF5 layout "
+                         "needs h5py")
+
+    def _uint(self, at, size):
+        return int.from_bytes(self.data[at:at + size], "little")
+
+    def _addr(self, at):
+        return self.base + self._uint(at, self.o)
+
+    def _group_tables(self, entry):
+        """(B-tree, local heap) addresses of the group that the symbol-table
+        entry at ``entry`` names: from its scratch pad (cache type 1) or
+        from the Symbol Table message of its object header."""
+        o = self.o
+        if self._uint(entry + 2 * o, 4) == 1:
+            scratch = entry + 2 * o + 8
+            return self._addr(scratch), self._addr(scratch + o)
+        header = self._addr(entry + o)
+        for mtype, at in self._messages(header):
+            if mtype == 0x11:
+                return self._addr(at), self._addr(at + o)
+        self._refuse("a group without a symbol table (link messages)")
+
+    def _messages(self, header):
+        """(type, data offset) of every message of a v1 object header,
+        following continuation blocks."""
+        if self.data[header] != 1:
+            self._refuse(f"object header version {self.data[header]}")
+        count = self._uint(header + 2, 2)
+        blocks = [(header + 16, self._uint(header + 8, 4))]
+        seen = 0
+        while blocks and seen < count:
+            at, size = blocks.pop(0)
+            end = at + size
+            while at + 8 <= end and seen < count:
+                mtype, msize = self._uint(at, 2), self._uint(at + 2, 2)
+                seen += 1
+                if mtype == 0x10:   # continuation: address, length
+                    blocks.append((self._addr(at + 8),
+                                   self._uint(at + 8 + self.o, self.l)))
+                else:
+                    yield mtype, at + 8
+                at += 8 + msize
+
+    def _entries(self, btree, heap):
+        """(name, entry offset) of every member of a group, in B-tree
+        (name) order."""
+        if self.data[heap:heap + 4] != b"HEAP":
+            self._refuse("no local heap where the group names one")
+        names = self._addr(heap + 8 + 2 * self.l)
+        out = []
+        nodes = [btree]
+        while nodes:
+            node = nodes.pop(0)
+            if self.data[node:node + 4] != b"TREE" or self.data[node + 4]:
+                self._refuse("no group B-tree node where one is named")
+            level, used = self.data[node + 5], self._uint(node + 6, 2)
+            at = node + 8 + 2 * self.o + self.l   # past the first key
+            children = []
+            for _ in range(used):
+                children.append(self._addr(at))
+                at += self.o + self.l
+            if level:
+                nodes[:0] = children
+                continue
+            for snod in children:
+                if self.data[snod:snod + 4] != b"SNOD":
+                    self._refuse("no symbol-table node where one is named")
+                entry = snod + 8
+                for _ in range(self._uint(snod + 6, 2)):
+                    start = names + self._uint(entry, self.o)
+                    end = self.data.index(b"\0", start)
+                    out.append((self.data[start:end].decode(), entry))
+                    entry += 2 * self.o + 24
+        return out
+
+    def keys(self, group):
+        entry = self.root
+        for part in filter(None, group.split("/")):
+            members = dict(self._entries(*self._group_tables(entry)))
+            if part not in members:
+                raise KeyError(f"{self.path}: no member {part!r}")
+            entry = members[part]
+        return [name for name, _ in self._entries(*self._group_tables(entry))]

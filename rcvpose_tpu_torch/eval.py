@@ -1,26 +1,29 @@
-"""Offline LINEMOD evaluation (counterpart of ``rcvpose_tpu.eval``, the LM
-evaluator's sequential loop).
+"""Offline evaluation on LINEMOD, Occlusion-LINEMOD and YCB-Video
+(counterpart of ``rcvpose_tpu.eval``, the evaluators' sequential loops).
 
-The reference evaluator (``AccumulatorSpace.py`` ``estimate_6d_pose_lm``
-:495-740) per frame: network forward (or precomputed radial maps) -> sem
-threshold + radius clip -> point packing -> radial voting per keypoint
-(K1, with the host-side grid-overflow retry) -> Horn fit -> ADD(-S) ->
-point-to-point ICP on the union scene cloud -> ADD(-S). File IO and image
-decode are the only host work; the next frame's files are read in a
+The reference evaluators (``AccumulatorSpace.py`` ``estimate_6d_pose_lm``
+:495-740, ``_lmo`` :742-974, ``_ycb`` :976-1197) per frame: network
+forward (or precomputed radial maps) -> sem threshold + radius clip ->
+point packing -> radial voting per keypoint (K1) -> Horn fit -> ADD(-S)
+-> point-to-point ICP on the union scene cloud -> ADD(-S). File IO and
+image decode are the only host work; the next frame's files are read in a
 background thread (``_prefetched_chunks``) while this one computes.
+``keypoint_from_maps_no_depth`` is the RGB-only ablation: masked pixels
+vote from a stack of depth-hypothesis planes.
 
 Behavioural notes carried over from the JAX package: radial values and
 scene points are aligned on pixels where ``sem AND depth > 0``; the ICP's
 union cloud is concatenated, not deduplicated.
 
 Divergences from the JAX package, each with a test:
-* ``demo_mode=True`` and ``eval_data_parallel=True`` raise
-  ``NotImplementedError``: the overlays (``demo.py``) and the
-  data-parallel sweep are not ported yet; the JAX package would draw the
-  overlays or shard the sweep.
-* The frame loader decodes the JPEG only when a network reads it
-  (``using_ckpts``). On the precomputed-map route the JAX loop decodes the
-  image and never uses it; the results are the same.
+* ``eval_data_parallel=True`` raises ``NotImplementedError``: the
+  data-parallel sweep is not ported yet; the JAX package would shard the
+  sweep. The results carry no multi-process keys: the port runs one
+  process.
+* The LM and LMO loaders decode the image only when a network or the
+  overlays read it (``using_ckpts`` or ``demo_mode``). On the
+  precomputed-map route the JAX loops decode the image and never use it;
+  the results are the same.
 """
 
 from __future__ import annotations
@@ -28,12 +31,15 @@ from __future__ import annotations
 import dataclasses
 import os
 import queue
+import re
 import threading
+from functools import partial
 
 import numpy as np
 import torch
 
-from rcvpose_tpu_torch import checkpoint, fit, geometry, labels, metrics
+from rcvpose_tpu_torch import (checkpoint, demo, fit, geometry, labels,
+                               metrics)
 from rcvpose_tpu_torch import train as train_mod
 from rcvpose_tpu_torch.data import readers
 from rcvpose_tpu_torch.ops import voting
@@ -43,7 +49,11 @@ from rcvpose_tpu_torch.utils import StageTimers, resolve_device
 # the reference (AccumulatorSpace.py:19-57).
 LM_CLASS_NAMES = ["ape", "benchvise", "cam", "can", "cat", "duck", "driller",
                   "eggbox", "glue", "holepuncher", "iron", "lamp", "phone"]
+LMO_CLASS_NAMES = ["ape", "can", "cat", "duck", "driller", "eggbox", "glue",
+                   "holepuncher"]
 LM_SYMS = ["eggbox", "glue"]
+YCB_SYMS = ["024_bowl", "036_wood_block", "051_large_clamp",
+            "052_extra_large_clamp", "061_foam_brick"]
 ADD_THRESHOLD = {
     "eggbox": 0.019735770122546523, "ape": 0.01421240983190395,
     "cat": 0.018594838977253875, "cam": 0.02222763033276377,
@@ -53,6 +63,27 @@ ADD_THRESHOLD = {
     "iron": 0.03172344425531, "lamp": 0.03165980764376,
     "phone": 0.02543407135792,
 }
+YCB_CLASS_NAMES = {
+    1: "002_master_chef_can", 2: "003_cracker_box", 3: "004_sugar_box",
+    4: "005_tomato_soup_can", 5: "006_mustard_bottle", 6: "007_tuna_fish_can",
+    7: "008_pudding_box", 8: "009_gelatin_box", 9: "010_potted_meat_can",
+    10: "011_banana", 11: "019_pitcher_base", 12: "021_bleach_cleanser",
+    13: "024_bowl", 14: "025_mug", 15: "035_power_drill",
+    16: "036_wood_block", 17: "037_scissors", 18: "040_large_marker",
+    19: "051_large_clamp", 20: "052_extra_large_clamp", 21: "061_foam_brick",
+}
+# reference YCB AUC threshold grid, meters (AccumulatorSpace.py:978)
+YCB_AUC_THRESHOLDS = [0.0, 0.02, 0.04, 0.06, 0.08, 0.1]
+# The LMO loop's own criteria, whatever the config says: sem threshold 0.5
+# (reference :837) and 30 ICP iterations (:940-942).
+LMO_SEM_THRESHOLD = 0.5
+LMO_ICP_ITERS = 30
+
+_NO_YCB_MAPS = (
+    "YCB evaluation has no precomputed-radial-map path: the reference YCB "
+    "loop always runs the network (AccumulatorSpace.py:1044 — only the "
+    "LM/LMO evaluators have an estRadialMap branch). Re-run with "
+    "using_ckpts and --model_dir pointing at the per-class checkpoints.")
 
 
 def keypoint_from_maps(sem_map, radial_map, depth_mm, k, max_radius_dm,
@@ -80,6 +111,34 @@ def keypoint_from_maps(sem_map, radial_map, depth_mm, k, max_radius_dm,
     return res.center_mm, res.overflow, count, pts * 1000.0, mask
 
 
+def keypoint_from_maps_no_depth(sem_map, radial_map, k, z_min_m,
+                                max_radius_dm, sem_threshold, n_points=2048,
+                                n_hyp=32, grid_l=192, mode="hier",
+                                step_m=1e-3):
+    """RGB-only ablation: one keypoint from (sem, radial) maps WITHOUT depth.
+
+    Closes the reference's dead no-depth loop (``rgbd_to_point_cloud_no_depth``
+    -> ``Accumulator_3D_no_depth``, AccumulatorSpace.py:100-120, 421-479):
+    masked pixels are back-projected onto ``n_hyp`` planes from ``z_min_m``
+    (``step_m`` apart) and every hypothesis point votes with its pixel's
+    radius, so at the defaults 2048 x 32 points vote. Returns (center_mm
+    (3,), overflow (), count () masked pixels) on the maps' device.
+    """
+    sem = (sem_map > sem_threshold) & (radial_map <= max_radius_dm)
+    clouds, mask, order, count = geometry.depth_hypothesis_clouds(
+        sem, k, z_min_m, n_hyp, n_points, step_m=step_m)
+    rad = torch.where(mask, radial_map.reshape(-1)[order], 0.0)
+    res = voting.accumulate_3d_no_depth(clouds, rad, mask, grid_l=grid_l,
+                                        mode=mode)
+    return res.center_mm, res.overflow, count
+
+
+def _vote_kw(cfg):
+    return dict(n_points=cfg.max_points, mode=cfg.vote_mode,
+                topk=cfg.vote_topk, cpt_stride=cfg.vote_cpt_stride,
+                win=cfg.vote_win)
+
+
 def keypoint_with_retry(cfg, sem_map, radial_map, depth, k, max_r,
                         sem_threshold, retry_grid_l=None, on_retry=None):
     """``keypoint_from_maps`` + a host-side fallback to a larger grid when
@@ -90,9 +149,7 @@ def keypoint_with_retry(cfg, sem_map, radial_map, depth, k, max_r,
     means the frame overflowed even at the retry grid."""
     if retry_grid_l is None:
         retry_grid_l = cfg.retry_grid_l
-    kn = dict(n_points=cfg.max_points, mode=cfg.vote_mode,
-              topk=cfg.vote_topk, cpt_stride=cfg.vote_cpt_stride,
-              win=cfg.vote_win)
+    kn = _vote_kw(cfg)
     out = keypoint_from_maps(sem_map, radial_map, depth, k, max_r,
                              sem_threshold, grid_l=cfg.vote_grid_l, **kn)
     if bool(out[1]) and retry_grid_l > cfg.vote_grid_l:
@@ -133,7 +190,8 @@ class RadialMapSource:
 
     The reference either runs one checkpoint per keypoint
     (AccumulatorSpace.py:520-530, 595-610) or loads precomputed
-    ``estRadialMap/.../Out_pt<k>_dm/*.npy`` files (:612-618). With
+    ``estRadialMap/.../Out_pt<k>_dm/*.npy`` files (:612-618), under
+    ``LINEMOD_ORIG`` or, for LMO, ``OCCLUSION_LINEMOD``. With
     ``cfg.kpt_heads > 1`` one multi-head forward per frame serves every
     keypoint from its cached output. ``models``: the networks of
     ``_load_models``; maps come back as f32 tensors on ``device`` (None:
@@ -145,33 +203,29 @@ class RadialMapSource:
         self.class_name = class_name
         self.models = models
         self.device = resolve_device(device)
-        self._fused_cache = None  # (frame id, (seg (H,W,K), radial (H,W,K)))
+        self._fused_cache = None  # ((frame id, lmo), (seg, radial) (H,W,K))
 
     def _forward(self, model, image_u8):
         img = torch.tensor(np.asarray(image_u8), device=self.device)
         with torch.inference_mode():
             return model(labels.normalize_image(img)[None])
 
-    def maps(self, kpt_idx, image_u8, frame_id):
+    def maps(self, kpt_idx, image_u8, frame_id, lmo=False):
         cfg = self.cfg
         if not cfg.using_ckpts and cfg.dataset == "ycb":
-            raise ValueError(
-                "YCB evaluation has no precomputed-radial-map path: the "
-                "reference YCB loop always runs the network "
-                "(AccumulatorSpace.py:1044 — only the LM/LMO evaluators "
-                "have an estRadialMap branch). Re-run with using_ckpts "
-                "and --model_dir pointing at the per-class checkpoints.")
+            raise ValueError(_NO_YCB_MAPS)
         if cfg.using_ckpts:
             if cfg.kpt_heads > 1:
-                if self._fused_cache is None or \
-                        self._fused_cache[0] != frame_id:
+                key = (frame_id, lmo)
+                if self._fused_cache is None or self._fused_cache[0] != key:
                     seg, radial = self._forward(self.models[0], image_u8)
-                    self._fused_cache = (frame_id, (seg[0], radial[0]))
+                    self._fused_cache = (key, (seg[0], radial[0]))
                 seg, radial = self._fused_cache[1]
                 return seg[:, :, kpt_idx - 1], radial[:, :, kpt_idx - 1]
             seg, radial = self._forward(self.models[kpt_idx - 1], image_u8)
             return seg[0, :, :, 0], radial[0, :, :, 0]
-        path = os.path.join(cfg.root_dataset, "LINEMOD_ORIG", "estRadialMap",
+        base = "OCCLUSION_LINEMOD" if lmo else "LINEMOD_ORIG"
+        path = os.path.join(cfg.root_dataset, base, "estRadialMap",
                             self.class_name,
                             f"Out_pt{kpt_idx}_dm", f"{frame_id}.npy")
         radial = np.load(path).astype(np.float32)
@@ -261,16 +315,20 @@ def _load_models(cfg, class_name, device):
 @torch.inference_mode()
 def _frame_eval_seq(cfg, source, image, source_frame_id, depth, k,
                     max_radii, sem_threshold, gt_kpts_mm, cad, rt_gt_mm,
-                    sym, icp_iters=30, timers=None):
-    """One frame of the sequential eval loop: per-keypoint maps + voting
-    (with the host-side grid-overflow retry), Horn, ADD, ICP, ADD.
+                    sym, lmo=False, icp_iters=30, timers=None, retry=True,
+                    rel_fitness=None, rel_rmse=None):
+    """One frame of the sequential eval loops: per-keypoint maps + voting,
+    Horn, ADD, ICP, ADD.
 
     ``depth`` (H, W) mm, ``k`` (3, 3), ``cad`` (S, 3) mm: tensors on the
     evaluation device; ``max_radii`` (3,), ``gt_kpts_mm`` (3, 3) and
-    ``rt_gt_mm`` (3, 4, translation in mm): arrays. ``timers``: optional
-    ``StageTimers`` accruing 'net'/'acc' stage time, each stage ending in a
-    synchronize of the device. Returns (rt, score_bf, score_af, retried,
-    still_overflowed).
+    ``rt_gt_mm`` (3, 4, translation in mm): arrays. ``lmo`` selects the
+    LMO maps. ``retry``: the LM/LMO host-side grid-overflow retry (the
+    YCB loop has none, reference :1049-1070). ``icp_iters`` /
+    ``rel_fitness`` / ``rel_rmse``: the ICP criteria (``refine_and_add``).
+    ``timers``: optional ``StageTimers`` accruing 'net'/'acc' stage time,
+    each stage ending in a synchronize of the device. Returns (rt, score_bf,
+    score_af, retried, still_overflowed).
     """
     if timers is None:
         timers = StageTimers()
@@ -284,12 +342,17 @@ def _frame_eval_seq(cfg, source, image, source_frame_id, depth, k,
     still_overflowed = False
     for kp in range(1, 4):
         with timers.time("net", dev):
-            sem_map, radial_map = source.maps(kp, image, source_frame_id)
+            sem_map, radial_map = source.maps(kp, image, source_frame_id,
+                                              lmo=lmo)
         with timers.time("acc", dev):
-            center, overflow, _, pts_mm, mask = keypoint_with_retry(
-                cfg, sem_map, radial_map, depth, k, put(max_radii[kp - 1]),
-                put(sem_threshold),
-                on_retry=lambda: retried.__setitem__(0, True))
+            args = (sem_map, radial_map, depth, k, put(max_radii[kp - 1]),
+                    put(sem_threshold))
+            if retry:
+                center, overflow, _, pts_mm, mask = keypoint_with_retry(
+                    cfg, *args, on_retry=lambda: retried.__setitem__(0, True))
+            else:
+                center, overflow, _, pts_mm, mask = keypoint_from_maps(
+                    *args, grid_l=cfg.vote_grid_l, **_vote_kw(cfg))
         still_overflowed = still_overflowed or bool(overflow)
         centers.append(center)
         scene_parts.append(pts_mm)
@@ -299,7 +362,8 @@ def _frame_eval_seq(cfg, source, image, source_frame_id, depth, k,
                                 rt_gt, sym)
     _, score_af = refine_and_add(
         rt, cad, torch.cat(scene_parts), torch.cat(scene_masks), rt_gt, sym,
-        torch.clamp(score_bf, min=1e-3), icp_iters=icp_iters)
+        torch.clamp(score_bf, min=1e-3), icp_iters=icp_iters,
+        rel_fitness=rel_fitness, rel_rmse=rel_rmse)
     return rt, float(score_bf), float(score_af), retried[0], still_overflowed
 
 
@@ -402,28 +466,105 @@ def _dataset_eval_cfg(cfg):
     return cfg
 
 
+def _refuse_data_parallel(cfg):
+    if cfg.eval_data_parallel:
+        raise NotImplementedError(
+            "the data-parallel evaluation sweep is not ported yet; run "
+            "with eval_data_parallel unset or False")
+
+
+def _demo_dir(cfg, kind, class_name):
+    """Where a loop writes its overlays (``out_dir/<kind>/<class>``), or
+    None without ``demo_mode``."""
+    if not cfg.demo_mode:
+        return None
+    return os.path.join(cfg.out_dir, kind, class_name)
+
+
+def _linemod_class(cfg, class_name, device):
+    """The LINEMOD-tree data of one class that the LM and LMO loops share:
+    (CAD (m), keypoints, max radii (dm), map source, sym, ADD threshold
+    (mm))."""
+    root_pv = os.path.join(cfg.root_dataset, "LINEMOD", class_name)
+    cad_m = _read_eval_cad_m(os.path.join(root_pv, f"{class_name}.ply"))
+    keypoints = np.load(os.path.join(root_pv, "Outside9.npy"))
+    models = (_load_models(cfg, class_name, device) if cfg.using_ckpts
+              else None)
+    return (cad_m, keypoints, _per_kpt_max_radii_dm(cad_m, keypoints),
+            RadialMapSource(cfg, class_name, models, device),
+            class_name in LM_SYMS, ADD_THRESHOLD[class_name] * 1000.0)
+
+
+def _sweep_class(cfg, class_name, source, frames, k, cad_m, keypoints,
+                 max_radii, sym, threshold_mm, sem_threshold, icp_iters,
+                 progress, lmo=False, demo_dir=None):
+    """One LM or LMO class's sequential sweep. ``frames``: [(source frame
+    id, progress name, overlay name, loader)], where ``loader()`` returns
+    (image or None, depth (H, W) f32 mm, rt_gt (3, 4) translation in m).
+    Returns the class's results dict."""
+    device = k.device
+    cad_mm = cad_m * 1000.0  # mm for ADD/ICP (reference :663-667)
+    cad = torch.as_tensor(cad_mm.astype(np.float32), device=device)
+    gt_kpts_mm = keypoints[1:4] * 1000.0
+    bf_icp = af_icp = counter = overflow_count = 0
+    overflow_after_retry = 0
+    timers = StageTimers()
+    for _, padded, loaded in _prefetched_chunks(
+            frames, 1, lambda it: it[3](), timers=timers):
+        frame_id, name, demo_name, _ = padded[0]
+        image, depth, rt_gt = loaded[0]
+        rt_gt_mm = rt_gt.copy()
+        rt_gt_mm[:, 3] *= 1000.0
+        rt, score_bf, score_af, retried, still = _frame_eval_seq(
+            cfg, source, image, frame_id,
+            torch.as_tensor(depth, device=device), k, max_radii,
+            sem_threshold, gt_kpts_mm, cad, rt_gt_mm, sym, lmo=lmo,
+            icp_iters=icp_iters, timers=timers)
+        overflow_count += retried
+        overflow_after_retry += still
+        bf_icp += score_bf <= threshold_mm
+        af_icp += score_af <= threshold_mm
+        counter += 1
+        progress(f"{class_name} {name}: ADD(s) "
+                 f"bf={bf_icp / counter:.4f} af={af_icp / counter:.4f}")
+        if demo_dir is not None:
+            # estimate (red) + GT (blue) overlays, headless PNGs — the
+            # reference's blocking matplotlib/Open3D windows
+            # (AccumulatorSpace.py:670-683, 716-717, 899-948) as files
+            demo.save_demo_frame(
+                demo_dir, demo_name, image, cad_mm, rt.cpu().numpy(),
+                k.cpu().numpy(), rt_gt_mm=rt_gt_mm, depth_mm=depth,
+                scene_ply=cfg.demo_scene_ply)
+    return _finalize_class_results({
+        "add_before_icp": bf_icp / max(counter, 1),
+        "add_after_icp": af_icp / max(counter, 1),
+        "frames": counter,
+        "overflow_frames": overflow_count,
+        "overflow_after_retry": overflow_after_retry,
+        "bf_count": bf_icp, "af_count": af_icp,
+        **_seq_timer_ms(timers, counter),
+        "vote_topk": cfg.vote_topk,
+    })
+
+
 def estimate_6d_pose_lm(cfg, class_names=None, max_frames=None,
                         progress=print, device=None):
     """LINEMOD evaluation (reference :495-740). Returns per-class results:
     ``add_before_icp``, ``add_after_icp``, ``frames``,
     ``overflow_frames``, ``overflow_after_retry``, the per-frame stage
-    times and ``vote_topk``.
+    times and ``vote_topk``. ``demo_mode`` writes overlays under
+    ``out_dir/demo/<class>``.
 
     ``device``: None runs on the CUDA card and raises without one;
     ``"cpu"`` runs on the CPU through the kernels' plain versions.
     """
-    if cfg.demo_mode:
-        raise NotImplementedError(
-            "demo_mode overlays (demo.py) are not ported yet")
-    if cfg.eval_data_parallel:
-        raise NotImplementedError(
-            "the data-parallel evaluation sweep is not ported yet; run "
-            "with eval_data_parallel unset or False")
+    _refuse_data_parallel(cfg)
     device = resolve_device(device)
     cfg = _dataset_eval_cfg(cfg)
     results = {}
     class_names = class_names or LM_CLASS_NAMES
     k = torch.tensor(geometry.LINEMOD_K, dtype=torch.float32, device=device)
+    read_image = cfg.using_ckpts or cfg.demo_mode
 
     for class_name in class_names:
         progress(f"Evaluation on {class_name}")
@@ -431,17 +572,8 @@ def estimate_6d_pose_lm(cfg, class_names=None, max_frames=None,
         root_pv = os.path.join(cfg.root_dataset, "LINEMOD", class_name)
         with open(os.path.join(root_pv, "Split", "val.txt")) as f:
             test_ids = {line.strip() for line in f if line.strip()}
-
-        cad_m = _read_eval_cad_m(os.path.join(root_pv, f"{class_name}.ply"))
-        keypoints = np.load(os.path.join(root_pv, "Outside9.npy"))
-        max_radii = _per_kpt_max_radii_dm(cad_m, keypoints)
-        models = (_load_models(cfg, class_name, device) if cfg.using_ckpts
-                  else None)
-        source = RadialMapSource(cfg, class_name, models, device)
-        sym = class_name in LM_SYMS
-        threshold_mm = ADD_THRESHOLD[class_name] * 1000.0
-        cad = torch.as_tensor((cad_m * 1000.0).astype(np.float32),
-                              device=device)  # mm (reference :663-667)
+        cad_m, keypoints, max_radii, source, sym, threshold_mm = \
+            _linemod_class(cfg, class_name, device)
 
         frame_ids = sorted(
             os.path.splitext(fn)[0]
@@ -449,7 +581,6 @@ def estimate_6d_pose_lm(cfg, class_names=None, max_frames=None,
             if fn.endswith(".jpg") and os.path.splitext(fn)[0] in test_ids)
         if max_frames:
             frame_ids = frame_ids[:max_frames]
-        gt_kpts_mm = keypoints[1:4] * 1000.0
 
         def load_frame(frame_id):
             rt_gt = np.load(os.path.join(
@@ -457,45 +588,252 @@ def estimate_6d_pose_lm(cfg, class_names=None, max_frames=None,
             depth = readers.read_depth(os.path.join(
                 root_orig, "data", f"depth{int(frame_id)}.dpt"))
             image = None
-            if cfg.using_ckpts:  # only a network reads the image
+            if read_image:
                 image = readers.read_image(os.path.join(
                     root_pv, "JPEGImages", f"{frame_id}.jpg"))
             return image, depth.astype(np.float32), rt_gt
 
-        bf_icp = af_icp = counter = overflow_count = 0
-        overflow_after_retry = 0
-        timers = StageTimers()
+        frames = [(fid, fid, fid, partial(load_frame, fid))
+                  for fid in frame_ids]
+        results[class_name] = res = _sweep_class(
+            cfg, class_name, source, frames, k, cad_m, keypoints, max_radii,
+            sym, threshold_mm, cfg.sem_threshold, cfg.icp_iters, progress,
+            demo_dir=_demo_dir(cfg, "demo", class_name))
+        progress(f"ADD(s) of {class_name}: before ICP "
+                 f"{res['add_before_icp']:.4f}, after ICP "
+                 f"{res['add_after_icp']:.4f}")
+        progress(_seq_timer_line(class_name, res))
+    return results
+
+
+def estimate_6d_pose_lmo(cfg, class_names=None, max_frames=None,
+                         progress=print, device=None):
+    """Occlusion-LINEMOD evaluation (reference :742-974): the LM per-frame
+    engine on frames from ``OCCLUSION_LINEMOD/RGB-D/{rgb,depth}_noseg``
+    (``color_<N>.png``, ``depth_<N>.png``), GT poses from
+    ``blender_poses/<class>/pose<N>.npy`` (frames without one are skipped
+    and not counted, :813-822), precomputed maps ``_<NNNNN>.npy`` under
+    ``OCCLUSION_LINEMOD/estRadialMap``, sem threshold 0.5 and 30 ICP
+    iterations whatever ``cfg`` says (:837, :940-942). The CAD models,
+    keypoints and networks are the LINEMOD class's (:769-772). Returns
+    per-class results with the LM keys; ``demo_mode`` writes overlays
+    under ``out_dir/demo_lmo/<class>``.
+
+    ``device``: None runs on the CUDA card and raises without one;
+    ``"cpu"`` runs on the CPU through the kernels' plain versions.
+    """
+    _refuse_data_parallel(cfg)
+    device = resolve_device(device)
+    cfg = _dataset_eval_cfg(cfg)
+    results = {}
+    class_names = class_names or LMO_CLASS_NAMES
+    root_occ = os.path.join(cfg.root_dataset, "OCCLUSION_LINEMOD")
+    rgb_dir = os.path.join(root_occ, "RGB-D", "rgb_noseg")
+    depth_dir = os.path.join(root_occ, "RGB-D", "depth_noseg")
+    k = torch.tensor(geometry.LINEMOD_K, dtype=torch.float32, device=device)
+    read_image = cfg.using_ckpts or cfg.demo_mode
+
+    def load_lmo(frame_num, pose_path):
+        rt_gt = np.load(pose_path)
+        depth = readers.read_depth(os.path.join(
+            depth_dir, f"depth_{frame_num:05d}.png"))
+        image = None
+        if read_image:
+            image = readers.read_image(os.path.join(
+                rgb_dir, f"color_{frame_num:05d}.png"))
+        return image, depth.astype(np.float32), rt_gt
+
+    for class_name in class_names:
+        progress(f"Evaluation on {class_name} (occlusion)")
+        cad_m, keypoints, max_radii, source, sym, threshold_mm = \
+            _linemod_class(cfg, class_name, device)
+        # strict color_NNNNN.png filter: a stray .png (preview.png, editor
+        # backup) would otherwise crash the int() frame-number parse
+        names = sorted(fn for fn in os.listdir(rgb_dir)
+                       if re.fullmatch(r"color_\d+\.png", fn))
+        if max_frames:
+            names = names[:max_frames]
+        frames = []
+        for filename in names:
+            frame_num = int(os.path.splitext(filename)[0][6:])
+            pose_path = os.path.join(root_occ, "blender_poses", class_name,
+                                     f"pose{frame_num}.npy")
+            if os.path.isfile(pose_path):  # reference pose-skip :813-822
+                frames.append((f"_{frame_num:05d}", filename,
+                               f"{frame_num:05d}",
+                               partial(load_lmo, frame_num, pose_path)))
+        results[class_name] = res = _sweep_class(
+            cfg, class_name, source, frames, k, cad_m, keypoints, max_radii,
+            sym, threshold_mm, LMO_SEM_THRESHOLD, LMO_ICP_ITERS, progress,
+            lmo=True, demo_dir=_demo_dir(cfg, "demo_lmo", class_name))
+        progress(f"ADD(s) of {class_name} (occ): before ICP "
+                 f"{res['add_before_icp']:.4f}, after ICP "
+                 f"{res['add_after_icp']:.4f}")
+        progress(_seq_timer_line(class_name, res))
+    return results
+
+
+def _ycb_icp_kw(cfg):
+    """The YCB evaluator's ICP criteria.
+
+    The reference's YCB loop, unlike LM/LMO's 30 iterations, runs ICP to
+    convergence: ``max_iteration=2_000_000`` with relative fitness/RMSE
+    tolerances 1e-6 (AccumulatorSpace.py:1165-1169). Here: the same
+    tolerance semantics (``icp_rel_tol``) under a ``ycb_icp_max_iters``
+    cap; ``ycb_icp_converged=False`` falls back to the fixed
+    ``icp_iters``."""
+    if cfg.ycb_icp_converged:
+        tol = cfg.icp_rel_tol
+        return dict(icp_iters=int(cfg.ycb_icp_max_iters), rel_fitness=tol,
+                    rel_rmse=tol)
+    return dict(icp_iters=cfg.icp_iters)
+
+
+def _ycb_class_frames(root, class_name, class_id, max_frames, sio):
+    """One YCB class's frames: the HDF5 ``JPEGImages`` keys in h5py's
+    (name) order, filtered by ``Split/<class>/val.txt``, and their
+    ``.mat`` metadata read up front; frames whose ``cls_indexes`` lack the
+    class are skipped. Returns [(filename, rt_gt (3, 4) m, k (3, 3) f32,
+    factor_depth)]."""
+    with open(os.path.join(root, "Split", class_name, "val.txt")) as f:
+        test_ids = {line.strip() for line in f if line.strip()}
+    frames = [fn for fn in readers.hdf5_group_keys(
+        os.path.join(root, f"{class_name}.hdf5"), "JPEGImages")
+        if fn in test_ids]
+    if max_frames:
+        frames = frames[:max_frames]
+    metas = []
+    for filename in frames:
+        cycle, idx = filename.split("_")
+        meta = sio.loadmat(os.path.join(root, "data", cycle, f"{idx}.mat"))
+        sel = np.where(meta["cls_indexes"].ravel() == class_id)[0]
+        if sel.size == 0:
+            continue
+        metas.append((filename, meta["poses"][:, :, sel[0]],
+                      np.asarray(meta["intrinsic_matrix"], np.float32),
+                      float(np.asarray(meta["factor_depth"]).ravel()[0])))
+    return metas
+
+
+def estimate_6d_pose_ycb(cfg, class_ids=None, max_frames=None,
+                         progress=print, map_source_factory=None,
+                         device=None):
+    """YCB-Video evaluation (reference :976-1197), the sequential sweep.
+
+    Layout: <root>/Split/<class>/val.txt, <root>/models/<class>/points.xyz +
+    Outside9.npy, <root>/<class>.hdf5 (JPEGImages keys '<cycle>_<idx>'),
+    <root>/data/<cycle>/<idx>.mat (poses, cls_indexes, factor_depth,
+    intrinsic_matrix) and <idx>-{color,depth}.png; the HDF5 file is read
+    only for its ``JPEGImages`` names (``readers.hdf5_group_keys``: h5py,
+    or the port's own reader without it). Per frame: the frame's
+    own intrinsics, depth ``png / factor_depth * 1000`` mm, the keypoint
+    vote at ``cfg.vote_grid_l`` and ``cfg.sem_threshold`` with no overflow
+    retry (:1049-1070), the converged ICP of ``_ycb_icp_kw``, and a pass
+    at 1% of the oriented bounding box's diagonal. Returns ``{"all":
+    ...}`` with the ADD(-S) AUCs over ``YCB_AUC_THRESHOLDS``
+    (``adds_auc_before_icp``/``_after_icp``), the pass rates, ``frames``,
+    ``vote_topk`` and the per-frame stage times; ``demo_mode`` writes
+    overlays under ``out_dir/demo_ycb/<class>``.
+
+    YCB has NO precomputed-radial-map branch (the reference YCB loop always
+    runs the network, :1044): ``using_ckpts=False`` raises unless
+    ``map_source_factory(cfg, class_name) -> source`` is given, a test
+    seam whose ``maps(kpt_idx, image_u8, frame_id)`` returns f32 tensors
+    on the evaluation device. Reference quirks not reproduced, as in the
+    JAX package: keypoints[1:4] in the Horn fit, depth pixels aligned with
+    radial values, radial maps clipped by the per-keypoint max radius.
+
+    ``device``: None runs on the CUDA card and raises without one;
+    ``"cpu"`` runs on the CPU through the kernels' plain versions.
+    """
+    try:
+        import scipy.io as sio
+    except ImportError as exc:
+        raise ImportError("estimate_6d_pose_ycb reads the YCB-Video .mat "
+                          "metadata with scipy.io; install scipy") from exc
+    _refuse_data_parallel(cfg)
+    cfg = _dataset_eval_cfg(cfg)
+    if not cfg.using_ckpts and map_source_factory is None:
+        raise ValueError(_NO_YCB_MAPS)
+    device = resolve_device(device)
+    root = cfg.root_dataset
+    scores_bf, scores_af = [], []
+    bf_icp = af_icp = counter = 0
+    timers = StageTimers()
+
+    def load_rgbd(filename, factor):
+        cycle, idx = filename.split("_")
+        image = readers.read_image(os.path.join(
+            root, "data", cycle, f"{idx}-color.png"))
+        depth_png = readers.read_depth(os.path.join(
+            root, "data", cycle, f"{idx}-depth.png"))
+        return image, depth_png.astype(np.float32) / factor * 1000.0
+
+    for class_id in class_ids or list(YCB_CLASS_NAMES):
+        class_name = YCB_CLASS_NAMES[class_id]
+        progress(f"Evaluation on {class_name}")
+        model_dir = os.path.join(root, "models", class_name)
+        cad_m = np.loadtxt(os.path.join(model_dir, "points.xyz"))[:, :3]
+        keypoints = np.load(os.path.join(model_dir, "Outside9.npy"))
+        corners = readers.oriented_bbox_corners(cad_m)
+        bbox_diag_mm = float(np.linalg.norm(
+            corners.max(axis=0) - corners.min(axis=0))) * 1000.0
+        max_radii = _per_kpt_max_radii_dm(cad_m, keypoints)
+        if map_source_factory is not None:
+            source = map_source_factory(cfg, class_name)
+        else:
+            source = RadialMapSource(
+                cfg, class_name, _load_models(cfg, class_name, device),
+                device)
+        sym = class_name in YCB_SYMS
+        cad_mm = cad_m * 1000.0
+        cad = torch.as_tensor(cad_mm.astype(np.float32), device=device)
+        metas = _ycb_class_frames(root, class_name, class_id, max_frames,
+                                  sio)
+        demo_dir = _demo_dir(cfg, "demo_ycb", class_name)
+
         for _, padded, loaded in _prefetched_chunks(
-                frame_ids, 1, load_frame, timers=timers):
-            frame_id = padded[0]
-            image, depth, rt_gt = loaded[0]
+                metas, 1, lambda it: load_rgbd(it[0], it[3]),
+                timers=timers):
+            filename, rt_gt, k_np, _ = padded[0]
+            image, depth_mm = loaded[0]
             rt_gt_mm = rt_gt.copy()
             rt_gt_mm[:, 3] *= 1000.0
-            _, score_bf, score_af, retried, still = _frame_eval_seq(
-                cfg, source, image, frame_id,
-                torch.as_tensor(depth, device=device), k, max_radii,
-                cfg.sem_threshold, gt_kpts_mm, cad, rt_gt_mm, sym,
-                icp_iters=cfg.icp_iters, timers=timers)
-            overflow_count += retried
-            overflow_after_retry += still
-            bf_icp += score_bf <= threshold_mm
-            af_icp += score_af <= threshold_mm
+            rt, sbf, saf, _, _ = _frame_eval_seq(
+                cfg, source, image, filename,
+                torch.as_tensor(depth_mm, device=device),
+                torch.as_tensor(k_np, device=device), max_radii,
+                cfg.sem_threshold, keypoints[1:4] * 1000.0, cad, rt_gt_mm,
+                sym, timers=timers, retry=False, **_ycb_icp_kw(cfg))
+            scores_bf.append(sbf)
+            scores_af.append(saf)
+            bf_icp += sbf <= bbox_diag_mm * 0.01
+            af_icp += saf <= bbox_diag_mm * 0.01
             counter += 1
-            progress(f"{class_name} {frame_id}: ADD(s) "
+            progress(f"{class_name} {filename}: "
                      f"bf={bf_icp / counter:.4f} af={af_icp / counter:.4f}")
+            if demo_dir is not None:
+                # the reference paints these in the YCB loop too
+                # (:1121-1171)
+                demo.save_demo_frame(
+                    demo_dir, filename, image, cad_mm, rt.cpu().numpy(),
+                    k_np, rt_gt_mm=rt_gt_mm, depth_mm=depth_mm,
+                    scene_ply=cfg.demo_scene_ply)
 
-        results[class_name] = _finalize_class_results({
-            "add_before_icp": bf_icp / max(counter, 1),
-            "add_after_icp": af_icp / max(counter, 1),
-            "frames": counter,
-            "overflow_frames": overflow_count,
-            "overflow_after_retry": overflow_after_retry,
-            "bf_count": bf_icp, "af_count": af_icp,
-            **_seq_timer_ms(timers, counter),
-            "vote_topk": cfg.vote_topk,
-        })
-        progress(f"ADD(s) of {class_name}: before ICP "
-                 f"{results[class_name]['add_before_icp']:.4f}, after ICP "
-                 f"{results[class_name]['add_after_icp']:.4f}")
-        progress(_seq_timer_line(class_name, results[class_name]))
-    return results
+    auc_bf = metrics.auc_add(np.asarray(scores_bf) / 1000.0,
+                             thresholds=YCB_AUC_THRESHOLDS)
+    auc_af = metrics.auc_add(np.asarray(scores_af) / 1000.0,
+                             thresholds=YCB_AUC_THRESHOLDS)
+    n = max(counter, 1)
+    res = {
+        "adds_auc_before_icp": auc_bf, "adds_auc_after_icp": auc_af,
+        "add_before_icp": bf_icp / n, "add_after_icp": af_icp / n,
+        "frames": counter, "vote_topk": cfg.vote_topk,
+        "decode_ms_per_frame_overlapped":
+            timers.totals.get("decode", 0) / 1e6 / n,
+        "net_ms_per_frame": timers.totals.get("net", 0) / 1e6 / n,
+        "acc_ms_per_frame": timers.totals.get("acc", 0) / 1e6 / n,
+    }
+    progress(f"ADD(s) AUC before ICP: {auc_bf:.4f}, after ICP: {auc_af:.4f}")
+    progress(_seq_timer_line("ycb", res))
+    return {"all": res}

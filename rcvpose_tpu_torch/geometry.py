@@ -75,6 +75,48 @@ def pack_valid_indices(flat_valid, n_points):
     return order, mask
 
 
+def depth_hypothesis_clouds(pixel_mask, k, z_min_m, n_hyp, n_points,
+                            step_m=1e-3):
+    """Depth-hypothesis clouds for the RGB-only ablation (reference
+    ``rgbd_to_point_cloud_no_depth``, AccumulatorSpace.py:100-120).
+
+    Every masked pixel is back-projected onto ``n_hyp`` constant-depth
+    planes ``z_i = z_min_m + i * step_m``. Pixels are packed by
+    ``pack_valid_indices``: masked pixels in row-major order, truncated or
+    padded to ``n_points``.
+
+    Args:
+      pixel_mask: (H, W) bool tensor, the pixels that vote (the sem mask).
+      k: (3, 3) intrinsics.
+      z_min_m: first plane's depth in meters (float or 0-d tensor).
+      n_hyp: number of planes.
+      n_points: packed pixel budget.
+      step_m: plane spacing in meters (reference: 0.001).
+
+    Returns ``(clouds (n_hyp, n_points, 3) m, mask (n_points,), order
+    (n_points,) flat pixel index of each packed point, count ())`` on the
+    mask's device; padded entries carry the plane's z and x = y = 0.
+    """
+    dev = pixel_mask.device
+    f32 = torch.float32
+    h, w = pixel_mask.shape
+    k = _as_f32(k, dev)
+    us = torch.arange(w, dtype=f32, device=dev)[None, :].expand(h, w)
+    vs = torch.arange(h, dtype=f32, device=dev)[:, None].expand(h, w)
+    xs_unit = (us - k[0, 2]) / k[0, 0]   # x at z = 1
+    ys_unit = (vs - k[1, 2]) / k[1, 1]
+    flat_valid = pixel_mask.reshape(-1)
+    order, mask = pack_valid_indices(flat_valid, n_points)
+    xu = torch.where(mask, xs_unit.reshape(-1)[order], 0.0)
+    yu = torch.where(mask, ys_unit.reshape(-1)[order], 0.0)
+    zs = (_as_f32(z_min_m, dev)
+          + torch.arange(n_hyp, dtype=f32, device=dev) * step_m)   # (D,)
+    clouds = torch.stack([xu[None, :] * zs[:, None],
+                          yu[None, :] * zs[:, None],
+                          zs[:, None].expand(n_hyp, n_points)], dim=-1)
+    return clouds, mask, order, flat_valid.sum().to(torch.int32)
+
+
 def depth_to_pointcloud(depth, k, n_points, fill_value=0.0):
     """Back-project and compact valid pixels into a fixed-size point set.
 

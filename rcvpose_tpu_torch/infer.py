@@ -9,7 +9,8 @@ a Horn fit. Everything stays on the device; the one host read per frame is
 the packed ``escalate`` vector that ``PoseEstimator`` checks.
 
 ``PoseEstimator`` is the serving API: ``estimate(image, depth)`` per frame,
-``estimate_batch`` for a batch (a loop over frames, escalated per frame).
+``estimate_batch`` for a batch (a loop over frames, escalated per frame)
+and ``refine`` for an optional ICP of a frame's pose against its own scene.
 """
 
 from __future__ import annotations
@@ -366,3 +367,19 @@ class PoseEstimator:
                 rows = [pad_pts(r) for r in rows]
             out[key] = torch.stack(rows)
         return out
+
+    def refine(self, result, threshold_mm, icp_iters=None):
+        """ICP refinement of a frame's fitted pose: align the CAD model
+        (constructor ``cad_mm``) to the frame's own masked scene cloud
+        (``result["scene_pts"]`` / ``["scene_mask"]``) from ``result["rt"]``,
+        for ``icp_iters`` (default ``cfg.icp_iters``) fixed iterations.
+        Returns the (4, 4) refined transform on the estimator's device."""
+        if self.cad_mm is None:
+            raise ValueError("PoseEstimator needs cad_mm for ICP refinement")
+        with torch.inference_mode():
+            return fit.icp_point_to_point(
+                self.cad_mm, self._put(result["scene_pts"],
+                                       torch.float32).reshape(-1, 3),
+                self._put(result["scene_mask"], torch.bool).reshape(-1),
+                self._put(result["rt"], torch.float32), threshold_mm,
+                max_iters=icp_iters or self.cfg.icp_iters)

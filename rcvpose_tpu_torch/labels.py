@@ -5,6 +5,8 @@
 (``data/loader.py``): normalized images, radial maps in decimeters and
 +/-1 semantic maps for a batch of frames, one keypoint or several
 (``kpt_heads > 1`` stacks them on a last axis), even-cropped.
+``radial_labels_from_cad`` makes one frame's labels from the CAD model
+alone, z-buffered.
 """
 
 from __future__ import annotations
@@ -73,6 +75,75 @@ def radial_labels(depth_mm, mask, pose, kpt_m, k, max_radii_dm,
     sem = torch.where(radial > 0, 1.0, -1.0)
     if single:
         return radial[..., 0], sem[..., 0]
+    return radial, sem
+
+
+def _rigid(pts, pose):
+    """``pts @ pose[:, :3].T + pose[:, 3]`` as elementwise products and
+    sums in a fixed order (no matmul), so that every device rounds alike."""
+    return (pts[..., 0:1] * pose[:, 0] + pts[..., 1:2] * pose[:, 1]
+            + pts[..., 2:3] * pose[:, 2] + pose[:, 3])
+
+
+def radial_labels_from_cad(cad_m, pose, kpt_m, k, max_radii_dm, hw):
+    """Z-buffered CAD-projection labels for one frame, no depth sensor.
+
+    Projects the posed CAD cloud, keeps the nearest (min-z) point per pixel
+    and writes that point's keypoint distance: two scatter-mins (z, then
+    the lowest point index among the z-winners) and one gather. Points off
+    the frame or behind the camera scatter +inf / ``n`` into pixel 0, which
+    changes nothing. The reference's abandoned rasterizer
+    (3DRadius_lm.py:87-118) carried the previous pixel's point when its
+    ``z <= mean(z)`` gate failed, an order-dependent bug; the z-buffer is
+    the rule that code reached for, so the carry is not reproduced.
+
+    Args:
+      cad_m: (N, 3) CAD points, model frame, meters; a tensor fixes the
+        device (numpy runs on the CPU).
+      pose: (3, 4) pose, rotation and translation in meters.
+      kpt_m: (3,) keypoint, model frame, meters.
+      k: (3, 3) intrinsics.
+      max_radii_dm: max keypoint radius (dm); larger radii are zeroed.
+      hw: (H, W) output size.
+
+    Returns (radial_dm, sem), f32 (H, W): radii in decimeters (0 =
+    background or occluded) and +1 object / -1 background.
+    """
+    h, w = hw
+    f32 = torch.float32
+    cad = torch.as_tensor(cad_m, dtype=f32)
+    dev = cad.device
+    pose = torch.as_tensor(pose, dtype=f32, device=dev)
+    kpt = torch.as_tensor(kpt_m, dtype=f32, device=dev)
+    k = torch.as_tensor(k, dtype=f32, device=dev)
+    cam_m = _rigid(cad, pose)
+    # the keypoint by the same mm-unit route as radial_labels
+    # (data_loader.py:78-85)
+    pose_mm = torch.cat([pose[:, :3], pose[:, 3:] * 1000.0], dim=1)
+    kpt_cam_m = _rigid(kpt * 1000.0, pose_mm) / 1000.0
+
+    z = cam_m[:, 2]
+    u = torch.round(cam_m[:, 0] / z * k[0, 0] + k[0, 2]).to(torch.int64)
+    v = torch.round(cam_m[:, 1] / z * k[1, 1] + k[1, 2]).to(torch.int64)
+    ok = (z > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    flat = torch.where(ok, v * w + u, 0)
+
+    inf = torch.tensor(float("inf"), device=dev)
+    zbuf = torch.full((h * w,), float("inf"), device=dev).scatter_reduce_(
+        0, flat, torch.where(ok, z, inf), "amin", include_self=True)
+    # among the min-z points of each pixel, the lowest index wins
+    front = ok & (z <= zbuf[flat])
+    n = cam_m.shape[0]
+    idx = torch.arange(n, device=dev)
+    ibuf = torch.full((h * w,), n, device=dev).scatter_reduce_(
+        0, flat, torch.where(front, idx, n), "amin", include_self=True)
+
+    diff = cam_m - kpt_cam_m
+    dist_dm = torch.sqrt((diff * diff).sum(dim=-1)) * 10.0
+    dist_dm = torch.cat([dist_dm, dist_dm.new_zeros(1)])
+    radial = dist_dm[ibuf].reshape(h, w)
+    radial = torch.where(radial > max_radii_dm, 0.0, radial)
+    sem = torch.where(radial > 0, 1.0, -1.0)
     return radial, sem
 
 

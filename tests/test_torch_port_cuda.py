@@ -498,3 +498,156 @@ def test_train_forward_on_card_keeps_heads_differentiable(cuda, conv_kernel):
     assert runs == ([12, 6, 1, 1] if conv_kernel else [0, 0, 1, 1])
     for p in state.model.parameters():
         assert p.grad is not None and p.grad.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# The evaluation slice on the card: LMO, CAD labels, the RGB-only keypoint
+# ---------------------------------------------------------------------------
+
+LINEMOD_K = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
+                      [0.0, 0.0, 1.0]])
+
+
+def _write_lmo_tree(root, h=120, w=160):
+    """A small OCCLUSION_LINEMOD tree for ``ape`` (numpy and PIL only): a
+    2-3 cm blob CAD, two posed frames, one without a pose, and the perfect
+    ``_NNNNN.npy`` radial maps of the quantized depth."""
+    from PIL import Image
+
+    rng = np.random.default_rng(7)
+    dirs = rng.normal(size=(2000, 3))
+    model_m = (dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+               * rng.uniform(0.02, 0.03, size=(2000, 1)))
+    kpts9 = np.zeros((9, 3))
+    kpts9[1:4] = [[0.06, 0.06, 0.06], [-0.06, 0.06, -0.06],
+                  [0.06, -0.06, -0.06]]
+    pv = root / "LINEMOD" / "ape"
+    occ = root / "OCCLUSION_LINEMOD"
+    rgb, dep = occ / "RGB-D" / "rgb_noseg", occ / "RGB-D" / "depth_noseg"
+    for d in [pv, rgb, dep, occ / "blender_poses" / "ape"] + [
+            occ / "estRadialMap" / "ape" / f"Out_pt{kp}_dm"
+            for kp in range(1, 4)]:
+        d.mkdir(parents=True)
+    with open(pv / "ape.ply", "w") as f:
+        f.write(f"ply\nformat ascii 1.0\nelement vertex {len(model_m)}\n"
+                "property float x\nproperty float y\nproperty float z\n"
+                "end_header\n")
+        f.writelines(f"{x} {y} {z}\n" for x, y, z in model_m)
+    np.save(pv / "Outside9.npy", kpts9)
+    k = LINEMOD_K
+    uu, vv = np.meshgrid(np.arange(w), np.arange(h))
+    for i in range(3):
+        c, s = np.cos(0.2 * i), np.sin(0.2 * i)
+        rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+        z = 0.75 + 0.04 * i
+        t = np.array([(80 - k[0, 2]) / k[0, 0] * z,
+                      (60 - k[1, 2]) / k[1, 1] * z, z])
+        cam = model_m @ rot.T + t
+        us = np.round(cam[:, 0] / cam[:, 2] * k[0, 0] + k[0, 2]).astype(int)
+        vs = np.round(cam[:, 1] / cam[:, 2] * k[1, 1] + k[1, 2]).astype(int)
+        depth = np.zeros((h, w), np.uint16)
+        depth[vs, us] = np.round(cam[:, 2] * 1000.0)
+        Image.fromarray(depth).save(dep / f"depth_{i:05d}.png")
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+            rgb / f"color_{i:05d}.png")
+        if i == 1:
+            continue   # no pose: skipped
+        np.save(occ / "blender_poses" / "ape" / f"pose{i}.npy",
+                np.concatenate([rot, t[:, None]], axis=1))
+        zq = depth.astype(np.float64)
+        xyz = np.stack([(uu - k[0, 2]) * zq / k[0, 0],
+                        (vv - k[1, 2]) * zq / k[1, 1], zq], -1) / 1000.0
+        for kp in range(1, 4):
+            r = np.linalg.norm(xyz - (kpts9[kp] @ rot.T + t), axis=-1) * 10
+            np.save(occ / "estRadialMap" / "ape" / f"Out_pt{kp}_dm"
+                    / f"_{i:05d}.npy", np.where(zq > 0, r, 0.0)
+                    .astype(np.float32))
+
+
+def test_lmo_evaluator_on_card_matches_cpu(cuda, tmp_path):
+    """The LMO evaluator (precomputed route) on the card against the CPU:
+    the same frames and pass rates, per-frame ADD within 1e-2 mm, and every
+    vote through K1."""
+    from unittest import mock
+
+    from rcvpose_tpu_torch import eval as eval_mod
+
+    _write_lmo_tree(tmp_path)
+    cfg = config.Config(root_dataset=str(tmp_path), using_ckpts=False,
+                        compute_dtype="float32", vote_grid_l=96,
+                        max_points=2048)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        scores = []
+        seq = eval_mod._frame_eval_seq
+
+        def spy(*args, **kwargs):
+            res = seq(*args, **kwargs)
+            scores.append(res[1:3])
+            return res
+
+        before = vote_cuda.vote_counts_cuda.launches
+        with mock.patch.object(eval_mod, "_frame_eval_seq", spy):
+            res = eval_mod.estimate_6d_pose_lmo(
+                cfg, class_names=["ape"], progress=lambda m: None,
+                device=dev)["ape"]
+        torch.cuda.synchronize()
+        out[dev] = (res, scores, vote_cuda.vote_counts_cuda.launches - before)
+    (cpu, cpu_scores, cpu_k1), (card, card_scores, card_k1) = (
+        out["cpu"], out["cuda"])
+    assert card["frames"] == cpu["frames"] == 2
+    assert (card["add_before_icp"], card["add_after_icp"]) == (
+        cpu["add_before_icp"], cpu["add_after_icp"]) == (1.0, 1.0)
+    np.testing.assert_allclose(card_scores, cpu_scores, rtol=0, atol=1e-2)
+    assert cpu_k1 == 0 and card_k1 > 0
+
+
+def test_radial_labels_from_cad_on_card_matches_cpu(cuda):
+    from rcvpose_tpu_torch import labels
+
+    rng = np.random.default_rng(0)
+    cad = rng.normal(size=(3000, 3)) * 0.03
+    pose = np.concatenate([np.linalg.qr(rng.normal(size=(3, 3)))[0],
+                           [[0.01], [-0.02], [0.75]]], axis=1)
+    args = (pose, np.array([0.06, -0.05, 0.04]), LINEMOD_K, 8.0, (480, 640))
+    want = labels.radial_labels_from_cad(torch.tensor(cad), *args)
+    got = labels.radial_labels_from_cad(torch.tensor(cad, device=cuda),
+                                        *args)
+    assert got[0].is_cuda
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-4)
+    assert (want[1] > 0).sum() > 100
+
+
+def test_keypoint_from_maps_no_depth_on_card(cuda):
+    """The RGB-only keypoint on the card: its votes go through K1, and the
+    center is the CPU's within 1e-2 mm and the truth's within 10 mm."""
+    from rcvpose_tpu_torch import eval as eval_mod
+
+    h, w = 96, 128
+    k = np.array([[150.0, 0, w / 2], [0, 150.0, h / 2], [0, 0, 1]])
+    z0 = 0.72
+    mask = np.zeros((h, w), bool)
+    mask[35:65, 45:85] = True
+    vs, us = mask.nonzero()
+    pts = np.stack([(us - k[0, 2]) * z0 / k[0, 0],
+                    (vs - k[1, 2]) * z0 / k[1, 1], np.full(len(us), z0)], 1)
+    kpt = np.array([0.02, -0.01, 0.75])
+    radial = np.zeros((h, w), np.float32)
+    radial[mask] = np.linalg.norm(pts - kpt, axis=1) * 10.0
+    centers = {}
+    for dev in ("cpu", "cuda"):
+        before = vote_cuda.vote_counts_cuda.launches
+        c, overflow, count = eval_mod.keypoint_from_maps_no_depth(
+            torch.tensor(mask, dtype=torch.float32, device=dev),
+            torch.tensor(radial, device=dev),
+            torch.tensor(k, dtype=torch.float32, device=dev), z0 - 0.004,
+            100.0, 0.5, n_points=2048, n_hyp=9, grid_l=128)
+        torch.cuda.synchronize()
+        launched = vote_cuda.vote_counts_cuda.launches - before
+        assert launched > 0 if dev == "cuda" else launched == 0
+        assert not bool(overflow) and int(count) == int(mask.sum())
+        centers[dev] = c.cpu().numpy()
+    np.testing.assert_allclose(centers["cuda"], centers["cpu"], rtol=0,
+                               atol=1e-2)
+    assert np.linalg.norm(centers["cuda"] - kpt * 1000.0) < 10.0

@@ -189,6 +189,81 @@ def test_readers_match_jax(tmp_path):
                                   jax_readers.dispersed_keypoints(pts))
 
 
+def _h5_file(path, names, **kw):
+    import h5py
+
+    with h5py.File(path, "w", **kw) as f:
+        for name in names:
+            f.create_dataset(f"JPEGImages/{name}", data=np.zeros(1, np.uint8))
+        f.create_group("JPEGImages/zz_group")
+        f.create_dataset("3Dradius_pt1_dm/0000_000001",
+                         data=np.zeros((4, 4), np.float32), compression="gzip")
+
+
+@pytest.mark.parametrize("n", [3, 3000])
+def test_hdf5_group_keys_without_h5py_match_h5py(tmp_path, monkeypatch, n):
+    """The port's own HDF5 name reader against h5py, on files as h5py
+    writes them by default: shuffled inserts, a subgroup, a multi-level
+    B-tree (3000 names), the root group listed from its object header
+    when its entry caches nothing; a newer layout is refused."""
+    import sys
+
+    rng = np.random.default_rng(n)
+    names = [f"{i // 1000:04d}_{i % 1000 + 1:06d}" for i in rng.permutation(n)]
+    path = tmp_path / "a.hdf5"
+    _h5_file(path, names)
+    want = port_readers.hdf5_group_keys(path, "JPEGImages")
+    assert want == sorted(names) + ["zz_group"]
+    root_want = port_readers.hdf5_group_keys(path, "/")
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    assert port_readers.hdf5_group_keys(path, "JPEGImages") == want
+    assert port_readers.hdf5_group_keys(path, "/") == root_want == [
+        "3Dradius_pt1_dm", "JPEGImages"]
+    assert port_readers.hdf5_group_keys(path, "3Dradius_pt1_dm") == [
+        "0000_000001"]
+    with pytest.raises(KeyError, match="nope"):
+        port_readers.hdf5_group_keys(path, "nope")
+    # the root entry's cache type (superblock v0: entry at 56, 8-byte
+    # offsets) set to 0: the names come from the root's object header
+    data = bytearray(path.read_bytes())
+    assert data[56 + 16] == 1
+    data[56 + 16] = 0
+    (tmp_path / "b.hdf5").write_bytes(bytes(data))
+    assert port_readers.hdf5_group_keys(tmp_path / "b.hdf5",
+                                        "JPEGImages") == want
+
+
+def test_hdf5_group_keys_refuses_newer_layouts(tmp_path, monkeypatch):
+    import sys
+
+    _h5_file(tmp_path / "c.hdf5", ["0000_000001"], libver="latest")
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ValueError, match="h5py"):
+        port_readers.hdf5_group_keys(tmp_path / "c.hdf5", "JPEGImages")
+    (tmp_path / "d.hdf5").write_bytes(b"not hdf5")
+    with pytest.raises(ValueError, match="h5py"):
+        port_readers.hdf5_group_keys(tmp_path / "d.hdf5", "JPEGImages")
+
+
+def test_chip_smoke_ycb_name_list_reads_without_h5py(tmp_path, monkeypatch):
+    """The YCB ``.hdf5`` that ``chip_smoke.py`` writes on the card (whose
+    machine has no h5py) lists its four frames in h5py and in the port's
+    own reader."""
+    import base64
+    import sys
+    import zlib
+
+    import chip_smoke
+
+    path = tmp_path / "k.hdf5"
+    path.write_bytes(zlib.decompress(base64.b64decode(
+        chip_smoke.YCB_KEYS_HDF5)))
+    want = [f"0000_{i:06d}" for i in range(1, 5)]
+    assert port_readers.hdf5_group_keys(path, "JPEGImages") == want
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    assert port_readers.hdf5_group_keys(path, "JPEGImages") == want
+
+
 def test_readers_without_pil_name_it(tmp_path, monkeypatch):
     depth = np.arange(12, dtype=np.uint16).reshape(3, 4)
     write_dpt(str(tmp_path / "d.dpt"), depth)
@@ -394,14 +469,14 @@ def test_keypoint_with_retry_matches_jax(lm_trees):
 
 
 def test_unported_options_raise(lm_trees):
+    """The data-parallel sweep is not ported, and the LM evaluator refuses
+    it. (``demo_mode`` is ported: ``test_torch_port_demo.py``.)"""
     root, _ = lm_trees["pre"]
-    for extra in (dict(demo_mode=True), dict(eval_data_parallel=True)):
-        cfg = Config(**dict(EVAL_KW, root_dataset=root, using_ckpts=False,
-                            **extra))
-        with pytest.raises(NotImplementedError):
-            port_eval.estimate_6d_pose_lm(cfg, class_names=["ape"],
-                                          progress=lambda m: None,
-                                          device="cpu")
+    cfg = Config(**dict(EVAL_KW, root_dataset=root, using_ckpts=False,
+                        eval_data_parallel=True))
+    with pytest.raises(NotImplementedError, match="data-parallel"):
+        port_eval.estimate_6d_pose_lm(cfg, class_names=["ape"],
+                                      progress=lambda m: None, device="cpu")
 
 
 def test_precomputed_route_decodes_no_image(lm_trees, monkeypatch):

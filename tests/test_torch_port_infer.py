@@ -148,6 +148,34 @@ def test_estimate_batch_matches_single(estimators):
         assert not batch["scene_mask"][i][:, n:].any()
 
 
+def test_refine_matches_jax(estimators):
+    """``PoseEstimator.refine`` against the JAX package's on the same
+    frame result, with ``tests/test_infer.py``'s CAD (64 points, 40 mm
+    spread), threshold 50 mm and 3 iterations; the default count is
+    ``cfg.icp_iters``. Pose within 1e-3 mm and 1e-5."""
+    import copy
+
+    jax_est, port_est, img, depth = estimators
+    cad_mm = np.random.default_rng(3).normal(size=(64, 3)) * 40.0
+    jax_est, port_est = copy.copy(jax_est), copy.copy(port_est)
+    jax_est.cad_mm = jnp.asarray(cad_mm, jnp.float32)
+    port_est.cad_mm = torch.tensor(cad_mm, dtype=torch.float32)
+    res = {k: np.asarray(v) for k, v in jax_est.estimate(img, depth).items()
+           if k in ("rt", "scene_pts", "scene_mask")}
+    for iters in (3, None):
+        want = np.asarray(jax_est.refine(res, 50.0, icp_iters=iters))
+        got = port_est.refine({k: torch.tensor(v) for k, v in res.items()},
+                              50.0, icp_iters=iters).numpy()
+        np.testing.assert_allclose(got[:3, :3], want[:3, :3], rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got[:3, 3], want[:3, 3], rtol=0,
+                                   atol=1e-3)
+        assert not np.allclose(got, res["rt"])   # the ICP moved the pose
+    port_est.cad_mm = None
+    with pytest.raises(ValueError, match="cad_mm"):
+        port_est.refine(res, 50.0)
+
+
 def test_escalate_grows_budget_and_window():
     """_escalate: cropped -> full-frame re-run; budget_exceeded -> n_points
     doubles until the union fits, capped at the frame size."""

@@ -24,6 +24,7 @@ from rcvpose_tpu_torch import infer, labels, train
 from rcvpose_tpu_torch.checkpoint import Checkpointer, from_flax_variables
 from rcvpose_tpu_torch.config import Config
 from rcvpose_tpu_torch.models import fcnresnet as port_fcn
+from tests.test_geometry import random_pose
 from tests.test_torch_port_model import _with_bn_stats
 
 TINY = (1, 1, 1, 1)
@@ -346,6 +347,49 @@ def test_make_sample_matches_jax(heads, ycb_clip):
         np.testing.assert_array_equal(got["sem"][i].numpy(), np.asarray(jsem))
     assert got["image"].shape == (b, 30, 40, 3)
     assert (got["sem"] > 0).any() and (got["sem"] < 0).any()
+
+
+def _cad_case(name):
+    """``tests/test_labels.py``'s CAD-label cases: (cad_m, pose, kpt, k,
+    max radius dm, hw)."""
+    rng = np.random.default_rng(0)
+    if name == "occlusion":   # a hidden point, a z-tie, then the clip
+        pose = np.hstack([np.eye(3), np.zeros((3, 1))])
+        cad = np.array([[0, 0, 1.0], [0, 0, 0.5], [0.05, 0, 0.7],
+                        [0.12, 0, 0.7]])
+        k = np.array([[8.0, 0, 4.0], [0, 8.0, 4.0], [0, 0, 1]])
+        return cad, pose, np.zeros(3), k, 99.0, (8, 8)
+    h, w = 24, 32
+    k = np.array([[40.0, 0, w / 2], [0, 40.0, h / 2], [0, 0, 1]])
+    cad = rng.normal(size=(4000 if name == "dense" else 2000, 3)) * 0.05
+    pose = random_pose(rng)
+    pose[:, 3] = [0.0, 0.0, 0.8]
+    # off-frame and behind-camera points scatter into pixel 0
+    if name == "off-frame":
+        cad[:50] += [1.0, 0.0, 0.0]
+        cad[50:60, 2] -= 2.0
+    return cad, pose, np.array([0.06, -0.05, 0.04]), k, 8.0, (h, w)
+
+
+@pytest.mark.parametrize("case", ["dense", "occlusion", "off-frame"])
+def test_radial_labels_from_cad_matches_jax(case):
+    """The two-scatter-min z-buffer against the JAX package's: the same sem
+    map, radii within 1e-5 dm; a tightened clip zeroes everything."""
+    cad, pose, kpt, k, maxr, hw = _cad_case(case)
+    want = jax_labels.radial_labels_from_cad(cad, pose, kpt, k, maxr, hw=hw)
+    got = labels.radial_labels_from_cad(torch.tensor(cad), pose, kpt, k,
+                                        maxr, hw)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=1e-5)
+    assert got[0].dtype == torch.float32 and got[0].shape == hw
+    assert (got[0] > 0).any()
+    if case == "occlusion":   # z = 0.5 hides z = 1.0; index 2 wins the tie
+        assert abs(float(got[0][4, 4]) - 5.0) <= 1e-5
+        assert abs(float(got[0][4, 5])
+                   - np.linalg.norm([0.05, 0, 0.7]) * 10.0) <= 1e-4
+    clipped = labels.radial_labels_from_cad(cad, pose, kpt, k, 0.1, hw)
+    assert (clipped[0] == 0).all() and (clipped[1] == -1).all()
 
 
 # ---------------------------------------------------------------------------
