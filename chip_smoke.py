@@ -75,7 +75,22 @@ Phases, each printing its own line:
     beside the LM's 30 iterations), the RGB-only keypoint at its defaults
     against the truth and the CPU, ``PoseEstimator.refine`` on phase 4's
     frame and ``radial_labels_from_cad`` on the card against the CPU;
-    K1's and K2's launches on each path.
+    K1's and K2's launches on each path;
+14. the training-from-disk path through ``cli.main`` at full width, in a
+    temporary LINEMOD training-layout tree (16 rendered frames at 480x640:
+    JPEG, ``.dpt``, mask PNGs, poses, mm ``mesh.ply``): ``check-data``
+    with no ERROR, ``gen-labels`` on the card against the CPU's
+    ``labels.radial_labels`` (1e-5 dm), ``--mode train`` (batch 4, bf16
+    Adam, cuDNN route) for 8 steps and ``--resume_train`` to 10 (ms/step,
+    images/s, the loader's wait a batch, K2 launches), the loader alone
+    (frames/s, which ``.dpt`` reader), ``export-torch`` and one frame
+    served from the exported weights (K1, K2), the K3/K4 route
+    (``RCVPOSE_PALLAS_CONV=on``) for 3 steps, one f32 step with
+    ``--remat`` against one without (loss and BN statistics equal bit for
+    bit, gradients within twice the plain step's run-to-run spread; peak
+    memory and ms/step of each in bf16), and the YCB
+    precomputed route for 2 steps from an HDF5 the script carries, read
+    by the port's own reader, under ``--profile_dir``.
 
 The vote kernels' bounds count instructions at the card's issue rate
 (``vote_cuda.ISSUE_RATE``), not FLOPs at the FP32 peak: none of their
@@ -2055,13 +2070,514 @@ def check_cad_labels(labels, geometry, lm):
         raise AssertionError("CAD labels: card differs from the CPU")
 
 
+TRAIN_FRAMES = 16
+# A YCB-Video training HDF5 for class 002_master_chef_can as h5py 3.14
+# (HDF5 1.14.6) writes it, zlib and base64: JPEGImages/0000_000001-4
+# (uint8) and 3Dradius_pt1_dm/0000_000001-4 (f32 decimeters, a disk of
+# radii 2-4 dm in 1/8 dm steps), each gzip level 9 in four chunks. Reduced
+# from 480x640 to 64x96 frames with blocky images so that the script
+# carries 5 KB; the machine with the card has no h5py, and the port reads
+# the file there with its own reader (readers.Hdf5File).
+YCB_TRAIN_HDF5 = (
+    "eNrtnAdcU8m6wNMIJSRUaYFLQFxxFzQqSpMiRVBZsKALNkAplqWISBGUhCYgilhxxQByXby6"
+    "KotcihISRAXUBSK4IlJXFN0NCSg3AQLJS0hCyaL4e/d5r76dv2HmN5PvnDOZ+WbmzHzjl+Ls"
+    "sAItpyUHESAjA0FAFCGT4YloPjQ1Lf7eWxRDRXGyKL4ME+dDx77TEOUrie4vKee+ztFRIM2T"
+    "QPycTilhLAMB/BVxdly+RhB7iNKGorgGNlVu1RpHp5WBPgF++4TpxQ6hPr679u/zCglb6OUb"
+    "OK6n+I987vv01xkuTO+U+jj9NRMprhloSqC/grR4vJSaKofn4yUI8Asl0osk0osl0iZTxmHx"
+    "KL7e1c0BCoGN6y9VZ+p4/VqUlsFNHV9x8Klykvr+VwMKQQrrAipOC3syFC7MsJWYD0XV9d58"
+    "OL+FoKJ2gk6qeSl+LEjD4LCxbBQEN5aGjj9XZmxE8vXz/94nzA8iCxG3m7AB4TAEQZSHEz0W"
+    "PqkZJ5Xo30OoV4hxfTGU/rC8WP8UjT8sJx7XLzt+WE48jtr6f9l6JZg3BP1Tct6I/8jrqbOE"
+    "MREy0egfwl5tahr3Hv2EgiEbAAAAAAAAAAD47Ihs6W1YqETFy1OphL41MpooHMRCK2E5ImG5"
+    "up1Jz99V4nRfbCHMjSSqbOlEB/U1OOkeHKDxA8a7qDrpyDh1s0qp9k7kH3np1sOv+YH6cHkP"
+    "fFklKqsTFhwS/y+aUDwbdbDiHZTUKeUaQjQtrRyT5Af1B61tjJmDVmNFQPOLAKkk4JP5H9vX"
+    "iorIrly83E3Ft/sGHuuV9qftVaYilD2oSLmd3oMv0m24goA92uQJUXH2hmINc6CxI/3Vuvyg"
+    "504224gga1BAQKs2EISC3MF9XfURauI7UHVFwmXMHmljj8hkfgFO6SnYLZRPmJvhbKCc4mCd"
+    "kuWgn+HczXkjU9gdWsYivm4+sS006DdOi/8l30XnXL46Weu7KGv/0MDLIrLmUaxmtuszP9Ug"
+    "3xizDfN5fR4pWE2m6+nVwdJHyAvbswqdgqV9S0qvrq+f3VK5PYBxdf1L2kNicNKzjH1Kfgrh"
+    "1M2pJPK9do8FF+k+5g506q3zu0OyHU877WcYHmAti+i2Trl4uMW+CVM8OIuztik0+RXPj1Vz"
+    "iFBYVWKZ/IrdzG4wPpwxiOVgUjGL+8/WDgVk8VzYHT28KDipVNub/8MqoWh+K9/JYbsFKkir"
+    "jjV5nz9/MQ3lf5dxFVOFV0SMzkskEpOISYnExKQk4ugAac53FhdY2xvuLmnOOPNy4Y7DfSim"
+    "cYL9Rl9P1onewnyj2qWep64FHqFDiy8HbI9e8E8mvfd22Wg+9waXLXeAuy1eJ1S3y4vGbdeJ"
+    "wYZV7y7PO6BWtof3TT8D0hbPSD5WEk7h0Ht1BrTCqpHl9a1Ms2gmZk18rzMVW9ZxkEVGNhF/"
+    "JDvdzku6iTHptnpMfppj2fAWwSheHtF8hm6m/i+GTSsZ83yddo9m+drDgeaEd9+3Jyjayejx"
+    "gxrtGMgo9kbGDL+ar+53Bbp2WElmPtwWUqEqQ8TLxONloPIIr96yc44FL9RfGBAQcplU2NIG"
+    "al+1SFsYnKg6mHMOQdbIG44e10F1bnkA1GANFaFWQESKVLA6GxXLnSaXc8j68JvLyRPqvtwC"
+    "6qNIbKjEyevb6/kaQeBGCSPa5DCZoGULXWGZtjApwaPkxzW7ItsC5Q2TVeWrtkmn6PncLYPv"
+    "SFJ4IkKOr9pa44WdPzJUN36HSR1m5PA6w0Z+AU7ojbU8GoWCo/h/aP4/QfxuIO7B4937K/Ac"
+    "o95VVfL+rq4rG02+FXyKzCNe2Ry2P6jyC1aHgmlVvofVscG0LmppCz1kGbLagP17qWVItTP7"
+    "TMTezmMyDDrZPMSpvj/bJ2LgEbKV1pgd3BF64/pVaMSpVh5rJHhVFcfPe39auVWHDjkb2axU"
+    "2xEaq+GBJvPqnvTSDkJL9VIpPYekN6GVRq9y0NSkcyON3VzuaOxP2ylK/LI/zpUj2KpK0di7"
+    "TLWOrsij7RxodJR/IOfv1ENlWZZfO2Gw8oRB6pwNe0o5PQVY1mh30rzqvKVpPqby5tjrsSlF"
+    "lEBcW04wy60AG1ZmejyoL3HUDR2szr7NK+GYethY1QpqJxeTgFeU4siODQeenikOJP5wEDPc"
+    "O+f7t4VRies3hz47m3bxW/916942k9a3JGyIRB3Boxxr7hik3cENzL3QB7MYXJrVQ2Fv4nQs"
+    "CVNnPKvl1VAoxMDXKZzGkT1otT+2ZY302rhHwwOpx2iRbiG/NlJYSLpOwY4rkWffkXqaeNeh"
+    "lov6N7LvPeuogO4p0EmMrA+pjv4n8tfKhsUH8u8VdF2Jzw0YcL36RKsgnthTnMRtJugU+82p"
+    "e9DenL2/+cxRs2+q7Ud+riqm3x3a1f6zh5HakXvb+RGLx4EgK7K7BHWohyHgFR1oVpvmKPN/"
+    "3kb96DB/RxU72xP4Pq9F3ICbSpccXFp+2hBI23ht13lWeKP0MLPFcjTdssRy1PXK/RLd0erw"
+    "/Of5VylvVozW9f5DsyT90FNWdytmbEPJho5+vWCeQMuXo8c6WvxaDem8eoKgkyUTZPgDfKZd"
+    "TUXeaWRlmtexkxBlQ28YqtkWXjVpVDZH4YiwryT13GbaXJLUcVuoyhTtZ3CGIF0vPBon5jbb"
+    "VGKDnribCYoxL2Ena+VchA1Jo2SuGRVVXik7vw+qIJzbBmj52W6t2d6P+XNYHCqGKp6v3Oyz"
+    "2VyEdCTRlD/rWXuPC+fWR8TGwcupWP6sp1tgLRJvrO+R7nJ5piDWWMWErmh5vraauJbvNNE6"
+    "ev+I9S0jUoFR6spS4pDPcHXhvHmXTq1bxQ+Gb8Cfyg223guUzo6OeE7dwX4V/Y1Z7542GIZz"
+    "8vnS+IeMtuLWyzZcl6KAkl+Def5OW6+WpMculma7V4dwIiP2pe934e7UbWAwY9ra6VYZvNo6"
+    "BjMEZnRhy9r37EtPb5+S3NefyT51XG/qvirgr8X77FOGEhvK/9f2qT/bVYQWAChseruK7Z/2"
+    "qzXGLlXC6UIQoh1tdRmIeqzo+/+9PUXYo+AweLP+xFa5wGwsfAxkzSdpB0m7CmGGDX1xv/e2"
+    "+LCc2K4yuO7DcuL+f3zfl63PQrsK4k/j3bMZrrsrso9oS+RLnhe4oC6MWyATyjEdZepT74d7"
+    "z/1OakxNS8ohwBAFAAAAAAAA8En4gs554eZPvCp6Qz7ROa9/93zSDdF77ceeT1qkOf17sGS9"
+    "gvNJAAAAAAAAAADAl7Ce+uzsOyGWE0uNT27feZ9donyG626K1kXbJfIl7QjBWsL4txnWWzSR"
+    "nJ+EnOT9bmKnX48BuwQAAAAAAADAf/o9+rO1S5SumHhV9Ib8h+0SCR95vYboQE7iDO/JYrK0"
+    "p38PlqxXYJcAAAAAAAAAAAC+hPXUZ2eXkHGfWGr81+wSqTNcpyf6f2YkiXxJO4LtNmF8bob1"
+    "VrtI7o6EnOT9IrymX48BuwQAAAAAAADAp0XobiN+jSIio+bBKl8/v5erBC43PFPo+aYGyQ/b"
+    "YPuDz9MNXkSEPt1/X2NH2sL7Gu8WGHUeWvokKv78Zvco4sNNqpakzkK1e0mara25LXhidFNu"
+    "Ez7uoYUqlrCbUYPuP7vpne2SCPoSw9bOY1//kYnhXp5j6r5D+nb8YzTSna3lzvaKL+t6ii3a"
+    "3hYjS1pyudfLlF3ZnEPhoe7lxI05ycnF3OGXjrn4+Gln35e1D8aKV5t/M3n1/F8sqT+rh5/o"
+    "t/Rc/FW46fNOnfbOWddDiJiASGKAWeXJ8yxeCK9pZ+wT6t0qCg+nZdGru6Qgg/2drkOVSyll"
+    "2HsgXoVRrxuz28OZrWujseSnu5yOJdqWmbXoDdKWG+zDwnBaoU5FYfoRDqudtunQ9IVubgbV"
+    "ST827TAf8+GCSsKrOqqP+UDZUr6XJnArsSJ2OELXTJGNoHSrdBCrPDS056NyV8jMQnPmsZOK"
+    "i/Ksjqqa0IjHwi4u3vr6a6auPvu7Bb3BrFfDTdwz3PDgoKCizb02558zgyhWzR25Rbx9nLmc"
+    "6FP37TlPWGrcY4prU4+0XQtcALn0ZsXtxN5ERFvXxbbHrDuQth0lT8J9Eq7/Gnhta2aOJSVn"
+    "a2bu7axbxsUoVNh3L9rOzbp1vj+oeq/22KfivoJhTKrnJAch0Yi7lYZpdnLJYh8hCXY1FddO"
+    "IysfedWdl0Ict4VizaiQH8XOnBqZPbElBIHjELi0xriLp8a+nrLNthBZ1QIiXH7cxdOuwXft"
+    "xjgCQq6ZCkWOuw0Z4AxB9lalQCZ5nppji5qNW6Zqdx82VgZbQ5ErHmtzN5iHLUzKpIAIdZnk"
+    "iidKjQpTNswhoieeVdbXY4XyhsqqNlCRyMkuSi5IFfBLsNMbDp/sogS610h2tcA7SKUsBKcI"
+    "r/ym90H/m8b8S0cckxH+X3vYXRF0D4JpeAD7Rl27dRmvuL6ufRuvg5lmXdMuVybsN7CFig58"
+    "zXQ2UI5S9kxZluKgz2x0O/7VyVq6HWyr66PV9zeUPw3/QdBrBF0nM9iz5ympdvgcOSrvxWzN"
+    "Evo9rA6z1v2hjcXGtyuq55zb/Y+g5NbbL4w1I9xNc6K720746cxCP7hAvlHr7uQH52qGO9V7"
+    "plmWQnmPnXmPyLe33S2dvVtjCDkSvKnzoNp6HeMhp7yRs53tNI5Bks7vOl+3425Fh9ukOqJP"
+    "c5mMv7Up4IMGB9CHHiJJe4toIh80a+QdKq02pcc76PNolYpGcoW1Lut4PyzdFeZS6HXz24E/"
+    "nt7grd9D0hngceyvMbAme5heL0f5tdJXJxtMnCUrqIMbClU4xcSMkydP8+F30O5uA+UUenbF"
+    "7Nzal2933vZtONG6mvSbUwWTmpm++NW3B9eqX8nb9LvLhcs7GLYHCzHfBz7gBFpTujmPyW8O"
+    "uaGbnEcj6vqC6QobGQ0qlDdZlOoh9gAvXTtJhW48RH4eC3+Dh7Fu3vTC9p/V9u3RDfA6QhlA"
+    "noezM6VK/KKVon+hnFRG2ByQZvigWrPIT+im3NnSjC4I+2/RvzzLd7ifrv33alipUvSRZ/k/"
+    "YSxxCu51bT/omNOjcvQZZ+hOmFb4kw7CVosQhTe/oR4RL5DjyN16W+2IQ5jWGvtbDtQY06Cx"
+    "rs7v5T+6Vjzfyl4LZg/A/799tM/2XMKagImtIm/IZ3ouwVxUIXEz7JOJIXtPvw8mWa/gXAIA"
+    "AAAAAAAAAPAlrKc+u3MJOWETS43/2rkE8xmus/ERxhSJfMlzBJEiOccZ1lum26cupHDvuV/M"
+    "9unXY+BcAgAAAAAAAMCn5X8AudoICA==")
+
+
+def write_train_tree(root, geometry):
+    """A LINEMOD training-layout tree for class ``ape`` under
+    ``<root>/LINEMOD``: TRAIN_FRAMES frames at 480x640 of a 3-4 cm shell
+    (4000 points, ``mesh.ply`` in mm) at random rotations 0.65-0.9 m away,
+    ``.dpt`` depth, mask PNGs, JPEG images (blurred noise), ``pose*.npy``
+    (m), ``Outside9.npy`` (keypoints 1-3 at 0.08 m per axis) and both
+    split files. Returns [(image, depth (H, W) f32 mm, pose)], keypoints."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(23)
+    k = np.asarray(geometry.LINEMOD_K)
+    base = os.path.join(root, "LINEMOD", "ape")
+    for d in ("JPEGImages", "data", "mask", "pose", "Split"):
+        os.makedirs(os.path.join(base, d))
+    dirs = rng.normal(size=(4000, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    model_mm = dirs * rng.uniform(30.0, 40.0, size=(4000, 1))
+    with open(os.path.join(base, "mesh.ply"), "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\nelement vertex 4000"
+                b"\nproperty float x\nproperty float y\nproperty float z\n"
+                b"end_header\n")
+        f.write(model_mm.astype("<f4").tobytes())
+    kpts9 = rng.uniform(-0.06, 0.06, size=(9, 3))
+    kpts9[1:4] = [[0.08, 0.08, 0.08], [-0.08, 0.08, -0.08],
+                  [0.08, -0.08, -0.08]]
+    np.save(os.path.join(base, "Outside9.npy"), kpts9)
+    frames = []
+    for i in range(TRAIN_FRAMES):
+        pose = pose_at(rng, W // 2 + rng.uniform(-120, 120),
+                       H // 2 + rng.uniform(-80, 80), rng.uniform(0.65, 0.9),
+                       k)
+        pose[:, :3] = random_pose(rng)[:, :3]
+        np.save(os.path.join(base, "pose", f"pose{i}.npy"), pose)
+        depth = np.round(render_depth(model_mm / 1000.0, pose, k)
+                         ).astype(np.uint16)
+        with open(os.path.join(base, "data", f"depth{i}.dpt"), "wb") as f:
+            f.write(np.asarray([H, W], np.uint32).tobytes())
+            f.write(depth.tobytes())
+        Image.fromarray(np.where(depth > 0, 255, 0).astype(np.uint8)).save(
+            os.path.join(base, "mask", f"{i:04d}.png"))
+        coarse = rng.integers(0, 256, size=(H // 16, W // 16, 3))
+        img = np.clip(np.kron(coarse, np.ones((16, 16, 1)))
+                      + rng.normal(0, 8, size=(H, W, 3)), 0, 255
+                      ).astype(np.uint8)
+        Image.fromarray(img).save(
+            os.path.join(base, "JPEGImages", f"{i:06d}.jpg"))
+        frames.append((img, depth.astype(np.float32), pose))
+    for split in ("train", "val"):
+        with open(os.path.join(base, "Split", f"{split}.txt"), "w") as f:
+            f.write("\n".join(f"{i:06d}" for i in range(TRAIN_FRAMES))
+                    + "\n")
+    return frames, kpts9
+
+
+def check_launches(what, counts):
+    """Raise unless every kernel of ``counts`` ({name: launches}) ran."""
+    missing = [name for name, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched: {counts}")
+
+
+class CliRun:
+    """``cli.main`` with the hooks a measurement needs and no change to
+    what runs: each train step timed (ending in a synchronize) with its
+    loss, the loaders ``make_loaders`` made, the host ms the step loop
+    spent getting each train batch, the iteration a resume restored, and
+    the launches of ``counters`` ({name: wrapper}) counted from 0 over the
+    call."""
+
+    def __init__(self, cli, loader_mod, train_mod, checkpoint, counters):
+        self.mods = cli, loader_mod, train_mod, checkpoint
+        self.counters = counters
+
+    def __call__(self, argv):
+        cli, loader_mod, train_mod, checkpoint = self.mods
+        made, times, losses, restored, fetch = [], [], [], [], []
+        step, make, restore = (train_mod.train_step, loader_mod.make_loaders,
+                               checkpoint.Checkpointer.restore)
+
+        def timed_step(state, batch):
+            synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            return state, m
+
+        def made_loaders(*args, **kwargs):
+            made.append(make(*args, **kwargs))
+            batches = made[-1][0].batches
+
+            def timed_batches(epoch, start_batch=0):
+                it = batches(epoch, start_batch)
+                while True:
+                    t = time.perf_counter()
+                    b = next(it, None)
+                    if b is None:
+                        return
+                    fetch.append((time.perf_counter() - t) * 1e3)
+                    yield b
+
+            made[-1][0].batches = timed_batches
+            return made[-1]
+
+        def restoring(ckpt, state, best=False):
+            out = restore(ckpt, state, best=best)
+            restored.append(out[2])
+            return out
+
+        for f in self.counters.values():
+            f.launches = 0
+        train_mod.train_step = timed_step
+        loader_mod.make_loaders = made_loaders
+        checkpoint.Checkpointer.restore = restoring
+        try:
+            result = cli.main(argv, device=DEVICE)
+        finally:
+            train_mod.train_step = step
+            loader_mod.make_loaders = make
+            checkpoint.Checkpointer.restore = restore
+        synchronize()
+        return {"result": result, "times": times, "losses": losses,
+                "fetch": fetch,
+                "loaders": made[0] if made else None,
+                "restored": restored[0] if restored else None,
+                "launches": {n: f.launches for n, f in self.counters.items()}}
+
+
+def synchronize():
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def step_summary(run, warmup=2):
+    """(median ms/step after ``warmup`` steps, images/s at TRAIN_BATCH,
+    loader wait ms per consumed batch)."""
+    ms = float(np.median(run["times"][warmup:]))
+    loader = run["loaders"][0]
+    wait = loader.stats["wait_s"] * 1e3 / max(loader.stats["batches"], 1)
+    return ms, TRAIN_BATCH * 1e3 / ms, wait
+
+
+def remat_step(config, train_mod, batch, remat):
+    """One f32 step at lr 0 from the seeded weights: (gradients, BN
+    statistics)."""
+    cfg = config.Config(compute_dtype="float32", remat=remat)
+    state = train_mod.create_state(cfg, torch.Generator().manual_seed(0),
+                                   device=DEVICE)
+    state, m = train_mod.train_step(state, batch)
+    grads = {n: p.grad.detach().clone()
+             for n, p in state.model.named_parameters()}
+    stats = {k: v.clone() for k, v in state.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var",
+                            "num_batches_tracked"))}
+    return grads, stats, float(m["loss"])
+
+
+def remat_memory(config, train_mod, batch, remat, steps=4):
+    """Peak device memory (GiB) and median ms of steps 2.. of ``steps``
+    bf16 Adam steps at batch TRAIN_BATCH."""
+    cfg = config.Config(remat=remat)
+    state = train_mod.create_state(cfg, torch.Generator().manual_seed(0),
+                                   device=DEVICE)
+    synchronize()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, m = train_mod.train_step(state, batch)
+        synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if DEVICE == "cuda" else float("nan"))
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"remat={remat}: loss {float(m['loss'])}")
+    return peak, float(np.median(times[1:]))
+
+
+def free_memory():
+    import gc
+
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_cli_train(config, cli, checkpoint, infer, labels, geometry,
+                    heads, mmconv, vote_cuda):
+    """The port's training-from-disk path through ``cli.main`` at full
+    width: check-data, gen-labels, train and resume on the cuDNN route,
+    the loader alone, export and a served frame, the K3/K4 route, remat
+    against no remat, the YCB HDF5 route with a profile. Returns the
+    kernels' launches on each path."""
+    import os
+    import shutil
+
+    from rcvpose_tpu_torch import native
+    from rcvpose_tpu_torch import train as train_mod
+    from rcvpose_tpu_torch.data import loader as loader_mod
+    from rcvpose_tpu_torch.data.dataset import LinemodDataset
+
+    k2 = {"K2": heads.heads_channel_major_cuda,
+          "K2-bwd": heads.heads_channel_major_bwd_cuda}
+    k34 = {"K3": mmconv.conv_same_cuda, "K4": mmconv.conv_same_dk_cuda}
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        lm = os.path.join(root, "LINEMOD")
+        t0 = time.perf_counter()
+        frames, kpts9 = write_train_tree(root, geometry)
+        say(f"phase 14 tree: {TRAIN_FRAMES} frames at {H}x{W} (JPEG, .dpt, "
+            f"mask PNG, pose, mm mesh.ply) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # 1. check-data: no ERROR finding (the CLI exits 1 on one)
+        try:
+            cli.main(["--mode", "check-data", "--root_dataset", root,
+                      "--class_name", "ape"], device=DEVICE)
+        except SystemExit as exc:
+            raise AssertionError(f"check-data found errors ({exc})") from exc
+
+        # 2. gen-labels on the card against the CPU's radial_labels
+        t0 = time.perf_counter()
+        cli.main(["--mode", "gen-labels", "--root_dataset", root,
+                  "--class_name", "ape"], device=DEVICE)
+        gen_s = time.perf_counter() - t0
+        ds = LinemodDataset(lm, "ape")
+        depth = torch.tensor(np.stack([f[1] for f in frames]))
+        pose = torch.tensor(np.stack([f[2] for f in frames]),
+                            dtype=torch.float32)
+        worst, labelled = 0.0, 0
+        for kp in (1, 2, 3):
+            want, _ = labels.radial_labels(
+                depth, depth > 0, pose, ds.keypoints[kp].astype(np.float32),
+                geometry.LINEMOD_K, ds.max_radii_for([kp])[0])
+            got = np.stack([np.load(os.path.join(
+                lm, "ape", f"Out_pt{kp}_dm", f"{i:06d}.npy"))
+                for i in range(TRAIN_FRAMES)])
+            worst = max(worst, float(np.abs(got - want.numpy()).max()))
+            labelled += int((want > 0).sum())
+        say(f"phase 14 gen-labels: {3 * TRAIN_FRAMES} maps in {gen_s:.1f} s, "
+            f"{labelled} labelled pixels, max |card - CPU| {worst:.3g} dm")
+        if not (worst <= 1e-5 and labelled > 0):
+            raise AssertionError(f"gen-labels: {worst} dm off the CPU")
+
+        # 3. train at full width on the cuDNN route, then resume
+        run = CliRun(cli, loader_mod, train_mod, checkpoint, k2)
+        logs = os.path.join(tmp, "logs")
+        argv = ["--mode", "train", "--root_dataset", lm, "--class_name",
+                "ape", "--out_dir", logs]
+        first = run(argv + ["--max_iterations", "8"])
+        resumed = run(argv + ["--max_iterations", "10", "--resume_train"])
+        for name, r, n in (("train", first, 8), ("resume", resumed, None)):
+            it = r["result"].iteration
+            if it != (n or 10) or not all(map(math.isfinite, r["losses"])):
+                raise AssertionError(f"{name}: iteration {it}, losses "
+                                     f"{r['losses']}")
+        ms, ips, wait = step_summary(first)
+        paths["train"] = first["launches"]
+        paths["resume"] = resumed["launches"]
+        check_launches("phase 14 train", first["launches"])
+        say(f"phase 14 train (cuDNN route, batch {TRAIN_BATCH}, bf16 Adam): "
+            f"8 steps, ms/step {[round(t, 3) for t in first['times']]} "
+            f"(median after 2 {ms:.3f}, {ips:.2f} images/s); loader wait "
+            f"{wait:.3f} ms a batch; host ms to get each batch "
+            f"{[round(t, 3) for t in first['fetch']]}; losses "
+            f"{[round(x, 4) for x in first['losses']]}; launches "
+            f"{first['launches']}; resumed at iteration "
+            f"{resumed['restored']} to {resumed['result'].iteration}, "
+            f"launches {resumed['launches']}")
+        if resumed["restored"] not in (4, 8):
+            raise AssertionError(f"resume restored {resumed['restored']}")
+        del first, resumed
+        free_memory()
+
+        # the loader alone: two epochs, labels made on the card
+        cfg = cli.config_from_args(["--root_dataset", lm, "--class_name",
+                                    "ape"])
+        tl, _ = loader_mod.make_loaders(cfg, device=DEVICE)
+        rates = []
+        for epoch in range(2):
+            synchronize()
+            t0, n = time.perf_counter(), 0
+            for b in tl.batches(epoch):
+                n += b["image"].shape[0]
+            synchronize()
+            rates.append(n / (time.perf_counter() - t0))
+        batch = b
+        say(f"phase 14 loader alone: {rates[0]:.1f} / {rates[1]:.1f} "
+            f"frames/s (epochs 1 / 2, {n} frames each, labels on the "
+            f"card); {native.describe()}")
+
+        # 7. export-torch, then the exported weights serve a frame
+        ckpts = os.path.join(logs, "lm", "apeKp1", "ckpts")
+        exported = os.path.join(tmp, "exported.pth.tar")
+        cli.main(["--mode", "export-torch", "--model_dir", ckpts,
+                  "--export_path", exported], device=DEVICE)
+        shutil.rmtree(logs)
+        weights = checkpoint.import_torch_checkpoint(exported)
+        maxr = ds.max_radii_for([1, 2, 3])
+        cfg3 = config.Config(vote_grid_l=GRID_L)
+        est = infer.PoseEstimator(cfg3, [weights] * 3, kpts9, maxr)
+        img, depth0, _ = frames[0]
+        for net, r in zip(est.models, maxr):
+            calibrate_head(net, (img, depth0), cfg3.sem_threshold, float(r))
+        serving = {"K1": vote_cuda.vote_counts_cuda,
+                   "K2": heads.heads_channel_major_cuda}
+        for f in serving.values():
+            f.launches = 0
+        out = est.estimate(img, depth0)
+        synchronize()
+        paths["serve exported"] = {n: f.launches for n, f in serving.items()}
+        check_launches("phase 14 served frame", paths["serve exported"])
+        for key in ("rt", "centers"):
+            if not torch.isfinite(out[key]).all():
+                raise AssertionError(f"served frame: non-finite {key}")
+        say(f"phase 14 export: {os.path.getsize(exported) / 2 ** 20:.1f} "
+            f"MiB, served one frame from it: counts "
+            f"{out['counts'].cpu().tolist()}, launches "
+            f"{paths['serve exported']}")
+        del est, weights
+        free_memory()
+
+        # 4. the K3/K4 route for 3 steps
+        os.environ["RCVPOSE_PALLAS_CONV"] = "on"
+        try:
+            kr = CliRun(cli, loader_mod, train_mod, checkpoint,
+                        {**k2, **k34})(argv + ["--max_iterations", "3"])
+        finally:
+            del os.environ["RCVPOSE_PALLAS_CONV"]
+        shutil.rmtree(logs)
+        paths["train K3/K4"] = kr["launches"]
+        check_launches("phase 14 K3/K4 route", kr["launches"])
+        ms, ips, wait = step_summary(kr, warmup=1)
+        say(f"phase 14 train K3/K4 route: 3 steps, ms/step "
+            f"{[round(t, 3) for t in kr['times']]} (median after 1 "
+            f"{ms:.3f}); loader wait {wait:.3f} ms a batch; launches "
+            f"{kr['launches']}")
+        del kr
+        free_memory()
+
+        # 5. remat against none: one f32 step, TF32 off, deterministic
+        # cuDNN; the plain step twice, for its own run-to-run spread
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            g_r, s_r, l_r = remat_step(config, train_mod, batch, True)
+            g_p, s_p, l_p = remat_step(config, train_mod, batch, False)
+            g_q, _, l_q = remat_step(config, train_mod, batch, False)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        top = max(float(g.abs().max()) for g in g_p.values())
+        grad_diff = max(float((g_r[n] - g_p[n]).abs().max()) for n in g_p)
+        spread = max(float((g_q[n] - g_p[n]).abs().max()) for n in g_p)
+        stat_diff = max(float((s_r[n].double() - s_p[n].double()).abs().max())
+                        for n in s_p)
+        del g_r, g_p, g_q
+        free_memory()
+        peaks = {}
+        for remat in (False, True):
+            peaks[remat] = remat_memory(config, train_mod, batch, remat)
+            free_memory()
+        say(f"phase 14 remat (f32 step, TF32 off, deterministic cuDNN): "
+            f"loss remat / plain / plain {l_r:.9g} / {l_p:.9g} / {l_q:.9g}; "
+            f"max |grad diff| remat-plain {grad_diff:.3g}, plain-plain "
+            f"{spread:.3g} (largest gradient {top:.3g}); max |BN statistic "
+            f"diff| {stat_diff:.3g}; bf16 at batch {TRAIN_BATCH}: peak "
+            f"{peaks[False][0]:.2f} GiB, {peaks[False][1]:.3f} ms/step "
+            f"without remat, {peaks[True][0]:.2f} GiB, "
+            f"{peaks[True][1]:.3f} ms/step with")
+        # The forward, loss and BN statistics must be bit-identical; the
+        # gradients only within the plain step's own run-to-run spread:
+        # bilinear upsampling's backward adds with atomics on the card, so
+        # two plain steps differ in the last bits too.
+        if (stat_diff != 0.0 or l_r != l_p
+                or grad_diff > 2 * spread + 1e-6 * top):
+            raise AssertionError("the remat step differs from the plain one")
+
+        # 6 and 8. the YCB HDF5 route, 2 steps, under --profile_dir
+        import base64
+        import zlib
+
+        ycb = os.path.join(tmp, "ycb")
+        name = "002_master_chef_can"
+        os.makedirs(os.path.join(ycb, name, "Split"))
+        with open(os.path.join(ycb, f"{name}.hdf5"), "wb") as f:
+            f.write(zlib.decompress(base64.b64decode(YCB_TRAIN_HDF5)))
+        with open(os.path.join(ycb, name, "Split", "val.txt"), "w") as f:
+            f.write("".join(f"0000_{i:06d}\n" for i in range(1, 5)))
+        prof = os.path.join(tmp, "prof")
+        yr = CliRun(cli, loader_mod, train_mod, checkpoint, k2)(
+            ["--mode", "train", "--dname", "ycb", "--root_dataset", ycb,
+             "--class_name", name, "--batch_size", "2", "--max_iterations",
+             "2", "--out_dir", logs, "--profile_dir", prof])
+        handle = yr["loaders"][0].ds._h5
+        traces = os.listdir(prof)
+        paths["train YCB"] = yr["launches"]
+        check_launches("phase 14 YCB route", yr["launches"])
+        say(f"phase 14 YCB route: 2 steps on 64x96 frames, losses "
+            f"{[round(x, 4) for x in yr['losses']]}, HDF5 read by "
+            f"{type(handle).__module__}.{type(handle).__name__}; launches "
+            f"{yr['launches']}; profile {traces} "
+            f"({sum(os.path.getsize(os.path.join(prof, t)) for t in traces) / 2 ** 20:.1f} MiB)")
+        if (yr["result"].iteration != 2 or len(traces) != 1
+                or not all(map(math.isfinite, yr["losses"]))):
+            raise AssertionError(f"YCB route: {yr['result'].iteration} "
+                                 f"steps, traces {traces}")
+        del yr, handle
+        free_memory()
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs the card",
               file=sys.stderr)
         return 1
-    from rcvpose_tpu_torch import (checkpoint, config, fit, geometry, infer,
-                                   labels, metrics)
+    from rcvpose_tpu_torch import (checkpoint, cli, config, fit, geometry,
+                                   infer, labels, metrics)
     from rcvpose_tpu_torch import eval as eval_mod
     from rcvpose_tpu_torch import train as train_mod
     from rcvpose_tpu_torch.models import fcnresnet as fcn
@@ -2103,8 +2619,11 @@ def main():
         eval_launches = run(13, phase_lmo_ycb, config, eval_mod, fit, infer,
                             labels, geometry, metrics, train_mod, vote_cuda,
                             heads, root, lm)
+    cli_launches = run(14, phase_cli_train, config, cli, checkpoint, infer,
+                       labels, geometry, heads, mmconv, vote_cuda)
     say(f"phase seconds {seconds}, total {sum(seconds.values()):.1f}")
     say(f"phase 13 launches by path: {eval_launches}")
+    say(f"phase 14 launches by path: {cli_launches}")
 
     main_path = ("coarse", "refine")
     kernels = [

@@ -15,6 +15,8 @@ an ``ImportError`` that names PIL, and ``.dpt`` depth and PLY still read.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -188,24 +190,117 @@ def hdf5_group_keys(path, group):
     layouts (superblock 2+, link-message groups) raise ``ValueError``
     naming h5py.
     """
-    try:
-        import h5py
-    except ImportError:
-        return _Hdf5Names(path).keys(group)
-    with h5py.File(path, "r") as f:
+    with open_hdf5(path) as f:
         return list(f[group].keys())
 
 
-class _Hdf5Names:
-    """Names of the members of symbol-table groups in an HDF5 file (format
-    specification 3.0: superblock v0/v1, v1 B-trees of group nodes,
-    ``SNOD`` symbol-table nodes, ``HEAP`` local heaps, v1 object
-    headers)."""
+def hdf5_dataset(path, name):
+    """The dataset ``name`` (e.g. ``"3Dradius_pt1_dm/0000_000001"``) of an
+    HDF5 file as a numpy array.
+
+    With h5py installed this is ``np.array(h5py.File(path)[name])``.
+    Without it, ``Hdf5File`` reads the datasets h5py writes by default:
+    v1 object headers with a dataspace, a little-endian integer or float
+    datatype and a version-3 layout, contiguous or chunked (v1 chunk
+    B-tree) with no filter or the deflate filter (``compression="gzip"``).
+    Any other layout or filter raises ``ValueError`` naming h5py.
+    """
+    with open_hdf5(path) as f:
+        return np.array(f[name])
+
+
+def open_hdf5(path):
+    """A read handle on an HDF5 file: ``h5py.File(path, "r")`` when h5py
+    imports, else the port's own ``Hdf5File``, which answers the same
+    calls the port makes (``name in f``, ``f[name]``, ``.keys()``,
+    ``np.array(dataset)``, ``close`` and ``with``)."""
+    try:
+        import h5py
+    except ImportError:
+        return Hdf5File(path)
+    return h5py.File(path, "r")
+
+
+class Hdf5File:
+    """Read-only h5py-like view of an HDF5 file for machines without h5py
+    (``_Hdf5Names``). Members are addressed by ``/``-separated paths;
+    groups list and index their members, datasets turn into numpy arrays
+    with ``np.array``."""
 
     def __init__(self, path):
-        with open(path, "rb") as f:
-            self.data = f.read()
+        self._reader = _Hdf5Names(path)
+        self._root = _Hdf5Node(self._reader, self._reader.root, "/")
+
+    def __contains__(self, name):
+        return name in self._root
+
+    def __getitem__(self, name):
+        return self._root[name]
+
+    def keys(self):
+        return self._root.keys()
+
+    def close(self):
+        self._reader.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class _Hdf5Node:
+    """One group or dataset of an ``Hdf5File``."""
+
+    def __init__(self, reader, entry, name):
+        self._reader, self._entry, self.name = reader, entry, name
+
+    def _find(self, name):
+        entry = self._entry
+        for part in filter(None, name.split("/")):
+            members = self._reader.members(entry)
+            if part not in members:
+                return None
+            entry = members[part]
+        return entry
+
+    def __contains__(self, name):
+        return self._find(name) is not None
+
+    def __getitem__(self, name):
+        entry = self._find(name)
+        if entry is None:
+            raise KeyError(f"{self._reader.path}: no member {name!r}")
+        return _Hdf5Node(self._reader, entry,
+                         self.name.rstrip("/") + "/" + name.strip("/"))
+
+    def keys(self):
+        return list(self._reader.members(self._entry))
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self._reader.dataset(self._entry)
+        return arr if dtype is None else arr.astype(dtype)
+
+
+class _Hdf5Names:
+    """Groups and datasets of an HDF5 file as h5py writes them by default
+    (format specification 3.0: superblock v0/v1, v1 B-trees of group nodes
+    and of raw-data chunks, ``SNOD`` symbol-table nodes, ``HEAP`` local
+    heaps, v1 object headers; dataspace, datatype, layout v3 and filter
+    pipeline messages). The file is memory-mapped, not read whole."""
+
+    def __init__(self, path):
+        import mmap
+
         self.path = str(path)
+        with open(path, "rb") as f:
+            size = os.fstat(f.fileno()).st_size
+            if size < 8:
+                self.data = b""
+                self._refuse("no HDF5 signature at offset 0")
+            self.data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        self._members = {}
         if self.data[:8] != b"\x89HDF\r\n\x1a\n":
             self._refuse("no HDF5 signature at offset 0")
         version = self.data[8]
@@ -218,6 +313,10 @@ class _Hdf5Names:
         self.base = self._uint(at, self.o)
         self.root = at + 4 * self.o
 
+    def close(self):
+        if hasattr(self.data, "close"):
+            self.data.close()
+
     def _refuse(self, why):
         raise ValueError(f"{self.path}: {why}; reading this HDF5 layout "
                          "needs h5py")
@@ -228,23 +327,26 @@ class _Hdf5Names:
     def _addr(self, at):
         return self.base + self._uint(at, self.o)
 
+    def _header(self, entry):
+        return self._addr(entry + self.o)
+
     def _group_tables(self, entry):
         """(B-tree, local heap) addresses of the group that the symbol-table
         entry at ``entry`` names: from its scratch pad (cache type 1) or
-        from the Symbol Table message of its object header."""
+        from the Symbol Table message of its object header; None for an
+        object that is not a symbol-table group."""
         o = self.o
         if self._uint(entry + 2 * o, 4) == 1:
             scratch = entry + 2 * o + 8
             return self._addr(scratch), self._addr(scratch + o)
-        header = self._addr(entry + o)
-        for mtype, at in self._messages(header):
+        for mtype, at, _ in self._messages(self._header(entry)):
             if mtype == 0x11:
                 return self._addr(at), self._addr(at + o)
-        self._refuse("a group without a symbol table (link messages)")
+        return None
 
     def _messages(self, header):
-        """(type, data offset) of every message of a v1 object header,
-        following continuation blocks."""
+        """(type, data offset, flags) of every message of a v1 object
+        header, following continuation blocks."""
         if self.data[header] != 1:
             self._refuse(f"object header version {self.data[header]}")
         count = self._uint(header + 2, 2)
@@ -260,7 +362,7 @@ class _Hdf5Names:
                     blocks.append((self._addr(at + 8),
                                    self._uint(at + 8 + self.o, self.l)))
                 else:
-                    yield mtype, at + 8
+                    yield mtype, at + 8, self.data[at + 4]
                 at += 8 + msize
 
     def _entries(self, btree, heap):
@@ -290,16 +392,147 @@ class _Hdf5Names:
                 entry = snod + 8
                 for _ in range(self._uint(snod + 6, 2)):
                     start = names + self._uint(entry, self.o)
-                    end = self.data.index(b"\0", start)
-                    out.append((self.data[start:end].decode(), entry))
+                    end = self.data.find(b"\0", start)
+                    out.append((bytes(self.data[start:end]).decode(), entry))
                     entry += 2 * self.o + 24
         return out
 
-    def keys(self, group):
-        entry = self.root
-        for part in filter(None, group.split("/")):
-            members = dict(self._entries(*self._group_tables(entry)))
-            if part not in members:
-                raise KeyError(f"{self.path}: no member {part!r}")
-            entry = members[part]
-        return [name for name, _ in self._entries(*self._group_tables(entry))]
+    def members(self, entry):
+        """{name: entry offset} of the group at ``entry``, in name order
+        (cached: a YCB class file holds thousands of frames a group)."""
+        members = self._members.get(entry)
+        if members is None:
+            tables = self._group_tables(entry)
+            if tables is None:
+                if any(mtype in (0x02, 0x06) for mtype, _, _ in
+                       self._messages(self._header(entry))):
+                    self._refuse("a group without a symbol table (link "
+                                 "messages)")
+                raise KeyError(f"{self.path}: a dataset, not a group")
+            members = self._members[entry] = dict(self._entries(*tables))
+        return members
+
+    # -- datasets -------------------------------------------------------
+
+    def _dataset_messages(self, entry):
+        if self._group_tables(entry) is not None:
+            raise KeyError(f"{self.path}: a group, not a dataset")
+        msgs = {}
+        for mtype, at, flags in self._messages(self._header(entry)):
+            if mtype in (0x01, 0x03, 0x08, 0x0B):
+                if flags & 0x02:
+                    self._refuse(f"a shared message of type {mtype:#x}")
+                msgs[mtype] = at
+        for mtype in (0x01, 0x03, 0x08):
+            if mtype not in msgs:
+                self._refuse(f"a dataset without message {mtype:#x}")
+        return msgs
+
+    def _dataspace(self, at):
+        version, rank, flags = self.data[at], self.data[at + 1], \
+            self.data[at + 2]
+        if version == 1:
+            dims = at + 8
+        elif version == 2:
+            if self.data[at + 3] == 2:
+                self._refuse("a null dataspace")
+            dims = at + 4
+        else:
+            self._refuse(f"dataspace message version {version}")
+        return tuple(self._uint(dims + i * self.l, self.l)
+                     for i in range(rank))
+
+    def _datatype(self, at):
+        cls, version = self.data[at] & 0x0F, self.data[at] >> 4
+        bits, size = self.data[at + 1], self._uint(at + 4, 4)
+        if bits & 0x01:
+            self._refuse("a big-endian datatype")
+        if cls == 0 and size in (1, 2, 4, 8):        # fixed point
+            return np.dtype(f"<{'i' if bits & 0x08 else 'u'}{size}")
+        if cls == 1 and size in (2, 4, 8) and not bits & 0x40:
+            return np.dtype(f"<f{size}")
+        self._refuse(f"datatype class {cls} (version {version}) of "
+                     f"{size} bytes")
+
+    def _filters(self, at):
+        """Filter ids of a filter pipeline message, in pipeline order."""
+        if at is None:
+            return []
+        version, n = self.data[at], self.data[at + 1]
+        if version not in (1, 2):
+            self._refuse(f"filter pipeline message version {version}")
+        pos = at + (8 if version == 1 else 2)
+        ids = []
+        for _ in range(n):
+            fid = self._uint(pos, 2)
+            name_len = 0
+            if version == 1 or fid >= 256:
+                name_len = self._uint(pos + 2, 2)
+                pos += 2
+            nvalues = self._uint(pos + 4, 2)
+            pos += 6
+            pos += (name_len + 7) // 8 * 8 if version == 1 else name_len
+            pos += 4 * nvalues + (4 if version == 1 and nvalues % 2 else 0)
+            if fid != 1:
+                self._refuse(f"filter {fid} (only deflate, id 1, is read)")
+            ids.append(fid)
+        return ids
+
+    def dataset(self, entry):
+        """The dataset at symbol-table entry ``entry`` as a numpy array."""
+        import zlib
+
+        msgs = self._dataset_messages(entry)
+        shape = self._dataspace(msgs[0x01])
+        dtype = self._datatype(msgs[0x03])
+        filters = self._filters(msgs.get(0x0B))
+        at = msgs[0x08]
+        if self.data[at] != 3:
+            self._refuse(f"layout message version {self.data[at]}")
+        layout = self.data[at + 1]
+        undefined = (1 << (8 * self.o)) - 1
+        count = int(np.prod(shape, dtype=np.int64))
+        if layout == 1:                                  # contiguous
+            if self._uint(at + 2, self.o) == undefined:
+                self._refuse("a dataset with no storage allocated")
+            start = self._addr(at + 2)
+            raw = self.data[start:start + count * dtype.itemsize]
+            return np.frombuffer(raw, dtype, count).reshape(shape).copy()
+        if layout != 2:
+            self._refuse(f"layout class {layout}")
+        rank = self.data[at + 2] - 1                     # chunked
+        if rank != len(shape):
+            self._refuse("a chunk rank that is not the dataspace's")
+        chunk = tuple(self._uint(at + 3 + self.o + 4 * i, 4)
+                      for i in range(rank))
+        out = np.zeros(shape, dtype)
+        if self._uint(at + 3, self.o) == undefined:
+            return out                                   # never written
+        key_size = 8 + 8 * (rank + 1)
+        nodes = [self._addr(at + 3)]
+        while nodes:
+            node = nodes.pop()
+            if self.data[node:node + 4] != b"TREE" or self.data[node + 4] != 1:
+                self._refuse("no chunk B-tree node where one is named")
+            level, used = self.data[node + 5], self._uint(node + 6, 2)
+            pos = node + 8 + 2 * self.o
+            for _ in range(used):
+                size, mask = self._uint(pos, 4), self._uint(pos + 4, 4)
+                offset = tuple(self._uint(pos + 8 + 8 * i, 8)
+                               for i in range(rank))
+                child = self._addr(pos + key_size)
+                pos += key_size + self.o
+                if level:
+                    nodes.append(child)
+                    continue
+                raw = bytes(self.data[child:child + size])
+                for i in reversed(range(len(filters))):
+                    if not mask >> i & 1:
+                        raw = zlib.decompress(raw)
+                block = np.frombuffer(raw, dtype,
+                                      int(np.prod(chunk))).reshape(chunk)
+                dst = tuple(slice(o, min(o + c, n))
+                            for o, c, n in zip(offset, chunk, shape))
+                out[dst] = block[tuple(slice(0, s.stop - s.start)
+                                       for s in dst)]
+        return out

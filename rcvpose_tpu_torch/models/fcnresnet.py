@@ -16,6 +16,11 @@ package's shifted-matmul ``MMConv`` layers are plain ``nn.Conv2d`` here
 ones (the decoder's ``conv_upN`` and ``conv7``) run on K3/K4
 (``ops/mmconv.py``), the counterpart of ``RCVPOSE_PALLAS_CONV=on``.
 Batch norm updates its running statistics as Flax's ``nn.BatchNorm`` does.
+``remat=True`` recomputes each encoder Bottleneck in the backward
+(``torch.utils.checkpoint``, the counterpart of the JAX package's
+``nn.remat(Bottleneck)``); the replay's batch norms normalize as the
+forward did but write no statistic, so the running statistics move once
+per train-mode forward, as ``nn.remat`` keeps them.
 
 Public layout as in the JAX package: NHWC images in, ``(B, H, W, K)`` f32
 seg and radial out. Inside, an NHWC input viewed as NCHW carries
@@ -24,12 +29,15 @@ channels-last strides, which the convolutions keep.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rcvpose_tpu_torch.ops import heads, mmconv
 
@@ -46,12 +54,39 @@ def _scaled(c: int, width: float) -> int:
     return max(8, int(round(c * width)))
 
 
+_replay = threading.local()
+
+
+@contextlib.contextmanager
+def _replaying():
+    """Marks the recompute of a rematerialized block, on the thread that
+    runs it (the autograd engine's)."""
+    before = getattr(_replay, "active", False)
+    _replay.active = True
+    try:
+        yield
+    finally:
+        _replay.active = before
+
+
+def _remat_contexts():
+    """``context_fn`` of the encoder's checkpoints: nothing around the
+    forward, the replay flag around the recompute."""
+    return contextlib.nullcontext(), _replaying()
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode forward updates the running
     statistics as Flax's ``nn.BatchNorm`` does: with the *biased* batch
     variance (torch's own layer takes the unbiased one). Normalization is
     unchanged: batch statistics in train mode, running ones in eval mode.
-    Parameter and persistent buffer names are ``nn.BatchNorm2d``'s."""
+    Parameter and persistent buffer names are ``nn.BatchNorm2d``'s.
+
+    In the recompute of a rematerialized block (``_replaying``) the
+    train-mode forward normalizes with the batch statistics by the same
+    call, but into throwaway buffers: the running statistics,
+    ``batch_mean``/``batch_var`` and ``num_batches_tracked`` keep the
+    values the forward gave them."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -64,6 +99,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if getattr(_replay, "active", False):
+            return F.batch_norm(x, torch.zeros_like(self.batch_mean),
+                                torch.zeros_like(self.batch_var),
+                                self.weight, self.bias, True, 1.0, self.eps)
         # momentum 1 makes the fused op overwrite the scratch buffers with
         # this batch's mean and unbiased variance, so the statistics come
         # from the normalizing pass itself
@@ -146,8 +185,10 @@ class _Encoder(nn.Module):
     module, so its layers sit at the top of the state dict as in the
     reference (``conv1``, ``block1up``, ``block1``, ...)."""
 
-    def __init__(self, input_channels=3, blocks=RESNET152_BLOCKS, width=1.0):
+    def __init__(self, input_channels=3, blocks=RESNET152_BLOCKS, width=1.0,
+                 remat=False):
         super().__init__()
+        self.remat = remat
         w = lambda c: _scaled(c, width)  # noqa: E731
         self.conv1 = nn.Conv2d(input_channels, w(64), 7, stride=2, padding=3,
                                bias=False)
@@ -170,9 +211,19 @@ class _Encoder(nn.Module):
         y = self.maxpool(x)                   # H/4
         skips = []
         for s in range(1, 5):
-            y = getattr(self, f"block{s}")(getattr(self, f"block{s}up")(y))
+            for block in (getattr(self, f"block{s}up"),
+                          *getattr(self, f"block{s}")):
+                y = self._bottleneck(block, y)
             skips.append(y)
         return (x, *skips)
+
+    def _bottleneck(self, block, y):
+        """One Bottleneck; under ``remat`` with gradients on, its
+        activations are recomputed in the backward instead of kept."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, y, use_reentrant=False,
+                              context_fn=_remat_contexts)
+        return block(y)
 
 
 def _nchw_input(model, x):
@@ -189,13 +240,14 @@ class DenseFCNResNet152(_Encoder):
     ``fast_head`` runs conv7/conv8 before the last x2 upsample and
     upsamples the thin output instead (same parameters, not the reference
     forward). ``conv_kernel`` runs the 3x3 decoder convs (``conv_up5`` ..
-    ``conv_up1``, ``conv7``) on K3/K4.
+    ``conv_up1``, ``conv7``) on K3/K4; ``remat`` recomputes the encoder's
+    Bottlenecks in the backward.
     """
 
     def __init__(self, input_channels=3, output_channels=2,
                  blocks: Sequence[int] = RESNET152_BLOCKS, width=1.0,
-                 fast_head=False, conv_kernel=False):
-        super().__init__(input_channels, blocks, width)
+                 fast_head=False, conv_kernel=False, remat=False):
+        super().__init__(input_channels, blocks, width, remat)
         w = lambda c: _scaled(c, width)  # noqa: E731
         st = self.stage_channels
         ck = conv_kernel
@@ -246,8 +298,8 @@ class ResFCNResNet152(_Encoder):
 
     def __init__(self, input_channels=3, output_channels=2,
                  double_up1=False, blocks: Sequence[int] = RESNET152_BLOCKS,
-                 width=1.0, conv_kernel=False):
-        super().__init__(input_channels, blocks, width)
+                 width=1.0, conv_kernel=False, remat=False):
+        super().__init__(input_channels, blocks, width, remat)
         w = lambda c: _scaled(c, width)  # noqa: E731
         st = self.stage_channels
         ck = conv_kernel

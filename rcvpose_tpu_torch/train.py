@@ -40,10 +40,12 @@ def build_model(cfg, blocks=None, width=None, conv_kernel=False):
     power-of-two fraction >= 1/8 so the x4 bottleneck expansion scales
     exactly); without them ``cfg.model_blocks``/``cfg.model_width`` apply.
     ``conv_kernel`` runs the 3x3 decoder convs on K3/K4 (the counterpart of
-    the JAX package's ``RCVPOSE_PALLAS_CONV=on``). The serving compute
-    dtype is applied by the caller (``PoseEstimator``).
+    the JAX package's ``RCVPOSE_PALLAS_CONV=on``); ``cfg.remat``
+    recomputes the encoder's Bottlenecks in the backward. The serving
+    compute dtype is applied by the caller (``PoseEstimator``).
     """
-    kwargs = dict(output_channels=2 * cfg.kpt_heads, conv_kernel=conv_kernel)
+    kwargs = dict(output_channels=2 * cfg.kpt_heads, conv_kernel=conv_kernel,
+                  remat=bool(getattr(cfg, "remat", False)))
     if cfg.model == "dense" and cfg.fast_head:
         kwargs["fast_head"] = True  # DenseFCN-only extension
     if blocks is None and cfg.model_blocks:
@@ -98,26 +100,11 @@ class TrainState:
         return next(self.model.parameters()).device
 
 
-def refuse_remat(cfg):
-    """Raise where the port would train a model that ``cfg`` asks to
-    rematerialize: ``Config.remat`` (the JAX package's ``nn.remat`` per
-    Bottleneck) is not ported, and ignoring it would change the memory a
-    step needs without a word. Serving and evaluation take such a config:
-    a forward without gradients keeps no activations to rematerialize."""
-    if getattr(cfg, "remat", False):
-        raise NotImplementedError(
-            "Config.remat=True (activation rematerialization per "
-            "Bottleneck) is not ported yet (ROADMAP A5); train with remat "
-            "unset or False")
-
-
 def create_state(cfg, generator, steps_per_epoch=1000, blocks=None,
                  width=None, device=None, conv_kernel=False):
     """A fresh ``TrainState``: ``init_params`` from the CPU
     ``torch.Generator``, then the model moves to ``device`` (the card
-    unless ``device="cpu"``) in channels-last layout. Raises
-    ``NotImplementedError`` for ``cfg.remat`` (``refuse_remat``)."""
-    refuse_remat(cfg)
+    unless ``device="cpu"``) in channels-last layout."""
     dev = resolve_device(device)
     model = build_model(cfg, blocks, width, conv_kernel)
     init_params(model, generator)
@@ -243,8 +230,8 @@ class Trainer:
     Data loading and checkpointing are injected so the loop is testable
     without datasets on disk: ``train_batches(epoch)`` or
     ``train_batches(epoch, start_batch)`` and ``val_batches()`` yield dicts
-    of numpy arrays or tensors. Raises ``NotImplementedError`` for
-    ``cfg.remat`` (``refuse_remat``), whatever made the state.
+    of numpy arrays or tensors (``data.loader.BatchLoader`` yields device
+    tensors; ``cli.run_train`` wires it in).
     """
     cfg: Any
     state: TrainState
@@ -258,7 +245,6 @@ class Trainer:
     steps_per_epoch: int = 0    # enables mid-epoch resume fast-forward
 
     def __post_init__(self):
-        refuse_remat(self.cfg)
         if self.steps is not None:
             self._train_step, self._eval_step = self.steps
         else:

@@ -1,8 +1,10 @@
-"""Device selection and stage timers shared by the port's entry points."""
+"""Device selection, log directories and stage timers shared by the
+port's entry points."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
@@ -32,6 +34,15 @@ def synchronize(device):
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def get_log_dir(cfg):
+    """Create ``logs/<dataset>/<class>Kp<k>/`` (``cfg.log_dir()``) and dump
+    the config there as ``config.json``; returns the directory."""
+    log_dir = cfg.log_dir()
+    os.makedirs(log_dir, exist_ok=True)
+    cfg.dump(os.path.join(log_dir, "config.json"))
+    return log_dir
 
 
 class StageTimers:

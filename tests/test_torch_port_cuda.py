@@ -500,6 +500,58 @@ def test_train_forward_on_card_keeps_heads_differentiable(cuda, conv_kernel):
         assert p.grad is not None and p.grad.dtype == torch.float32
 
 
+def test_remat_step_on_card_keeps_heads_differentiable(cuda, monkeypatch):
+    """Under ``Config.remat`` the heads stay attached to the graph through
+    K2 and a step launches K2 and its backward once. In f32 (TF32 off,
+    deterministic cuDNN) its loss and BN statistics equal the plain
+    step's bit for bit, each BN's statistics moved once; its gradients lie
+    within twice the plain step's own run-to-run spread (bilinear
+    upsampling's backward adds with atomics on the card)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    x = torch.randn(2, 64, 64, 3, device=cuda)
+    radial = torch.zeros(2, 64, 64, device=cuda)
+    radial[:, 16:48, 16:48] = 1.5
+    batch = {"image": x, "radial": radial,
+             "sem": torch.where(radial > 0, 1.0, -1.0)}
+    counters = (heads.heads_channel_major_cuda,
+                heads.heads_channel_major_bwd_cuda)
+    out = []
+    for remat in (True, False, False):
+        cfg = config.Config(image_height=64, image_width=64, initial_lr=1e-3,
+                            compute_dtype="float32", remat=remat)
+        state = train.create_state(cfg, torch.Generator().manual_seed(0),
+                                   blocks=(1, 1, 1, 1), width=0.125)
+        if remat:
+            with torch.no_grad():
+                assert state.model(x)[0].requires_grad is False
+            state.model.train()
+            seg, rad = state.model(x)
+            assert seg.requires_grad and rad.requires_grad
+            seg.sum().backward()
+            state.optimizer.zero_grad(set_to_none=True)
+            for m in state.model.modules():   # undo that forward's update
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.reset_running_stats()
+        before = [f.launches for f in counters]
+        state, m = train.train_step(state, batch)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1]
+        out.append(({n: p.grad for n, p in state.model.named_parameters()},
+                    state.model.state_dict(), float(m["loss"])))
+    (g_r, sd_r, l_r), (g_p, sd_p, l_p), (g_q, _, _) = out
+    assert l_r == l_p and np.isfinite(l_r)
+    top = max(float(g.abs().max()) for g in g_p.values())
+    spread = max(float((g_q[n] - g_p[n]).abs().max()) for n in g_p)
+    diff = max(float((g_r[n] - g_p[n]).abs().max()) for n in g_p)
+    assert diff <= 2 * spread + 1e-6 * top, (diff, spread, top)
+    for key, val in sd_p.items():
+        if key.endswith("num_batches_tracked"):
+            assert int(sd_r[key]) == int(val) == 1, key
+        elif "running" in key:
+            torch.testing.assert_close(sd_r[key], val, rtol=0, atol=0,
+                                       msg=key)
+
+
 # ---------------------------------------------------------------------------
 # The evaluation slice on the card: LMO, CAD labels, the RGB-only keypoint
 # ---------------------------------------------------------------------------

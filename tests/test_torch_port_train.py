@@ -558,21 +558,26 @@ def test_create_state_without_device_raises_without_cuda():
                            blocks=TINY, width=WIDTH)
 
 
-def test_training_refuses_remat_and_serving_takes_it(tiny_state):
-    """``Config.remat`` (the JAX package's ``nn.remat`` per Bottleneck) is
-    not ported: setting a model up for training with it raises
-    ``NotImplementedError`` naming remat, in ``create_state`` and in a
-    ``Trainer`` handed a state made elsewhere, rather than training
-    without it. ``build_model`` and the serving estimator take the same
-    config: a forward without gradients keeps no activations to
+def test_remat_trains_and_serving_takes_it(tiny_state):
+    """``Config.remat`` (the JAX package's ``nn.remat`` per Bottleneck)
+    trains: ``create_state`` builds the model with its encoder blocks
+    rematerialized and a ``Trainer`` takes a step with it
+    (``tests/test_torch_port_remat.py`` holds the step against the plain
+    and the JAX step). ``build_model`` and the serving estimator take the
+    same config: a forward without gradients keeps no activations to
     rematerialize."""
-    cfg = _cfg(remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        train.create_state(cfg, torch.Generator().manual_seed(0),
-                           blocks=TINY, width=WIDTH, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        train.Trainer(cfg=cfg, state=tiny_state,
-                      train_batches=lambda epoch: [], val_batches=lambda: [])
+    cfg = _cfg(remat=True, optim="sgd", max_iterations=1)
+    state = train.create_state(cfg, torch.Generator().manual_seed(0),
+                               blocks=TINY, width=WIDTH, device="cpu")
+    assert state.model.remat
+    writer = Writer()
+    trainer = train.Trainer(cfg=cfg, state=state,
+                            train_batches=lambda epoch: [synth_batch(6)],
+                            val_batches=lambda: [], writer=writer)
+    trainer.fit(max_epochs=1)
+    assert trainer.iteration == 1 and state.step == 1
+    assert np.isfinite([v for t, v, _ in writer.scalars
+                        if t == "Train_sum"]).all()
     serve_cfg = Config(remat=True, compute_dtype="float32",
                        model_blocks="1,1,1,1", model_width=WIDTH)
     model = train.build_model(serve_cfg)
