@@ -90,7 +90,24 @@ Phases, each printing its own line:
     bit, gradients within twice the plain step's run-to-run spread; peak
     memory and ms/step of each in bf16), and the YCB
     precomputed route for 2 steps from an HDF5 the script carries, read
-    by the port's own reader, under ``--profile_dir``.
+    by the port's own reader, under ``--profile_dir``;
+15. what crosses processes, devices and a socket, at full width in phase
+    11's LINEMOD tree and phase 14's training tree:
+    ``parallel.sharded_vote_counts`` at phase 2's stages in an NCCL world
+    of one and over two gloo ranks on the one card (spawned by
+    ``parallel.run_ranks``), bit-equal to the unsharded K1 call; in those
+    two ranks one global-batch f32 step (batch 2 each) against one
+    process at batch 4 (loss, ``loss_r``, ``acc`` and the BN running
+    statistics), ``cli.main --mode train --distributed`` (3 steps, one
+    ``best_val`` and one pair of checkpoints) and ``--mode test
+    --distributed`` (each rank sweeps its shard; the results file equals
+    one process's); ``parallel.sharded_frame_scores`` on a 4-frame chunk
+    over a one-card mesh on both routes against the sequential
+    evaluator's per-frame scores (ADD 1.0 on the maps), and
+    ``eval_data_parallel=True`` raising on one card; ``PoseServer`` on
+    the card with two concurrent ``PoseClient``s, their replies against a
+    direct ``estimate``/``refine``, a malformed request, and K1's and
+    K2's launches on each path.
 
 The vote kernels' bounds count instructions at the card's issue rate
 (``vote_cuda.ISSUE_RATE``), not FLOPs at the FP32 peak: none of their
@@ -104,6 +121,7 @@ line; without a CUDA card it exits 1 at once. Weights are seeded random
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2346,12 +2364,13 @@ def free_memory():
 
 
 def phase_cli_train(config, cli, checkpoint, infer, labels, geometry,
-                    heads, mmconv, vote_cuda):
+                    heads, mmconv, vote_cuda, tmp=None):
     """The port's training-from-disk path through ``cli.main`` at full
     width: check-data, gen-labels, train and resume on the cuDNN route,
     the loader alone, export and a served frame, the K3/K4 route, remat
-    against no remat, the YCB HDF5 route with a profile. Returns the
-    kernels' launches on each path."""
+    against no remat, the YCB HDF5 route with a profile. The labelled tree
+    stays in ``tmp`` (a temporary directory when None) for phase 15.
+    Returns the kernels' launches on each path."""
     import os
     import shutil
 
@@ -2364,7 +2383,8 @@ def phase_cli_train(config, cli, checkpoint, infer, labels, geometry,
           "K2-bwd": heads.heads_channel_major_bwd_cuda}
     k34 = {"K3": mmconv.conv_same_cuda, "K4": mmconv.conv_same_dk_cuda}
     paths = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(tmp) if tmp is not None
+          else tempfile.TemporaryDirectory()) as tmp:
         root = os.path.join(tmp, "data")
         lm = os.path.join(root, "LINEMOD")
         t0 = time.perf_counter()
@@ -2571,6 +2591,525 @@ def phase_cli_train(config, cli, checkpoint, infer, labels, geometry,
     return paths
 
 
+# Phase 15: what crosses processes, devices and a socket. The ranks'
+# networks are full width; a CPU rehearsal shrinks them with these.
+NET_FLAGS = []          # extra cli flags for the networks
+NET_SIZE = {}           # create_state keywords for them
+RANK_TIMEOUT = 900.0
+# one f32 step of two ranks x batch 2 against one process x batch 4: the
+# same sums in other orders (E[x^2] - E[x]^2 against cuDNN's BN, the
+# ranks' conv algorithms at batch 2)
+DDP_METRIC_RTOL = 1e-3
+DDP_STATS_ATOL = 1e-3   # x (1 + |statistic|)
+SERVE_REQUESTS = 8      # per client, two clients
+# the sequential and the data-parallel evaluator on one card: the same
+# kernels on the same inputs, held to the frame tolerance of ROADMAP C
+DP_SCORE_ATOL_MM = 1e-2
+
+
+def vote_problems(stages):
+    """Keypoint 0's (voxels (V, 3), points (N, 3), lo, hi) at phase 2's
+    coarse and refine stages, numpy, N padded to a multiple of 2 with
+    masked points."""
+    out = {}
+    for name in ("coarse", "refine"):
+        vox, pts, lo, hi = stages[name][0]
+        vox = vox if vox.dim() == 2 else vox[0]
+        arrs = [t.cpu().numpy() for t in (vox, pts[0], lo[0], hi[0])]
+        if arrs[1].shape[0] % 2:
+            arrs[1:] = [np.concatenate([a, np.zeros_like(a[:1])])
+                        for a in arrs[1:]]
+        out[name] = tuple(arrs)
+    return out
+
+
+def kernel_counters():
+    from rcvpose_tpu_torch.ops import heads, vote_cuda
+
+    return {"K1": vote_cuda.vote_counts_cuda,
+            "K2": heads.heads_channel_major_cuda,
+            "K2-bwd": heads.heads_channel_major_bwd_cuda}
+
+
+def counted(run):
+    """``run()`` with K1's, K2's and K2's backward's launch counts set to
+    0 just before and read just after: (result, launches)."""
+    counters = kernel_counters()
+    synchronize()
+    for f in counters.values():
+        f.launches = 0
+    out = run()
+    synchronize()
+    return out, {n: f.launches for n, f in counters.items()}
+
+
+def bn_stats(model):
+    return {k: v.detach().double().cpu() for k, v in
+            model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def param_digest(model):
+    """A sha256 of every parameter's bytes: equal on ranks that have not
+    drifted."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase15_rank(rank, world, job):
+    """One of two gloo ranks on the one card: the points split over the
+    ranks, one global-batch f32 step on rows [2 rank, 2 rank + 2) of the
+    batch, ``cli.main --mode train --distributed`` and ``cli.main --mode
+    test --distributed``, each with its kernels' launches."""
+    import gc
+
+    from rcvpose_tpu_torch import cli, parallel
+    from rcvpose_tpu_torch import train as train_mod
+    from rcvpose_tpu_torch.config import Config
+
+    global DEVICE
+    DEVICE = job["device"]
+    dev = torch.device(DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    mesh = parallel.data_mesh(devices=[dev])
+    out["votes"] = counted(lambda: {
+        name: parallel.sharded_vote_counts(
+            mesh, *(torch.as_tensor(a, device=dev) for a in arrs)).cpu()
+        for name, arrs in job["votes"].items()})
+
+    def step():
+        cfg = Config(compute_dtype="float32")
+        state = train_mod.create_state(cfg, torch.Generator().manual_seed(0),
+                                       device=dev, **job["net"])
+        train, _ = train_mod.make_parallel_steps(mesh)
+        rows = slice(2 * rank, 2 * rank + 2)
+        batch = {k: torch.as_tensor(v[rows], device=dev)
+                 for k, v in job["batch"].items()}
+        state, m = train(state, batch)
+        # the step's one gradient all-reduce alone, at its size
+        flat = torch.zeros(sum(p.numel() for p in state.model.parameters()),
+                           device=dev)
+        synchronize()
+        t = time.perf_counter()
+        parallel.all_reduce(flat, mesh.group)
+        synchronize()
+        return {"metrics": {k: float(v) for k, v in m.items()},
+                "stats": bn_stats(state.model), "grad_numel": flat.numel(),
+                "allreduce_ms": (time.perf_counter() - t) * 1e3}
+
+    out["step"] = counted(step)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    times = []
+    make = train_mod.make_parallel_steps
+
+    def timed_steps(mesh_, accum=1):
+        train, ev = make(mesh_, accum)
+
+        def timed(state, batch):
+            synchronize()
+            t = time.perf_counter()
+            res = train(state, batch)
+            synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            return res
+        return timed, ev
+
+    def train_cli():
+        train_mod.make_parallel_steps = timed_steps
+        try:
+            trainer = cli.main(job["train_argv"], device=job["device_arg"])
+        finally:
+            train_mod.make_parallel_steps = make
+        return {"best_val": trainer.best_val,
+                "iteration": trainer.iteration,
+                "digest": param_digest(trainer.state.model),
+                "times": times}
+
+    out["train"] = counted(train_cli)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["test"] = counted(lambda: cli.main(
+        job["test_argv"], device=job["device_arg"])["ape"])
+    return out
+
+
+def lm_frames(readers, root):
+    """Phase 11's frames as the LM evaluator reads them: [(frame id,
+    decoded image, depth (H, W) f32 mm, pose (3, 4) m)]."""
+    import os
+
+    pv = os.path.join(root, "LINEMOD", "ape")
+    out = []
+    for i in range(LM_FRAMES):
+        fid = f"{i:06d}"
+        out.append((fid, readers.read_image(
+            os.path.join(pv, "JPEGImages", f"{fid}.jpg")),
+            readers.read_depth(os.path.join(
+                root, "LINEMOD_ORIG", "ape", "data", f"depth{i}.dpt")
+            ).astype(np.float32),
+            np.load(os.path.join(pv, "pose", f"pose{i}.npy"))))
+    return out
+
+
+def recorded_lm(eval_mod, cfg):
+    """The sequential LM evaluator with each frame's scores recorded from
+    its ``pose_and_add``/``refine_and_add``: (results, [(bf, af)])."""
+    rows = []
+    pose_and_add, refine_and_add = eval_mod.pose_and_add, \
+        eval_mod.refine_and_add
+
+    def pose_rec(*args):
+        rt, score = pose_and_add(*args)
+        rows.append([float(score)])
+        return rt, score
+
+    def refine_rec(*args, **kw):
+        rt2, score = refine_and_add(*args, **kw)
+        rows[-1].append(float(score))
+        return rt2, score
+
+    eval_mod.pose_and_add, eval_mod.refine_and_add = pose_rec, refine_rec
+    try:
+        res = eval_mod.estimate_6d_pose_lm(cfg, class_names=["ape"],
+                                           progress=lambda m: None)["ape"]
+    finally:
+        eval_mod.pose_and_add, eval_mod.refine_and_add = (pose_and_add,
+                                                          refine_and_add)
+    return res, rows
+
+
+def phase_distributed(config, cli, eval_mod, labels, geometry, train_mod,
+                      vote_cuda, k1_stages, root, lm, train_root):
+    """Phase 15 (see the module docstring). Returns the kernels' launches
+    on each path."""
+    import os
+    import threading
+
+    import torch.distributed as dist
+
+    from rcvpose_tpu_torch import parallel, serve
+    from rcvpose_tpu_torch.data import readers
+
+    paths = {}
+    dev = torch.device(DEVICE)
+    problems = vote_problems(k1_stages)
+    whole = {}
+    for name, arrs in problems.items():
+        t = [torch.as_tensor(a, device=dev) for a in arrs]
+        whole[name] = vote_cuda.vote_counts_cuda(
+            t[0], t[1][None], t[2][None], t[3][None])[0].cpu()
+        plain = vote_cuda.vote_counts_plain(
+            t[0], t[1][None], t[2][None], t[3][None])[0].cpu()
+        if not torch.equal(whole[name], plain):
+            raise AssertionError(f"phase 15 K1 {name}: unsharded counts "
+                                 "differ from the plain version")
+
+    def check_votes(what, got):
+        for name, counts in got.items():
+            if not torch.equal(counts, whole[name]):
+                err = float((counts - whole[name]).abs().max())
+                raise AssertionError(f"{what} {name}: sharded counts differ "
+                                     f"from the unsharded K1 call ({err})")
+
+    # 1. an NCCL world of one
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{parallel.free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = parallel.Mesh((dev,), dist.group.WORLD)
+        got, paths["NCCL world of one: votes"] = counted(lambda: {
+            name: parallel.sharded_vote_counts(
+                mesh, *(torch.as_tensor(a, device=dev) for a in arrs)).cpu()
+            for name, arrs in problems.items()})
+    finally:
+        dist.destroy_process_group()
+    check_votes("phase 15 NCCL world of one", got)
+    check_launches("phase 15 NCCL votes", {
+        "K1": paths["NCCL world of one: votes"]["K1"]})
+    say(f"phase 15 {backend} world of one: sharded_vote_counts at the "
+        f"serving stages (" + ", ".join(
+            f"{n} V={a[0].shape[0]} N={a[1].shape[0]}"
+            for n, a in problems.items())
+        + ") bit-equal to the unsharded K1 call and its plain version; "
+        f"launches {paths['NCCL world of one: votes']}")
+
+    # references of one process: a batch-4 f32 step, the sequential LM
+    # evaluator on both routes
+    batch = training_batches(labels, geometry, 1, 15)[0]
+    state = train_mod.create_state(config.Config(compute_dtype="float32"),
+                                   torch.Generator().manual_seed(0),
+                                   device=DEVICE, **NET_SIZE)
+    state, m = train_mod.train_step(state, batch)
+    ref = {"metrics": {k: float(v) for k, v in m.items()},
+           "stats": bn_stats(state.model)}
+    del state, m
+    free_memory()
+    base = config.Config(root_dataset=root, model_dir=lm["model_dir"],
+                         eval_data_parallel=False)
+    seq = {}
+    for route, using in (("network", True), ("maps", False)):
+        seq[route] = recorded_lm(
+            eval_mod, dataclasses.replace(base, using_ckpts=using))
+    free_memory()
+
+    # 2. two gloo ranks on the one card
+    logs = os.path.join(train_root, "logs15")
+    test_out = os.path.join(train_root, "test15")
+    job = {
+        "device": DEVICE, "device_arg": None if dev.type == "cuda" else DEVICE,
+        "net": NET_SIZE, "votes": problems,
+        "batch": {k: v.cpu().numpy() for k, v in batch.items()},
+        "train_argv": ["--mode", "train", "--distributed", "--root_dataset",
+                       os.path.join(train_root, "data", "LINEMOD"),
+                       "--class_name", "ape", "--batch_size", "2",
+                       "--max_iterations", "3", "--out_dir", logs,
+                       *NET_FLAGS],
+        "test_argv": ["--mode", "test", "--distributed", "--root_dataset",
+                      root, "--model_dir", lm["model_dir"], "--eval_classes",
+                      "ape", "--out_dir", test_out, *NET_FLAGS],
+    }
+    del batch
+    t0 = time.perf_counter()
+    ranks = parallel.run_ranks(phase15_rank, 2, (job,),
+                               timeout=RANK_TIMEOUT, backend="gloo")
+    ranks_s = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        check_votes(f"phase 15 gloo rank {r}", out["votes"][0])
+        for part in ("votes", "step", "train", "test"):
+            paths[f"gloo rank {r}: {part}"] = out[part][1]
+        check_launches(f"phase 15 rank {r} votes",
+                       {"K1": out["votes"][1]["K1"]})
+        check_launches(f"phase 15 rank {r} step",
+                       {k: out["step"][1][k] for k in ("K2", "K2-bwd")})
+        check_launches(f"phase 15 rank {r} cli train",
+                       {k: out["train"][1][k] for k in ("K2", "K2-bwd")})
+        check_launches(f"phase 15 rank {r} cli test",
+                       {k: out["test"][1][k] for k in ("K1", "K2")})
+    merr = {k: max(abs(out["step"][0]["metrics"][k] - ref["metrics"][k])
+                   / max(abs(ref["metrics"][k]), 1e-12) for out in ranks)
+            for k in ("loss", "loss_r", "acc")}
+    serr = max(float(((out["step"][0]["stats"][k] - v).abs()
+                      / (1 + v.abs())).max())
+               for out in ranks for k, v in ref["stats"].items())
+    say(f"phase 15 gloo ranks: 2 processes on the one card in "
+        f"{ranks_s:.1f} s; sharded_vote_counts over the two ranks "
+        f"bit-equal to the unsharded count on both; one global-batch f32 "
+        f"step (2 ranks x batch 2) against one process x batch 4: "
+        f"relative error {({k: f'{v:.3g}' for k, v in merr.items()})} "
+        f"(tolerance {DDP_METRIC_RTOL}), BN running statistics "
+        f"max |diff| / (1 + |stat|) {serr:.3g} (tolerance "
+        f"{DDP_STATS_ATOL}); loss one process {ref['metrics']['loss']:.6f},"
+        f" ranks {[round(o['step'][0]['metrics']['loss'], 6) for o in ranks]}")
+    if max(merr.values()) > DDP_METRIC_RTOL or serr > DDP_STATS_ATOL:
+        raise AssertionError("phase 15: the two-rank step is not the "
+                             "batch-4 step")
+    tr = [out["train"][0] for out in ranks]
+    ckpts = sorted(f for _, _, fs in os.walk(logs) for f in fs
+                   if f.endswith(".pth.tar"))
+    step_ms = float(np.median(tr[0]["times"][1:]))
+    st = ranks[0]["step"][0]
+    say(f"phase 15 cli train --distributed (2 gloo ranks on one card, "
+        f"batch 2 each, bf16 Adam, cuDNN route; a correctness run, not a "
+        f"scaling number; gloo's all-reduce of the {st['grad_numel']} f32 "
+        f"gradients alone {st['allreduce_ms']:.1f} ms through host "
+        f"memory): iterations {[t['iteration'] for t in tr]}, "
+        f"best_val {[t['best_val'] for t in tr]}, parameters equal on the "
+        f"ranks {tr[0]['digest'] == tr[1]['digest']}, checkpoints {ckpts}; "
+        f"rank 0 ms/step {[round(t, 3) for t in tr[0]['times']]} (median "
+        f"after 1 {step_ms:.3f}, {4 * 1e3 / step_ms:.2f} images/s of the "
+        f"global batch of 4)")
+    if (len({t["best_val"] for t in tr}) != 1
+            or [t["iteration"] for t in tr] != [3, 3]
+            or tr[0]["digest"] != tr[1]["digest"]
+            or ckpts != ["ckpt.pth.tar", "model_best.pth.tar"]):
+        raise AssertionError("phase 15: the distributed cli train run "
+                             "disagrees across ranks")
+    with open(os.path.join(test_out, "eval_results.json")) as f:
+        written = json.load(f)["ape"]
+    one = seq["network"][0]
+    keys = ("frames", "add_before_icp", "add_after_icp")
+    say(f"phase 15 cli test --distributed (2 gloo ranks, {LM_FRAMES} "
+        f"frames, a shard of {LM_FRAMES // 2} each swept sequentially on "
+        f"the one card): files "
+        f"{sorted(os.listdir(test_out))}, written "
+        f"{ {k: written[k] for k in keys} }, one process "
+        f"{ {k: one[k] for k in keys} }, eval_processes "
+        f"{written.get('eval_processes')}")
+    if (os.listdir(test_out) != ["eval_results.json"]
+            or any(written[k] != one[k] for k in keys)
+            or written.get("eval_processes") != 2
+            or any(out["test"][0][k] != one[k] for out in ranks
+                   for k in keys)):
+        raise AssertionError("phase 15: the distributed cli test run "
+                             "differs from one process")
+
+    # 3. data-parallel evaluation on a one-card mesh
+    ecfg = eval_mod._dataset_eval_cfg(base)
+    models = eval_mod._load_models(ecfg, "ape", dev)
+    frames = lm_frames(readers, root)
+    mesh = parallel.data_mesh(devices=[dev])
+    max_radii = eval_mod._per_kpt_max_radii_dm(lm["cad_m"], lm["kpts9"])
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    rt_gts_mm = np.stack([f[3] for f in frames]).astype(np.float64)
+    rt_gts_mm[:, :, 3] *= 1000.0
+    threshold_mm = eval_mod.ADD_THRESHOLD["ape"] * 1000.0
+    for route, net in (("network", tuple(models)), ("maps", None)):
+        rcfg = dataclasses.replace(ecfg, using_ckpts=net is not None)
+        source = eval_mod.RadialMapSource(rcfg, "ape",
+                                          models if net else None, dev)
+        t0 = time.perf_counter()
+        scores, launches = counted(lambda: eval_mod._dp_chunk_scores(
+            mesh, source, net, [f[1] for f in frames],
+            [f[0] for f in frames], np.stack([f[2] for f in frames]),
+            rt_gts_mm, np.tile(geometry.LINEMOD_K, (LM_FRAMES, 1, 1)),
+            put(max_radii), put(lm["kpts9"][1:4] * 1000.0),
+            put(lm["cad_m"] * 1000.0), False, eval_mod._vote_kw(rcfg)))
+        secs = time.perf_counter() - t0
+        paths[f"DP eval: {route}"] = launches
+        got = np.stack([scores["score_bf"].cpu().numpy(),
+                        scores["score_af"].cpu().numpy()], 1)
+        want = np.asarray(seq[route][1])
+        err = float(np.abs(got - want).max())
+        add = (float((got[:, 0] <= threshold_mm).mean()),
+               float((got[:, 1] <= threshold_mm).mean()))
+        say(f"phase 15 sharded_frame_scores, {route} route ({LM_FRAMES}-"
+            f"frame chunk, one-card mesh, grid {rcfg.vote_grid_l}, topk "
+            f"{rcfg.vote_topk}, {rcfg.icp_iters} ICP): {secs:.2f} s, max "
+            f"|score - sequential| {err:.3g} mm (tolerance "
+            f"{DP_SCORE_ATOL_MM}), ADD before/after {add}, overflow "
+            f"{scores['overflow'].cpu().numpy().astype(int).tolist()}, "
+            f"launches {launches}")
+        check_launches(f"phase 15 DP {route}",
+                       {k: launches[k] for k in
+                        (("K1", "K2") if net else ("K1",))})
+        if err > DP_SCORE_ATOL_MM or (net is None and add != (1.0, 1.0)):
+            raise AssertionError(f"phase 15 DP {route}: scores {got}, "
+                                 f"sequential {want}")
+    try:
+        eval_mod.estimate_6d_pose_lm(dataclasses.replace(
+            ecfg, eval_data_parallel=True), class_names=["ape"],
+            progress=lambda m: None)
+    except ValueError as exc:
+        say(f"phase 15 eval_data_parallel=True on this one-card machine "
+            f"raises ValueError: {exc}")
+    else:
+        raise AssertionError("eval_data_parallel=True on one card ran")
+    del models
+    free_memory()
+
+    # 4. serving over the socket
+    scfg = config.Config(root_dataset=root, model_dir=lm["model_dir"])
+    est = serve.build_lm_estimator(scfg, "ape")
+    srv = serve.PoseServer(est, warmup_hw=(H, W), class_name="ape")
+    addr = srv.start(port=0)
+    replies = [[], []]
+    errors = []
+
+    def client(i):
+        c = serve.PoseClient(*addr)
+        try:
+            if c.ping() != {"ok": True, "pong": True}:
+                raise AssertionError("ping")
+            for j in range(SERVE_REQUESTS):
+                f = frames[(i + j) % LM_FRAMES]
+                icp = j % 2 == 1
+                t = time.perf_counter()
+                rep = c.pose(f[1], f[2], icp=icp)
+                replies[i].append((f[0], icp, rep,
+                                   (time.perf_counter() - t) * 1e3))
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+        finally:
+            c.close()
+
+    def both():
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=RANK_TIMEOUT)
+
+    _, launches = counted(both)
+    paths["serve over the socket"] = launches
+    try:
+        if errors:
+            raise errors[0]
+        c = serve.PoseClient(*addr)
+        try:
+            bad = c.raw({"op": "pose", "h": 4})
+            alive = c.ping()
+            alone = []     # one client, plain requests, nothing queued
+            for f in frames:
+                t = time.perf_counter()
+                if not c.pose(f[1], f[2])["ok"]:
+                    raise AssertionError("phase 15 serve: a plain request")
+                alone.append((time.perf_counter() - t) * 1e3)
+        finally:
+            c.close()
+    finally:
+        srv.shutdown()
+    direct, est_ms = {}, []
+    for fid, img, depth, _ in frames:
+        synchronize()
+        t = time.perf_counter()
+        res = est.estimate(img, depth)
+        synchronize()
+        est_ms.append((time.perf_counter() - t) * 1e3)
+        rt2 = est.refine(res, threshold_mm=20.0)
+        direct[fid] = {k: res[k].double().cpu().numpy()
+                       for k in ("rt", "centers", "counts")}
+        direct[fid]["rt_icp"] = rt2.double().cpu().numpy()
+    worst = {"rt": 0.0, "centers": 0.0}
+    flat = [r for rs in replies for r in rs]
+    for fid, icp, rep, _ in flat:
+        want = direct[fid]
+        if not rep["ok"] or rep["device"] != 0 or \
+                rep["counts"] != want["counts"].tolist():
+            raise AssertionError(f"phase 15 serve: reply {rep}")
+        worst["rt"] = max(worst["rt"], float(np.abs(
+            np.asarray(rep["rt"]) - want["rt_icp" if icp else "rt"]).max()))
+        worst["centers"] = max(worst["centers"], float(np.abs(
+            np.asarray(rep["centers"]) - want["centers"]).max()))
+    req_ms = float(np.median([r[3] for r in flat]))
+    say(f"phase 15 serve over the socket: 2 concurrent PoseClients x "
+        f"(ping + {SERVE_REQUESTS} pose requests, every second one with "
+        f"ICP) on {LM_FRAMES} frames at {H}x{W}, devices "
+        f"{sorted({r[2]['device'] for r in flat})}; replies against a "
+        f"direct estimate/refine: counts equal, max |rt diff| "
+        f"{worst['rt']:.3g}, max |centers diff| {worst['centers']:.3g} mm; "
+        f"a malformed request answered {bad}, then ping {alive}; median "
+        f"request {req_ms:.3f} ms (client wall clock, two clients sharing "
+        f"the card's lock, ICP on half); one client's plain requests "
+        f"{[round(t, 3) for t in alone]} ms (median "
+        f"{float(np.median(alone)):.3f}) beside a median direct estimate "
+        f"{float(np.median(est_ms)):.3f} ms (host clock, ending in a "
+        f"synchronize); launches {launches}")
+    check_launches("phase 15 serve", {k: launches[k] for k in ("K1", "K2")})
+    if (len(flat) != 2 * SERVE_REQUESTS or bad.get("ok") is not False
+            or not alive.get("ok") or worst["rt"] > 1e-3
+            or worst["centers"] > 1e-3):
+        raise AssertionError("phase 15: the served replies differ from "
+                             "a direct estimate")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs the card",
@@ -2611,7 +3150,8 @@ def main():
     times = run(9, phase_train_kernel_times, mmconv, heads)
     stages, var_errs, var_launches, scripts = run(
         10, phase_vote_variants, voting, vote_cuda, geometry)
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, \
+            tempfile.TemporaryDirectory() as train_root:
         lm = run(11, phase_lm_eval, config, eval_mod, train_mod, fcn,
                  geometry, vote_cuda, heads, root)
         var_times = run(12, phase_variant_times, stages, vote_cuda,
@@ -2619,11 +3159,16 @@ def main():
         eval_launches = run(13, phase_lmo_ycb, config, eval_mod, fit, infer,
                             labels, geometry, metrics, train_mod, vote_cuda,
                             heads, root, lm)
-    cli_launches = run(14, phase_cli_train, config, cli, checkpoint, infer,
-                       labels, geometry, heads, mmconv, vote_cuda)
+        cli_launches = run(14, phase_cli_train, config, cli, checkpoint,
+                           infer, labels, geometry, heads, mmconv, vote_cuda,
+                           train_root)
+        dist_launches = run(15, phase_distributed, config, cli, eval_mod,
+                            labels, geometry, train_mod, vote_cuda,
+                            k1_stages, root, lm, train_root)
     say(f"phase seconds {seconds}, total {sum(seconds.values()):.1f}")
     say(f"phase 13 launches by path: {eval_launches}")
     say(f"phase 14 launches by path: {cli_launches}")
+    say(f"phase 15 launches by path: {dist_launches}")
 
     main_path = ("coarse", "refine")
     kernels = [

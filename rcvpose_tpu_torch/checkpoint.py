@@ -21,6 +21,7 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flax_path_to_torch_key(col, path):
@@ -100,14 +101,23 @@ class Checkpointer:
     reference's ``model_state_dict``, ``epoch``, ``iteration`` and
     ``arch``, plus ``optim_state_dict``, ``step`` and ``best_val``. Writes
     are synchronous: each goes to a temporary file that then replaces the
-    target, so no reader ever sees half a file."""
+    target, so no reader ever sees half a file.
+
+    ``group``: under a process group of several ranks (data-parallel
+    training, where every rank holds the same state) rank 0 writes and
+    every rank then passes a barrier, so no rank runs ahead of a save;
+    ``restore`` reads on every rank onto its own device."""
 
     CKPT = "ckpt.pth.tar"
     BEST = "model_best.pth.tar"
 
-    def __init__(self, directory):
+    def __init__(self, directory, group=None):
         self.directory = os.path.abspath(directory)
+        self.group = group
         os.makedirs(self.directory, exist_ok=True)
+
+    def _writes(self):
+        return self.group is None or dist.get_rank(self.group) == 0
 
     def _write(self, payload, name):
         path = os.path.join(self.directory, name)
@@ -116,6 +126,12 @@ class Checkpointer:
         os.replace(tmp, path)
 
     def save(self, state, epoch, iteration, best_val, is_best=False):
+        if self._writes():
+            self._save(state, epoch, iteration, best_val, is_best)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _save(self, state, epoch, iteration, best_val, is_best):
         payload = {
             "model_state_dict": {k: v.detach().cpu() for k, v in
                                  state.model.state_dict().items()},

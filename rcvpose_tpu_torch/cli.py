@@ -2,15 +2,23 @@
 script ``rcvpose-tpu-torch``), the counterpart of ``rcvpose_tpu.cli``.
 
 The parser has the JAX CLI's flags and defaults, so one command line
-configures either package. The single-card modes run here: ``train``
-(datasets on disk -> ``BatchLoader`` -> ``Trainer.fit`` -> ``Checkpointer``,
-``--resume_train`` from ``model_best``), ``test`` (the LM, LMO and YCB
-evaluators), ``gen-labels``, ``export-torch`` and ``check-data``. Each
-runs on the CUDA card; the Python entry points take ``device="cpu"`` for
-the CPU (the tests pass it), and the command line has no such flag.
+configures either package. The modes: ``train`` (datasets on disk ->
+``BatchLoader`` -> ``Trainer.fit`` -> ``Checkpointer``, ``--resume_train``
+from ``model_best``), ``test`` (the LM, LMO and YCB evaluators), ``serve``
+(``serve.run_serve``), ``gen-labels``, ``export-torch`` and
+``check-data``. Each runs on the CUDA card; the Python entry points take
+``device="cpu"`` for the CPU (the tests pass it), and the command line
+has no such flag.
 
-What the port does not run yet raises and names its ROADMAP item:
-``--mode serve`` and ``--distributed`` across processes (A6),
+``--distributed`` under torchrun (``torchrun --nproc_per_node N -m
+rcvpose_tpu_torch.cli --distributed ...``) makes one process per card:
+``train`` then takes the JAX package's global-batch step over every
+process (``--batch_size`` per process) and ``test`` sweeps a shard of the
+frames in each process. NCCL on the card, gloo on the CPU;
+``RCVPOSE_DIST_BACKEND`` names another (gloo for several ranks on one
+card, which NCCL refuses).
+
+What the port does not run raises and names its ROADMAP item:
 ``--mode benchmark`` (A2; the JAX mode runs ``bench.py``, which imports
 JAX) and ``--compile_cache_dir`` (XLA's cache; the port's kernels build
 once into ``rcvpose_tpu_torch/_build/``). ``RCVPOSE_PALLAS_CONV=on``
@@ -144,7 +152,7 @@ def build_parser():
     parser.add_argument("--eval_data_parallel", dest="eval_data_parallel",
                         action="store_true", default=None,
                         help="--mode test: shard evaluation frames over "
-                             "devices (not ported: raises)")
+                             "the local cards")
     parser.add_argument("--no_eval_data_parallel", dest="eval_data_parallel",
                         action="store_false",
                         help="force the sequential per-frame eval loop")
@@ -163,9 +171,9 @@ def build_parser():
                              "package; the port refuses it (its kernels "
                              "build once into rcvpose_tpu_torch/_build/)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process training (not ported: raises "
-                             "when WORLD_SIZE > 1; a logged no-op on one "
-                             "process)")
+                        help="multi-process train/test under torchrun "
+                             "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                             "MASTER_PORT); a logged no-op on one process")
     parser.add_argument("--seed", type=int, default=defaults.seed)
     parser.add_argument("--profile_dir", default=defaults.profile_dir,
                         help="write a torch.profiler trace of the train/"
@@ -187,20 +195,44 @@ def config_from_args(argv=None):
     return cfg
 
 
-def maybe_init_distributed(cfg):
-    """``--distributed``: multi-process training is not ported (ROADMAP
-    A6), so a launch with ``WORLD_SIZE`` > 1 raises; on one process the
-    flag is a logged no-op, as the JAX CLI's is without a coordinator.
-    Returns False (no process group is set up)."""
+def maybe_init_distributed(cfg, device=None):
+    """``--distributed``: join the torchrun world.
+
+    Reads ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``, pins ``LOCAL_RANK``'s card (modulo the cards there
+    are, so that several ranks may share one) and makes the default
+    process group over ``tcp://MASTER_ADDR:MASTER_PORT``: NCCL when the
+    entry point runs on the card, gloo on the CPU, or the backend that
+    ``RCVPOSE_DIST_BACKEND`` names. Without a world of several processes
+    it is a logged no-op, as the JAX CLI's is without a coordinator.
+    Returns True iff it made the group (an existing one is reused and
+    False returned)."""
     if not cfg.distributed:
         return False
+    import torch
+    import torch.distributed as dist
+
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1:
-        raise NotImplementedError(
-            f"--distributed with WORLD_SIZE={world}: multi-process training "
-            "is not ported yet (ROADMAP A6); run one process")
-    print("distributed init skipped (single process)")
-    return False
+    if world <= 1:
+        print("distributed init skipped (single process)")
+        return False
+    if dist.is_initialized():
+        return False
+    from rcvpose_tpu_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0") or 0)
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    backend = os.environ.get("RCVPOSE_DIST_BACKEND") or (
+        "nccl" if dev.type == "cuda" else "gloo")
+    addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
+    port = os.environ.get("MASTER_PORT", "29500")
+    dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
+                            world_size=world,
+                            rank=int(os.environ["RANK"]))
+    print(f"distributed: rank {dist.get_rank()} of {world} ({backend})")
+    return True
 
 
 def conv_kernel_route():
@@ -222,42 +254,72 @@ def _refuse_unported(cfg):
             "--compile_cache_dir is XLA's persistent compilation cache, "
             "which the port has no use for: its CUDA kernels build once "
             "into rcvpose_tpu_torch/_build/")
-    if cfg.mode == "serve":
-        raise NotImplementedError("--mode serve is not ported yet "
-                                  "(ROADMAP A6)")
     if cfg.mode == "benchmark":
         raise NotImplementedError(
             "--mode benchmark runs the JAX package's bench.py; the port's "
             "bench is not written yet (ROADMAP A2)")
 
 
+def _mesh_size_for_batch(batch_size, n_devices):
+    """Largest divisor of the batch that fits the device count (a batch
+    of 6 on 8 devices gets a 6-device mesh, not gcd's 2)."""
+    for d in range(min(max(batch_size, 1), max(n_devices, 1)), 0, -1):
+        if batch_size % d == 0:
+            return d
+    return 1
+
+
 def run_train(cfg, device=None):
     """Train ``cfg.class_name`` from the dataset tree at
     ``cfg.root_dataset``; returns the ``Trainer``. Checkpoints go to
     ``<log_dir>/ckpts``; ``cfg.resume_train`` restores ``model_best``
-    there and continues to ``cfg.max_iterations``."""
+    there and continues to ``cfg.max_iterations``.
+
+    Under a process group (``--distributed``) every process trains on its
+    card with its shard of the batches (``cfg.batch_size`` rows each, as
+    the JAX CLI's per-host batch) and the steps are the global-batch ones
+    of ``train.make_parallel_steps``; rank 0 alone holds the TensorBoard
+    writer and writes the checkpoints."""
     import torch
 
-    from rcvpose_tpu_torch import train, utils
+    from rcvpose_tpu_torch import parallel, train, utils
     from rcvpose_tpu_torch.checkpoint import Checkpointer
     from rcvpose_tpu_torch.data.loader import make_loaders
 
-    maybe_init_distributed(cfg)
     conv_kernel = conv_kernel_route()
-    log_dir = utils.get_log_dir(cfg)
+    dev = utils.resolve_device(device)
+    # one card a process (PyTorch's idiom, where the JAX CLI spans every
+    # local chip): the process's batch goes whole to its one slot, and
+    # the mesh has one slot a process
+    slots = _mesh_size_for_batch(cfg.batch_size, 1)
+    n_dev = slots * parallel.process_count()
+    if cfg.mesh_data_axis and cfg.mesh_data_axis != n_dev:
+        raise ValueError(
+            f"mesh_data_axis={cfg.mesh_data_axis}: the port trains on one "
+            f"card a process, so its mesh has {n_dev} (launch that many "
+            "processes with torchrun)")
+    mesh = parallel.data_mesh(n_dev, devices=[dev])
+    parallel.warm_collectives(mesh)
+    rank0 = mesh.rank == 0
+    if rank0:
+        log_dir = utils.get_log_dir(cfg)
+    else:
+        log_dir = cfg.log_dir()
+        os.makedirs(log_dir, exist_ok=True)
     writer = None
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(logdir=log_dir + "/tbLog/")
-    except ImportError:
-        pass
+    if rank0:
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(logdir=log_dir + "/tbLog/")
+        except ImportError:
+            pass
 
-    train_loader, val_loader = make_loaders(cfg, device=device)
+    train_loader, val_loader = make_loaders(cfg, device=dev)
     steps_per_epoch = max(len(train_loader), 1)
     state = train.create_state(cfg, torch.Generator().manual_seed(cfg.seed),
                                steps_per_epoch=steps_per_epoch,
-                               device=device, conv_kernel=conv_kernel)
-    ckpt = Checkpointer(log_dir + "/ckpts")
+                               device=dev, conv_kernel=conv_kernel)
+    ckpt = Checkpointer(log_dir + "/ckpts", group=mesh.group)
     trainer = train.Trainer(
         cfg=cfg, state=state,
         # two-argument factory: a mid-epoch resume skips at the index
@@ -265,7 +327,8 @@ def run_train(cfg, device=None):
         train_batches=lambda epoch, start_batch=0: train_loader.batches(
             epoch, start_batch),
         val_batches=lambda: iter(val_loader),
-        checkpointer=ckpt, writer=writer, steps_per_epoch=steps_per_epoch)
+        checkpointer=ckpt, writer=writer, steps_per_epoch=steps_per_epoch,
+        mesh=mesh)
     if cfg.resume_train:
         # the reference resumes from model_best (train.py:46); the restored
         # iteration places fit() in its epoch and fast-forwards within it
@@ -280,7 +343,6 @@ def run_train(cfg, device=None):
 def run_test(cfg, device=None):
     from rcvpose_tpu_torch import eval as eval_mod
 
-    maybe_init_distributed(cfg)
     classes = ([c.strip() for c in cfg.eval_classes.split(",") if c.strip()]
                or None)
     if cfg.dataset == "ycb":
@@ -361,23 +423,44 @@ def main(argv=None, device=None):
 
 
 def main_dispatch(cfg, device=None):
-    """Run ``cfg.mode``; returns the ``Trainer`` of a train run and the
-    results of a test run."""
+    """Run ``cfg.mode``; returns the ``Trainer`` of a train run, the
+    results of a test run and the (shut down) server of a serve run. A
+    process group that ``--distributed`` made here is left at the end."""
     _refuse_unported(cfg)
+    made = (maybe_init_distributed(cfg, device)
+            if cfg.mode in ("train", "test") else False)
+    try:
+        return _dispatch(cfg, device)
+    finally:
+        if made:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _dispatch(cfg, device):
     if cfg.mode == "train":
         return run_train(cfg, device)
     if cfg.mode == "test":
+        from rcvpose_tpu_torch import parallel
+
         results = run_test(cfg, device)
         # the reference only prints its final ADD(s) lines
-        # (AccumulatorSpace.py:735-740); also persist them
-        import json
+        # (AccumulatorSpace.py:735-740); also persist them. Every process
+        # holds the same reduced results; rank 0 writes the file.
+        if parallel.process_index() == 0:
+            import json
 
-        os.makedirs(cfg.out_dir, exist_ok=True)
-        path = os.path.join(cfg.out_dir, "eval_results.json")
-        with open(path, "w") as f:
-            json.dump(results, f, indent=2, default=float)
-        print(f"eval results written to {path}")
+            os.makedirs(cfg.out_dir, exist_ok=True)
+            path = os.path.join(cfg.out_dir, "eval_results.json")
+            with open(path, "w") as f:
+                json.dump(results, f, indent=2, default=float)
+            print(f"eval results written to {path}")
         return results
+    if cfg.mode == "serve":
+        from rcvpose_tpu_torch import serve
+
+        return serve.run_serve(cfg, device)
     if cfg.mode == "gen-labels":
         run_gen_labels(cfg, device)
     elif cfg.mode == "export-torch":

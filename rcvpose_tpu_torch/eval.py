@@ -15,11 +15,16 @@ Behavioural notes carried over from the JAX package: radial values and
 scene points are aligned on pixels where ``sem AND depth > 0``; the ICP's
 union cloud is concatenated, not deduplicated.
 
-Divergences from the JAX package, each with a test:
-* ``eval_data_parallel=True`` raises ``NotImplementedError``: the
-  data-parallel sweep is not ported yet; the JAX package would shard the
-  sweep. The results carry no multi-process keys: the port runs one
-  process.
+With more than one local card (or ``eval_data_parallel=True``) each
+class's frames run data-parallel: mesh-sized chunks through
+``parallel.sharded_frame_scores`` (one thread per card), the last chunk
+padded by its final frame, frames whose vote grid overflowed re-run
+through the sequential grid retry. Under a process group of several
+ranks (``--distributed``) every process sweeps a disjoint shard of the
+frames (``_proc_shard``) and the per-class metrics are reduced on the
+host (``_finalize_class_results``, ``parallel.host_allgather``).
+
+Divergence from the JAX package, with a test:
 * The LM and LMO loaders decode the image only when a network or the
   overlays read it (``using_ckpts`` or ``demo_mode``). On the
   precomputed-map route the JAX loops decode the image and never use it;
@@ -33,17 +38,18 @@ import os
 import queue
 import re
 import threading
+import time
 from functools import partial
 
 import numpy as np
 import torch
 
 from rcvpose_tpu_torch import (checkpoint, demo, fit, geometry, labels,
-                               metrics)
+                               metrics, parallel)
 from rcvpose_tpu_torch import train as train_mod
 from rcvpose_tpu_torch.data import readers
 from rcvpose_tpu_torch.ops import voting
-from rcvpose_tpu_torch.utils import StageTimers, resolve_device
+from rcvpose_tpu_torch.utils import StageTimers, resolve_device, synchronize
 
 # Class lists + symmetric sets + ADD thresholds (m): dataset constants from
 # the reference (AccumulatorSpace.py:19-57).
@@ -133,10 +139,16 @@ def keypoint_from_maps_no_depth(sem_map, radial_map, k, z_min_m,
     return res.center_mm, res.overflow, count
 
 
-def _vote_kw(cfg):
+def _keypoint_kw(cfg):
     return dict(n_points=cfg.max_points, mode=cfg.vote_mode,
                 topk=cfg.vote_topk, cpt_stride=cfg.vote_cpt_stride,
                 win=cfg.vote_win)
+
+
+def _vote_kw(cfg):
+    """The frame program's keywords (``_frame_scores``)."""
+    return dict(sem_threshold=cfg.sem_threshold, grid_l=cfg.vote_grid_l,
+                icp_iters=cfg.icp_iters, **_keypoint_kw(cfg))
 
 
 def keypoint_with_retry(cfg, sem_map, radial_map, depth, k, max_r,
@@ -149,7 +161,7 @@ def keypoint_with_retry(cfg, sem_map, radial_map, depth, k, max_r,
     means the frame overflowed even at the retry grid."""
     if retry_grid_l is None:
         retry_grid_l = cfg.retry_grid_l
-    kn = _vote_kw(cfg)
+    kn = _keypoint_kw(cfg)
     out = keypoint_from_maps(sem_map, radial_map, depth, k, max_r,
                              sem_threshold, grid_l=cfg.vote_grid_l, **kn)
     if bool(out[1]) and retry_grid_l > cfg.vote_grid_l:
@@ -183,6 +195,54 @@ def refine_and_add(rt, cad_mm, scene_mm, scene_mask, rt_gt_mm, sym, threshold,
                                  max_iters=icp_iters,
                                  rel_fitness=rel_fitness, rel_rmse=rel_rmse)
     return rt2, _add(cad_mm, rt_gt_mm, rt2, sym)
+
+
+def _frame_scores(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
+                  gt_kpts_mm, cad_mm, rt_gt_mm, sym, *, sem_threshold,
+                  n_points, grid_l, mode, topk=None, cpt_stride=None,
+                  win=None, icp_iters=30, rel_fitness=None, rel_rmse=None):
+    """One frame's whole eval compute on its device: per-keypoint vote
+    (``keypoint_from_maps``, the sequential loops' math) -> Horn -> ADD ->
+    ICP -> ADD. ``sem_maps``/``radial_maps`` (3, H, W); ``rt_gt_mm``
+    (3, 4) with the translation in mm. Returns device tensors: ``rt``,
+    ``rt2``, ``score_bf``/``score_af`` (mm) and the per-keypoint
+    ``overflow`` (an overflowed frame must re-run through the sequential
+    grid retry for parity with the sequential loop)."""
+    centers, overflow, scene, masks = [], [], [], []
+    for i in range(sem_maps.shape[0]):
+        center, over, _, pts_mm, mask = keypoint_from_maps(
+            sem_maps[i], radial_maps[i], depth_mm, k, max_radii_dm[i],
+            sem_threshold, n_points=n_points, grid_l=grid_l, mode=mode,
+            topk=topk, cpt_stride=cpt_stride, win=win)
+        centers.append(center)
+        overflow.append(over)
+        scene.append(pts_mm)
+        masks.append(mask)
+    rt, score_bf = pose_and_add(gt_kpts_mm, torch.stack(centers), cad_mm,
+                                rt_gt_mm, sym)
+    rt2, score_af = refine_and_add(
+        rt, cad_mm, torch.cat(scene), torch.cat(masks), rt_gt_mm, sym,
+        torch.clamp(score_bf, min=1e-3), icp_iters=icp_iters,
+        rel_fitness=rel_fitness, rel_rmse=rel_rmse)
+    return {"rt": rt, "rt2": rt2, "score_bf": score_bf,
+            "score_af": score_af, "overflow": torch.stack(overflow)}
+
+
+def _frame_scores_net(net, image_norm, depth_mm, k, max_radii_dm,
+                      gt_kpts_mm, cad_mm, rt_gt_mm, sym, **kw):
+    """``_frame_scores`` after the network forward: ``net`` is a tuple
+    of 3 per-keypoint networks or one multi-head network; ``image_norm``
+    (H, W, 3)."""
+    if isinstance(net, (tuple, list)):
+        maps = [m(image_norm[None]) for m in net]
+        sem_maps = torch.stack([seg[0, :, :, 0] for seg, _ in maps])
+        radial_maps = torch.stack([rad[0, :, :, 0] for _, rad in maps])
+    else:
+        seg, radial = net(image_norm[None])
+        sem_maps, radial_maps = seg[0].permute(2, 0, 1), \
+            radial[0].permute(2, 0, 1)
+    return _frame_scores(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
+                         gt_kpts_mm, cad_mm, rt_gt_mm, sym, **kw)
 
 
 class RadialMapSource:
@@ -352,7 +412,7 @@ def _frame_eval_seq(cfg, source, image, source_frame_id, depth, k,
                     cfg, *args, on_retry=lambda: retried.__setitem__(0, True))
             else:
                 center, overflow, _, pts_mm, mask = keypoint_from_maps(
-                    *args, grid_l=cfg.vote_grid_l, **_vote_kw(cfg))
+                    *args, grid_l=cfg.vote_grid_l, **_keypoint_kw(cfg))
         still_overflowed = still_overflowed or bool(overflow)
         centers.append(center)
         scene_parts.append(pts_mm)
@@ -367,12 +427,89 @@ def _frame_eval_seq(cfg, source, image, source_frame_id, depth, k,
     return rt, float(score_bf), float(score_af), retried[0], still_overflowed
 
 
+def _dp_mesh_or_none(cfg, device=None):
+    """The mesh of the data-parallel sweep, or None for the sequential
+    loop. Auto (``eval_data_parallel=None``): on when this process has
+    more than one local card.
+
+    Under a process group of several ranks every process sweeps a
+    disjoint shard of the frames (``_proc_shard``) and the per-class
+    metrics are reduced on the host (``_finalize_class_results``); the
+    mesh is then the process's own devices, with no collective inside
+    the frame program, and a process with one card sweeps its shard
+    sequentially. An explicit ``eval_data_parallel=True`` is honoured by
+    the process sharding there. On one process with one device it
+    cannot be honoured and raises, as the JAX package does."""
+    dp = cfg.eval_data_parallel
+    if dp is False:
+        return None
+    devices = parallel.local_devices(device)
+    if parallel.process_count() > 1:
+        return parallel.local_data_mesh(device) if len(devices) > 1 \
+            else None
+    if len(devices) < 2:
+        if dp is True:
+            raise ValueError(
+                "--eval_data_parallel requested but only "
+                f"{len(devices)} device is visible")
+        return None
+    return parallel.local_data_mesh(device)
+
+
+def _proc_shard(items):
+    """This process's slice of a frame list, round-robin by rank; the
+    whole list on one process."""
+    n = parallel.process_count()
+    if n == 1:
+        return items
+    return items[parallel.process_index()::n]
+
+
 def _finalize_class_results(res):
-    """Finish one class's results dict (single process): strip the raw
-    counters that the JAX package's multi-process reduction reads."""
-    raw = ["bf_count", "af_count", "frame_total_ms", "net_total_ms",
-           "acc_total_ms", "decode_total_ms"]
-    return {k: v for k, v in res.items() if k not in raw}
+    """Finish one class's results dict: the cross-process reduction, then
+    the raw counters go.
+
+    On one process the raw counters are stripped and nothing else
+    changes. Under a process group every process sums every process's
+    raw counters (each swept a disjoint shard) with a host allgather of a
+    fixed-key vector and a presence mask (the data-parallel and the
+    sequential sweeps report different raw keys, and processes may mix
+    them) and recomputes the derived metrics, so every process returns
+    the global per-class numbers. A collective: every process calls it
+    once per class, in the same class order. Stage times are summed
+    across processes before the per-frame division."""
+    raw = ["bf_count", "af_count", "frames", "overflow_frames",
+           "overflow_after_retry", "frame_total_ms", "net_total_ms",
+           "acc_total_ms", "decode_total_ms", "data_parallel"]
+    out = dict(res)
+    if parallel.process_count() > 1:
+        vec = np.array(
+            [float(res.get(k, 0.0)) for k in raw]
+            + [1.0 if k in res else 0.0 for k in raw], np.float32)
+        tot = parallel.host_allgather(vec).sum(axis=0)
+        out.update({k: float(tot[i]) for i, k in enumerate(raw)
+                    if tot[len(raw) + i] > 0})
+        n = max(int(round(out["frames"])), 1)
+        out["frames"] = int(round(out["frames"]))
+        out["add_before_icp"] = out["bf_count"] / n
+        out["add_after_icp"] = out["af_count"] / n
+        for total_key, per_key in (
+                ("frame_total_ms", "frame_ms_per_frame"),
+                ("net_total_ms", "net_ms_per_frame"),
+                ("acc_total_ms", "acc_ms_per_frame"),
+                ("decode_total_ms", "decode_ms_per_frame_overlapped")):
+            if total_key in out:
+                out[per_key] = out[total_key] / n
+        for key in ("overflow_frames", "overflow_after_retry",
+                    "data_parallel"):
+            if key in out:
+                out[key] = int(round(out[key]))
+        out["eval_processes"] = parallel.process_count()
+    for k in raw:
+        if k not in ("frames", "overflow_frames", "overflow_after_retry",
+                     "data_parallel"):
+            out.pop(k, None)
+    return out
 
 
 def _prefetched_chunks(items, chunk_size, load_one, timers=None):
@@ -466,13 +603,6 @@ def _dataset_eval_cfg(cfg):
     return cfg
 
 
-def _refuse_data_parallel(cfg):
-    if cfg.eval_data_parallel:
-        raise NotImplementedError(
-            "the data-parallel evaluation sweep is not ported yet; run "
-            "with eval_data_parallel unset or False")
-
-
 def _demo_dir(cfg, kind, class_name):
     """Where a loop writes its overlays (``out_dir/<kind>/<class>``), or
     None without ``demo_mode``."""
@@ -547,6 +677,151 @@ def _sweep_class(cfg, class_name, source, frames, k, cad_m, keypoints,
     })
 
 
+def _source_net(cfg, source):
+    """The networks a data-parallel chunk runs (one fused network or a
+    tuple of three), or None on a map route."""
+    models = getattr(source, "models", None)
+    if not cfg.using_ckpts or models is None:
+        return None
+    return models[0] if cfg.kpt_heads > 1 else tuple(models)
+
+
+def _dp_chunk_scores(mesh, source, net, images, frame_ids, depths,
+                     rt_gts_mm, ks, mr, gt, cad, sym, kw, lmo=None):
+    """One mesh-sized chunk through ``parallel.sharded_frame_scores``, the
+    network-or-maps dispatch shared by the LM/LMO and YCB sweeps: with
+    ``net`` the images are normalized on the first slot and the slots run
+    the forward; without, ``source.maps`` per keypoint are stacked
+    (``lmo`` passed on when not None: the YCB sources take none). Returns
+    after the slots' devices have finished."""
+    dev = mesh.devices[0]
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    args = (put(depths), put(rt_gts_mm), put(ks), mr, gt, cad, sym)
+    if net is not None:
+        imgs = labels.normalize_image(
+            torch.as_tensor(np.stack(images), device=dev))
+        scores = parallel.sharded_frame_scores(mesh, net, imgs, *args, **kw)
+    else:
+        maps_kw = {} if lmo is None else {"lmo": lmo}
+        sems, radials = [], []
+        for frame_id, image in zip(frame_ids, images):
+            pairs = [source.maps(kp, image, frame_id, **maps_kw)
+                     for kp in range(1, 4)]
+            sems.append(torch.stack([s for s, _ in pairs]).to(dev))
+            radials.append(torch.stack([r for _, r in pairs]).to(dev))
+        scores = parallel.sharded_frame_scores(
+            mesh, None, (torch.stack(sems), torch.stack(radials)), *args,
+            **kw)
+    for d in mesh.devices:
+        synchronize(d)
+    return scores
+
+
+def _eval_lm_class_dp(cfg, class_name, source, frames, k, cad_m, keypoints,
+                      max_radii, sym, threshold_mm, sem_threshold, icp_iters,
+                      progress, lmo=False, demo_dir=None, mesh=None):
+    """One LM or LMO class's sweep, data-parallel over ``mesh`` (the
+    arguments of ``_sweep_class``). Chunks of mesh-size frames run
+    ``parallel.sharded_frame_scores``; the last chunk is padded by its
+    final frame (padded outputs dropped). A frame whose vote grid
+    overflowed re-runs through the sequential grid retry, timed inside
+    the frame. Returns the finalized per-class results, the frame
+    program's time as ``frame_ms_per_frame``."""
+    device = mesh.devices[0]
+    b = mesh.size
+    kw = _vote_kw(cfg)
+    kw.update(sem_threshold=sem_threshold, icp_iters=icp_iters)
+    net = _source_net(cfg, source)
+    cad_mm = cad_m * 1000.0
+    cad = torch.as_tensor(cad_mm.astype(np.float32), device=device)
+    gt_kpts_mm = keypoints[1:4] * 1000.0
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    gt, mr = put(gt_kpts_mm), put(max_radii)
+    ks = np.tile(k.cpu().numpy()[None], (b, 1, 1))
+    bf_icp = af_icp = counter = overflow_count = overflow_after_retry = 0
+    frame_ns = 0
+    timers = StageTimers()
+    for n_real, padded, loaded in _prefetched_chunks(
+            frames, b, lambda it: it[3](), timers=timers):
+        depths = np.stack([d for _, d, _ in loaded])
+        rt_gts_mm = np.stack([p for _, _, p in loaded]).astype(np.float64)
+        rt_gts_mm[:, :, 3] *= 1000.0
+        t0 = time.perf_counter_ns()
+        scores = _dp_chunk_scores(
+            mesh, source, net, [im for im, _, _ in loaded],
+            [f[0] for f in padded], depths, rt_gts_mm, ks, mr, gt, cad, sym,
+            kw, lmo=lmo)
+        frame_ns += time.perf_counter_ns() - t0
+        sbf = scores["score_bf"].cpu().numpy()
+        saf = scores["score_af"].cpu().numpy()
+        rts = scores["rt"].cpu().numpy()
+        overflowed = scores["overflow"].cpu().numpy().reshape(b, -1).any(1)
+        for i in range(n_real):
+            frame_id, name, demo_name, _ = padded[i]
+            image, depth, _ = loaded[i]
+            rt_i, sbf_i, saf_i = rts[i], float(sbf[i]), float(saf[i])
+            if overflowed[i]:
+                # the sequential grid retry is part of this frame's cost
+                t1 = time.perf_counter_ns()
+                rt_t, sbf_i, saf_i, _, still = _frame_eval_seq(
+                    cfg, source, image, frame_id,
+                    torch.as_tensor(depth, device=device), k, max_radii,
+                    sem_threshold, gt_kpts_mm, cad, rt_gts_mm[i], sym,
+                    lmo=lmo, icp_iters=icp_iters)
+                frame_ns += time.perf_counter_ns() - t1
+                rt_i = rt_t.cpu().numpy()
+                overflow_count += 1
+                overflow_after_retry += still
+            bf_icp += sbf_i <= threshold_mm
+            af_icp += saf_i <= threshold_mm
+            counter += 1
+            progress(f"{class_name} {name}: ADD(s) "
+                     f"bf={bf_icp / counter:.4f} af={af_icp / counter:.4f}")
+            if demo_dir is not None:
+                demo.save_demo_frame(
+                    demo_dir, demo_name, image, cad_mm, rt_i,
+                    k.cpu().numpy(), rt_gt_mm=rt_gts_mm[i], depth_mm=depth,
+                    scene_ply=cfg.demo_scene_ply)
+    n = max(counter, 1)
+    decode_ms = timers.totals.get("decode", 0) / 1e6
+    return _finalize_class_results({
+        "add_before_icp": bf_icp / n,
+        "add_after_icp": af_icp / n,
+        "frames": counter,
+        "frame_ms_per_frame": frame_ns / n / 1e6,
+        "decode_ms_per_frame_overlapped": decode_ms / n,
+        "overflow_frames": overflow_count,
+        "overflow_after_retry": overflow_after_retry,
+        "vote_topk": cfg.vote_topk,
+        "data_parallel": b,
+        "bf_count": int(bf_icp), "af_count": int(af_icp),
+        "frame_total_ms": frame_ns / 1e6,
+        "decode_total_ms": decode_ms,
+    })
+
+
+def _class_sweep(dp_mesh):
+    """The LM/LMO per-class sweep: data-parallel over ``dp_mesh``, or the
+    sequential loop without one."""
+    if dp_mesh is None:
+        return _sweep_class
+    return partial(_eval_lm_class_dp, mesh=dp_mesh)
+
+
+def _timer_line(name, res, dp_mesh):
+    if dp_mesh is None:
+        return _seq_timer_line(name, res)
+    return (f"{name} per-frame time (data-parallel frame program): "
+            f"{res['frame_ms_per_frame']:.1f} ms over {dp_mesh.size} "
+            f"devices")
+
+
 def estimate_6d_pose_lm(cfg, class_names=None, max_frames=None,
                         progress=print, device=None):
     """LINEMOD evaluation (reference :495-740). Returns per-class results:
@@ -556,9 +831,14 @@ def estimate_6d_pose_lm(cfg, class_names=None, max_frames=None,
     ``out_dir/demo/<class>``.
 
     ``device``: None runs on the CUDA card and raises without one;
-    ``"cpu"`` runs on the CPU through the kernels' plain versions.
+    ``"cpu"`` runs on the CPU through the kernels' plain versions. With
+    more than one local card (or ``eval_data_parallel``) the sweep is
+    data-parallel (``_eval_lm_class_dp``: ``frame_ms_per_frame`` and
+    ``data_parallel`` in place of the stage times); under a process group
+    each process sweeps its shard and the results are global.
     """
-    _refuse_data_parallel(cfg)
+    dp_mesh = _dp_mesh_or_none(cfg, device)
+    sweep = _class_sweep(dp_mesh)
     device = resolve_device(device)
     cfg = _dataset_eval_cfg(cfg)
     results = {}
@@ -581,6 +861,7 @@ def estimate_6d_pose_lm(cfg, class_names=None, max_frames=None,
             if fn.endswith(".jpg") and os.path.splitext(fn)[0] in test_ids)
         if max_frames:
             frame_ids = frame_ids[:max_frames]
+        frame_ids = _proc_shard(frame_ids)
 
         def load_frame(frame_id):
             rt_gt = np.load(os.path.join(
@@ -595,14 +876,14 @@ def estimate_6d_pose_lm(cfg, class_names=None, max_frames=None,
 
         frames = [(fid, fid, fid, partial(load_frame, fid))
                   for fid in frame_ids]
-        results[class_name] = res = _sweep_class(
+        results[class_name] = res = sweep(
             cfg, class_name, source, frames, k, cad_m, keypoints, max_radii,
             sym, threshold_mm, cfg.sem_threshold, cfg.icp_iters, progress,
             demo_dir=_demo_dir(cfg, "demo", class_name))
         progress(f"ADD(s) of {class_name}: before ICP "
                  f"{res['add_before_icp']:.4f}, after ICP "
                  f"{res['add_after_icp']:.4f}")
-        progress(_seq_timer_line(class_name, res))
+        progress(_timer_line(class_name, res, dp_mesh))
     return results
 
 
@@ -621,8 +902,10 @@ def estimate_6d_pose_lmo(cfg, class_names=None, max_frames=None,
 
     ``device``: None runs on the CUDA card and raises without one;
     ``"cpu"`` runs on the CPU through the kernels' plain versions.
+    Data-parallel and process-sharded as ``estimate_6d_pose_lm``.
     """
-    _refuse_data_parallel(cfg)
+    dp_mesh = _dp_mesh_or_none(cfg, device)
+    sweep = _class_sweep(dp_mesh)
     device = resolve_device(device)
     cfg = _dataset_eval_cfg(cfg)
     results = {}
@@ -662,14 +945,15 @@ def estimate_6d_pose_lmo(cfg, class_names=None, max_frames=None,
                 frames.append((f"_{frame_num:05d}", filename,
                                f"{frame_num:05d}",
                                partial(load_lmo, frame_num, pose_path)))
-        results[class_name] = res = _sweep_class(
+        frames = _proc_shard(frames)
+        results[class_name] = res = sweep(
             cfg, class_name, source, frames, k, cad_m, keypoints, max_radii,
             sym, threshold_mm, LMO_SEM_THRESHOLD, LMO_ICP_ITERS, progress,
             lmo=True, demo_dir=_demo_dir(cfg, "demo_lmo", class_name))
         progress(f"ADD(s) of {class_name} (occ): before ICP "
                  f"{res['add_before_icp']:.4f}, after ICP "
                  f"{res['add_after_icp']:.4f}")
-        progress(_seq_timer_line(class_name, res))
+        progress(_timer_line(class_name, res, dp_mesh))
     return results
 
 
@@ -693,8 +977,9 @@ def _ycb_class_frames(root, class_name, class_id, max_frames, sio):
     """One YCB class's frames: the HDF5 ``JPEGImages`` keys in h5py's
     (name) order, filtered by ``Split/<class>/val.txt``, and their
     ``.mat`` metadata read up front; frames whose ``cls_indexes`` lack the
-    class are skipped. Returns [(filename, rt_gt (3, 4) m, k (3, 3) f32,
-    factor_depth)]."""
+    class are skipped. Under a process group each process takes its
+    shard of the frames (``_proc_shard``). Returns [(filename, rt_gt
+    (3, 4) m, k (3, 3) f32, factor_depth)]."""
     with open(os.path.join(root, "Split", class_name, "val.txt")) as f:
         test_ids = {line.strip() for line in f if line.strip()}
     frames = [fn for fn in readers.hdf5_group_keys(
@@ -703,7 +988,7 @@ def _ycb_class_frames(root, class_name, class_id, max_frames, sio):
     if max_frames:
         frames = frames[:max_frames]
     metas = []
-    for filename in frames:
+    for filename in _proc_shard(frames):
         cycle, idx = filename.split("_")
         meta = sio.loadmat(os.path.join(root, "data", cycle, f"{idx}.mat"))
         sel = np.where(meta["cls_indexes"].ravel() == class_id)[0]
@@ -713,6 +998,50 @@ def _ycb_class_frames(root, class_name, class_id, max_frames, sio):
                       np.asarray(meta["intrinsic_matrix"], np.float32),
                       float(np.asarray(meta["factor_depth"]).ravel()[0])))
     return metas
+
+
+def _eval_ycb_frames_dp(cfg, mesh, source, metas, load_one, max_radii,
+                        gt_kpts_mm, cad, sym, timers=None):
+    """One YCB class's frames, data-parallel over ``mesh``: mesh-sized
+    chunks through ``parallel.sharded_frame_scores`` with each frame's
+    own intrinsics, the converged ICP of ``_ycb_icp_kw`` and no overflow
+    retry (the sequential YCB loop has none). ``load_one(meta)`` returns
+    (image, depth mm). Returns (rows, ns): rows = [(filename, image,
+    rt_gt_mm, k, rt, score_bf, score_af, depth or None)] in frame order
+    (the depth kept only for scene-PLY overlays), ns the frame program's
+    time."""
+    device = mesh.devices[0]
+    b = mesh.size
+    kw = _vote_kw(cfg)
+    kw.update(_ycb_icp_kw(cfg))
+    net = _source_net(cfg, source)
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    gt, mr = put(gt_kpts_mm), put(max_radii)
+    keep_depth = cfg.demo_mode and cfg.demo_scene_ply
+    rows, ns = [], 0
+    for n_real, padded, loaded in _prefetched_chunks(
+            metas, b, load_one, timers=timers):
+        depths = np.stack([d for _, d in loaded])
+        ks = np.stack([m[2] for m in padded])
+        rt_gts_mm = np.stack([m[1] for m in padded]).astype(np.float64)
+        rt_gts_mm[:, :, 3] *= 1000.0
+        t0 = time.perf_counter_ns()
+        scores = _dp_chunk_scores(
+            mesh, source, net, [im for im, _ in loaded],
+            [m[0] for m in padded], depths, rt_gts_mm, ks, mr, gt, cad, sym,
+            kw)
+        ns += time.perf_counter_ns() - t0
+        sbf = scores["score_bf"].cpu().numpy()
+        saf = scores["score_af"].cpu().numpy()
+        rts = scores["rt"].cpu().numpy()
+        for i in range(n_real):
+            rows.append((padded[i][0], loaded[i][0], rt_gts_mm[i],
+                         padded[i][2], rts[i], float(sbf[i]), float(saf[i]),
+                         loaded[i][1] if keep_depth else None))
+    return rows, ns
 
 
 def estimate_6d_pose_ycb(cfg, class_ids=None, max_frames=None,
@@ -751,14 +1080,15 @@ def estimate_6d_pose_ycb(cfg, class_ids=None, max_frames=None,
     except ImportError as exc:
         raise ImportError("estimate_6d_pose_ycb reads the YCB-Video .mat "
                           "metadata with scipy.io; install scipy") from exc
-    _refuse_data_parallel(cfg)
     cfg = _dataset_eval_cfg(cfg)
     if not cfg.using_ckpts and map_source_factory is None:
         raise ValueError(_NO_YCB_MAPS)
+    dp_mesh = _dp_mesh_or_none(cfg, device)
     device = resolve_device(device)
     root = cfg.root_dataset
     scores_bf, scores_af = [], []
     bf_icp = af_icp = counter = 0
+    dp_ns = 0
     timers = StageTimers()
 
     def load_rgbd(filename, factor):
@@ -792,6 +1122,29 @@ def estimate_6d_pose_ycb(cfg, class_ids=None, max_frames=None,
                                   sio)
         demo_dir = _demo_dir(cfg, "demo_ycb", class_name)
 
+        if dp_mesh is not None:
+            rows, ns = _eval_ycb_frames_dp(
+                cfg, dp_mesh, source, metas,
+                lambda it: load_rgbd(it[0], it[3]), max_radii,
+                keypoints[1:4] * 1000.0, cad, sym, timers=timers)
+            dp_ns += ns
+            for (filename, image, rt_gt_mm, k_np, rt, sbf, saf,
+                 depth_row) in rows:
+                scores_bf.append(sbf)
+                scores_af.append(saf)
+                bf_icp += sbf <= bbox_diag_mm * 0.01
+                af_icp += saf <= bbox_diag_mm * 0.01
+                counter += 1
+                progress(f"{class_name} {filename}: "
+                         f"bf={bf_icp / counter:.4f} "
+                         f"af={af_icp / counter:.4f}")
+                if demo_dir is not None:
+                    demo.save_demo_frame(
+                        demo_dir, filename, image, cad_mm, rt, k_np,
+                        rt_gt_mm=rt_gt_mm, depth_mm=depth_row,
+                        scene_ply=depth_row is not None)
+            continue
+
         for _, padded, loaded in _prefetched_chunks(
                 metas, 1, lambda it: load_rgbd(it[0], it[3]),
                 timers=timers):
@@ -820,6 +1173,29 @@ def estimate_6d_pose_ycb(cfg, class_ids=None, max_frames=None,
                     k_np, rt_gt_mm=rt_gt_mm, depth_mm=depth_mm,
                     scene_ply=cfg.demo_scene_ply)
 
+    dp_ms = dp_ns / 1e6
+    net_ms = timers.totals.get("net", 0) / 1e6
+    acc_ms = timers.totals.get("acc", 0) / 1e6
+    dec_ms = timers.totals.get("decode", 0) / 1e6
+    any_dp, any_seq = dp_mesh is not None, dp_mesh is None
+    dp_devices = 0 if dp_mesh is None else dp_mesh.size
+    nproc = parallel.process_count()
+    if nproc > 1:
+        # every process swept a disjoint shard: the AUC needs every
+        # process's per-frame scores, the counters and stage totals sum,
+        # and the paths' presence reduces (fixed keys, as
+        # _finalize_class_results), so every process reports the global
+        # key set and numbers
+        scores_bf = parallel.host_allgather_concat(scores_bf).tolist()
+        scores_af = parallel.host_allgather_concat(scores_af).tolist()
+        tot = parallel.host_allgather(np.array(
+            [bf_icp, af_icp, counter, dp_ms, net_ms, acc_ms, dec_ms,
+             float(any_dp), float(dp_devices), float(any_seq)],
+            np.float32)).sum(axis=0)
+        bf_icp, af_icp, counter = (int(round(float(v))) for v in tot[:3])
+        dp_ms, net_ms, acc_ms, dec_ms = (float(v) for v in tot[3:7])
+        any_dp, dp_devices, any_seq = (tot[7] > 0, int(round(float(tot[8]))),
+                                       tot[9] > 0)
     auc_bf = metrics.auc_add(np.asarray(scores_bf) / 1000.0,
                              thresholds=YCB_AUC_THRESHOLDS)
     auc_af = metrics.auc_add(np.asarray(scores_af) / 1000.0,
@@ -829,11 +1205,20 @@ def estimate_6d_pose_ycb(cfg, class_ids=None, max_frames=None,
         "adds_auc_before_icp": auc_bf, "adds_auc_after_icp": auc_af,
         "add_before_icp": bf_icp / n, "add_after_icp": af_icp / n,
         "frames": counter, "vote_topk": cfg.vote_topk,
-        "decode_ms_per_frame_overlapped":
-            timers.totals.get("decode", 0) / 1e6 / n,
-        "net_ms_per_frame": timers.totals.get("net", 0) / 1e6 / n,
-        "acc_ms_per_frame": timers.totals.get("acc", 0) / 1e6 / n,
+        "decode_ms_per_frame_overlapped": dec_ms / n,
     }
+    if nproc > 1:
+        res["eval_processes"] = nproc
     progress(f"ADD(s) AUC before ICP: {auc_bf:.4f}, after ICP: {auc_af:.4f}")
-    progress(_seq_timer_line("ycb", res))
+    if any_dp:
+        res["frame_ms_per_frame"] = dp_ms / n
+        res["data_parallel"] = dp_devices
+        progress(f"per-frame time (data-parallel frame program): "
+                 f"{res['frame_ms_per_frame']:.1f} ms over {dp_devices} "
+                 f"devices" + (f" across {nproc} processes" if nproc > 1
+                               else ""))
+    if any_seq:
+        res["net_ms_per_frame"] = net_ms / n
+        res["acc_ms_per_frame"] = acc_ms / n
+        progress(_seq_timer_line("ycb", res))
     return {"all": res}

@@ -20,7 +20,10 @@ Batch norm updates its running statistics as Flax's ``nn.BatchNorm`` does.
 (``torch.utils.checkpoint``, the counterpart of the JAX package's
 ``nn.remat(Bottleneck)``); the replay's batch norms normalize as the
 forward did but write no statistic, so the running statistics move once
-per train-mode forward, as ``nn.remat`` keeps them.
+per train-mode forward, as ``nn.remat`` keeps them. Under a process
+group of several ranks (``set_batch_norm_group``) the train-mode batch
+norms take their statistics over the global batch, as Flax's do inside a
+jit over a batch sharded across processes.
 
 Public layout as in the JAX package: NHWC images in, ``(B, H, W, K)`` f32
 seg and radial out. Inside, an NHWC input viewed as NCHW carries
@@ -35,11 +38,13 @@ import threading
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from rcvpose_tpu_torch.ops import heads, mmconv
+from rcvpose_tpu_torch.parallel.mesh import all_reduce
 
 # ResNet-152 stage depths.
 RESNET152_BLOCKS = (3, 8, 36, 3)
@@ -75,6 +80,20 @@ def _remat_contexts():
     return contextlib.nullcontext(), _replaying()
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Differentiable ``all_reduce(SUM)``: its backward sums the
+    cotangents of every rank, which is the transpose of a sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode forward updates the running
     statistics as Flax's ``nn.BatchNorm`` does: with the *biased* batch
@@ -86,7 +105,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     train-mode forward normalizes with the batch statistics by the same
     call, but into throwaway buffers: the running statistics,
     ``batch_mean``/``batch_var`` and ``num_batches_tracked`` keep the
-    values the forward gave them."""
+    values the forward gave them.
+
+    ``group``: a process group of more than one rank makes the train-mode
+    statistics global (``_global_forward``); None (the default) or a
+    group of one rank keeps the layer above, bit for bit. Not
+    ``nn.SyncBatchNorm``, which updates the running variance with the
+    unbiased estimate."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -95,10 +120,13 @@ class BatchNorm2d(nn.BatchNorm2d):
                              persistent=False)
         self.register_buffer("batch_var", torch.zeros_like(self.running_var),
                              persistent=False)
+        self.group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.group is not None and dist.get_world_size(self.group) > 1:
+            return self._global_forward(x)
         if getattr(_replay, "active", False):
             return F.batch_norm(x, torch.zeros_like(self.batch_mean),
                                 torch.zeros_like(self.batch_var),
@@ -116,6 +144,46 @@ class BatchNorm2d(nn.BatchNorm2d):
                                               alpha=m * (n - 1) / n)
             self.num_batches_tracked += 1
         return y
+
+    def _global_forward(self, x):
+        """Train-mode batch norm over the global batch of ``self.group``:
+        the per-channel f32 sum, sum of squares and element count are
+        all-reduced, and the layer normalizes with the global mean and
+        biased variance E[x^2] - E[x]^2 (Flax's fast variance), as a Flax
+        ``BatchNorm`` does over the batch sharded across processes. The
+        all-reduce is differentiable: the backward sums every rank's
+        cotangents of the statistics, so each rank's input gradient is
+        that of the global loss. The recompute of a rematerialized block
+        reduces again, on every rank alike (each rank replays the same
+        blocks in the same order), and writes no statistic."""
+        c = x.shape[1]
+        x32 = x.float()
+        local = torch.cat([x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)),
+                           x32.new_full((1,), x.numel() // c)])
+        tot = _AllReduceSum.apply(local, self.group)
+        n = tot[2 * c].detach()
+        mean = tot[:c] / n
+        var = torch.clamp(tot[c:2 * c] / n - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[None, :, None, None]) * scale[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        if not getattr(_replay, "active", False):
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, m)
+                self.running_var.lerp_(var, m)
+                self.num_batches_tracked += 1
+        return y.to(x.dtype)
+
+
+def set_batch_norm_group(model, group):
+    """Give every port ``BatchNorm2d`` of ``model`` the process ``group``
+    whose global batch its train-mode statistics cover (None: this
+    process's batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
+    return model
 
 
 def _bn(c):

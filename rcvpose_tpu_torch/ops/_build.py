@@ -118,6 +118,17 @@ def load_other(source):
     return ctypes.CDLL(str(out))
 
 
+_count_lock = threading.Lock()
+
+
+def count(fn, attr="launches", n=1):
+    """Add ``n`` to the launch counter ``fn.<attr>`` under a lock, so that
+    the counts stay right when threads (a server's, a mesh's slots)
+    launch concurrently."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + int(n))
+
+
 def check(err, what):
     """Raise if a C entry returned a CUDA error code."""
     if err != 0:

@@ -75,7 +75,7 @@ def heads_channel_major_cuda(out):
         err = fn(out.data_ptr(), res.data_ptr(), b, c, h, w, *out.stride(),
                  BRANCHES.index(fwd_branch(out)), stream)
     _build.check(err, _ENTRY[out.dtype])
-    heads_channel_major_cuda.launches += 1
+    _build.count(heads_channel_major_cuda)
     return res
 
 
@@ -154,7 +154,7 @@ def heads_channel_major_bwd_cuda(g, dtype, channels_last=False):
         err = fn(g.data_ptr(), res.data_ptr(), sizes, gs, os_,
                  BRANCHES.index(branch), stream)
     _build.check(err, _BWD_ENTRY[dtype])
-    heads_channel_major_bwd_cuda.launches += 1
+    _build.count(heads_channel_major_bwd_cuda)
     return res
 
 

@@ -336,7 +336,7 @@ def conv_same_cuda(x, kernel):
         if res is not out:
             out.copy_(res[..., :d])
     _build.check(err, name)
-    conv_same_cuda.launches += 1
+    _build.count(conv_same_cuda)
     return out
 
 
@@ -424,7 +424,7 @@ def conv_same_dk_cuda(x, g, ks):
         if res is not dk:
             dk.copy_(res[:, :, :c, :d])
     _build.check(err, name)
-    conv_same_dk_cuda.launches += 1
+    _build.count(conv_same_dk_cuda)
     return dk
 
 

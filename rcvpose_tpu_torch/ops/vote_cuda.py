@@ -278,8 +278,8 @@ def vote_counts_cuda(voxels, points, lo, hi, tile=None, split=None):
              hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v, n,
              *tile, int(split)), out, b, v, n)
     if b and v:
-        vote_counts_cuda.launches += 1
-        vote_counts_cuda.tiled_launches += explicit
+        _build.count(vote_counts_cuda)
+        _build.count(vote_counts_cuda, "tiled_launches", explicit)
     return out
 
 
@@ -355,7 +355,7 @@ def vote_counts_mxu_cuda(voxels, points, lo, hi):
              lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
              int(voxels.dim() == 2), b, v, n), out, b, v, n)
     if b and v:
-        vote_counts_mxu_cuda.launches += 1
+        _build.count(vote_counts_mxu_cuda)
     return out
 
 
@@ -423,8 +423,9 @@ def vote_counts_bf16_cuda(voxels, points, lo, hi, compare="f32", split=None):
              hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v, n,
              int(compare == "bf16"), int(split)), out, b, v, n)
     if b and v:
-        vote_counts_bf16_cuda.launches += 1
-        vote_counts_bf16_cuda.bf16_compare_launches += compare == "bf16"
+        _build.count(vote_counts_bf16_cuda)
+        _build.count(vote_counts_bf16_cuda, "bf16_compare_launches",
+                     compare == "bf16")
     return out
 
 

@@ -15,9 +15,14 @@ The forward runs under ``torch.autocast`` in bf16 when
 (the JAX package's bf16 compute with f32 master parameters). The steps
 update the ``TrainState`` in place and return it with the step's metrics
 as device tensors; nothing waits for the device until the ``Trainer``
-fetches metrics every ``log_interval`` steps. Data-parallel training
-across cards (``make_parallel_steps`` in the JAX package) is not ported
-yet; on one card the steps are the plain ones.
+fetches metrics every ``log_interval`` steps.
+
+Data parallelism (``make_parallel_steps``) has the JAX package's
+global-batch semantics: W processes with b rows each compute the step of
+one batch of W*b rows. Batch norm takes its statistics over the global
+batch (``fcnresnet.set_batch_norm_group``), ``loss_r`` and ``acc`` divide
+by the global count of GT-nonzero pixels, and the gradients are summed
+across ranks from per-rank objectives that sum to the global loss.
 """
 
 from __future__ import annotations
@@ -27,9 +32,12 @@ import inspect
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
+from rcvpose_tpu_torch import parallel
 from rcvpose_tpu_torch.models.fcnresnet import (DenseFCNResNet152,
-                                                ResFCNResNet152, init_params)
+                                                ResFCNResNet152, init_params,
+                                                set_batch_norm_group)
 from rcvpose_tpu_torch.utils import resolve_device
 
 
@@ -205,6 +213,99 @@ def make_accum_train_step(accum):
     return step
 
 
+def _global_forward_losses(state, image, sem_t, rad_t, group, world):
+    """This rank's objective and the global metrics of a step over the
+    process group's global batch.
+
+    The objective is ``loss_s / world + sum(masked L1) / count``, ``count``
+    the global GT-nonzero count: the ranks' objectives sum to the global
+    loss (local batches are equal, so the mean of the local ``loss_s``
+    means is the global mean), and the summed gradients are the global
+    loss's. Returns (objective, [loss, loss_s, loss_r, acc]) with the
+    metrics all-reduced."""
+    count = parallel.all_reduce(
+        (rad_t != 0).sum().to(torch.float32).reshape(1), group)
+    count = torch.clamp(count[0], min=1.0)
+    with _autocast(state):
+        seg, radial = state.model(image)
+    nz = rad_t != 0
+    err = torch.abs(radial - rad_t)
+    loss_s = torch.mean(torch.abs(seg - sem_t))
+    rsum = torch.where(nz, err, 0.0).sum()
+    objective = loss_s / world + rsum / count
+    with torch.no_grad():
+        asum = torch.where(nz, (err <= 0.05).to(torch.float32), 0.0).sum()
+        sums = parallel.all_reduce(torch.stack([loss_s, rsum, asum]),
+                                   group)
+        loss_s_g = sums[0] / world
+        loss_r, acc = sums[1] / count, sums[2] / count
+    return objective, torch.stack([loss_s_g + loss_r, loss_s_g, loss_r,
+                                   acc])
+
+
+def _allreduce_grads(model, group, scale=1.0):
+    """Sum every parameter's gradient across ``group`` in one flat
+    all-reduce, times ``scale``."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = parallel.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                               group)
+    if scale != 1.0:
+        flat.mul_(scale)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view(g.shape))
+        off += g.numel()
+
+
+def make_parallel_steps(mesh, accum_steps=1):
+    """(train step, eval step) over a data mesh.
+
+    Without a process group (one process) these are the plain steps. With
+    one, the train step runs this rank's batch against the global batch:
+    BN statistics and the loss normalizer are global, and the gradients
+    are all-reduced once (a flat buffer, after the backward) before one
+    optimizer update on every rank, so the ranks' states stay equal. K2's
+    backward (and K3/K4 on the kernel route) stay inside their
+    ``autograd.Function``s. ``accum_steps > 1`` splits each rank's batch
+    into microbatches of ``b / accum_steps`` rows: microbatch i is every
+    rank's i-th slice, whose frames share one BN batch (the JAX package
+    takes rows ``[i B / accum, (i + 1) B / accum)`` of the global batch
+    instead; ROADMAP C). The eval step runs each rank's batch alone with
+    no collective: batch norm reads running statistics in eval mode, and
+    every rank validates on the full val set."""
+    group = None if mesh is None else mesh.group
+    if group is None:
+        train = (make_accum_train_step(accum_steps) if accum_steps > 1
+                 else train_step)
+        return train, eval_step
+    world = dist.get_world_size(group)
+
+    def step(state: TrainState, batch):
+        set_batch_norm_group(state.model, group)
+        sem_t, rad_t = _label_maps(batch)
+        b = batch["image"].shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} not divisible by accum_steps "
+                             f"{accum_steps}")
+        n = b // accum_steps
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        ms = []
+        for i in range(accum_steps):
+            sl = slice(i * n, (i + 1) * n)
+            objective, m = _global_forward_losses(
+                state, batch["image"][sl], sem_t[sl], rad_t[sl], group,
+                world)
+            objective.backward()
+            ms.append(m)
+        _allreduce_grads(state.model, group, 1.0 / accum_steps)
+        _apply_update(state)
+        mean = torch.stack(ms).mean(0)
+        return state, dict(zip(("loss", "loss_s", "loss_r", "acc"), mean))
+
+    return step, eval_step
+
+
 def eval_step(state: TrainState, batch):
     """Validation pass in eval mode; ``mae`` sums |err| over every pixel
     (the reference's Val_MAE) and divides by the GT-nonzero count."""
@@ -231,7 +332,9 @@ class Trainer:
     without datasets on disk: ``train_batches(epoch)`` or
     ``train_batches(epoch, start_batch)`` and ``val_batches()`` yield dicts
     of numpy arrays or tensors (``data.loader.BatchLoader`` yields device
-    tensors; ``cli.run_train`` wires it in).
+    tensors; ``cli.run_train`` wires it in). ``mesh`` (a
+    ``parallel.data_mesh``) takes the steps of ``make_parallel_steps``:
+    with a process group each rank feeds its own shard of the batches.
     """
     cfg: Any
     state: TrainState
@@ -243,10 +346,14 @@ class Trainer:
     iteration: int = 0
     steps: Any = None           # optional (train, eval) step pair
     steps_per_epoch: int = 0    # enables mid-epoch resume fast-forward
+    mesh: Any = None            # parallel.Mesh; None: the state's device
 
     def __post_init__(self):
         if self.steps is not None:
             self._train_step, self._eval_step = self.steps
+        elif self.mesh is not None:
+            self._train_step, self._eval_step = make_parallel_steps(
+                self.mesh, getattr(self.cfg, "accum_steps", 1) or 1)
         else:
             accum = getattr(self.cfg, "accum_steps", 1) or 1
             self._train_step = (make_accum_train_step(accum) if accum > 1
@@ -279,7 +386,7 @@ class Trainer:
             if skip > 0:
                 skip -= 1
                 continue
-            batch = _to_device(batch, self.state.device)
+            batch = self._place(batch)
             self.state, m = self._train_step(self.state, batch)
             self.iteration += 1
             pending = (self.iteration, m)
@@ -290,6 +397,11 @@ class Trainer:
                 break
         if pending is not None:
             self._fetch_train_metrics(*pending)
+
+    def _place(self, batch):
+        if self.mesh is not None:
+            return parallel.shard_batch(self.mesh, batch)
+        return _to_device(batch, self.state.device)
 
     def _fetch_train_metrics(self, iteration, m):
         """NaN guard and the reference's TensorBoard scalars."""
@@ -305,7 +417,7 @@ class Trainer:
     def validate(self, epoch):
         total, n = 0.0, 0
         for batch in self.val_batches():
-            batch = _to_device(batch, self.state.device)
+            batch = self._place(batch)
             m = self._eval_step(self.state, batch)
             loss = float(m["loss"])
             if loss != loss:
@@ -319,8 +431,10 @@ class Trainer:
                 self.writer.add_scalar("Val_ACC", float(m["acc"]),
                                        self.iteration)
                 # sem-mask image every 50 val batches (reference
-                # train.py:108-109), when the writer takes images
-                if n % 50 == 0 and hasattr(self.writer, "add_image"):
+                # train.py:108-109), when the writer takes images; on one
+                # process only, as in the JAX package
+                if (n % 50 == 0 and hasattr(self.writer, "add_image")
+                        and (self.mesh is None or self.mesh.group is None)):
                     self.state.model.eval()
                     with torch.no_grad(), _autocast(self.state):
                         seg, _ = self.state.model(batch["image"][:1])

@@ -208,10 +208,7 @@ def test_main_test_mode_writes_results_json_and_profile(tmp_path,
 
 
 @pytest.mark.parametrize("argv,env,exc,match", [
-    (["--mode", "serve"], {}, NotImplementedError, "A6"),
     (["--mode", "benchmark"], {}, NotImplementedError, "A2"),
-    (["--mode", "train", "--distributed"], {"WORLD_SIZE": "2"},
-     NotImplementedError, "A6"),
     (["--mode", "gen-labels", "--compile_cache_dir", "c"], {}, ValueError,
      "compile"),
     (["--mode", "train"], {"RCVPOSE_PALLAS_CONV": "interpret"}, ValueError,

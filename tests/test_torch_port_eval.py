@@ -468,17 +468,6 @@ def test_keypoint_with_retry_matches_jax(lm_trees):
     np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
 
 
-def test_unported_options_raise(lm_trees):
-    """The data-parallel sweep is not ported, and the LM evaluator refuses
-    it. (``demo_mode`` is ported: ``test_torch_port_demo.py``.)"""
-    root, _ = lm_trees["pre"]
-    cfg = Config(**dict(EVAL_KW, root_dataset=root, using_ckpts=False,
-                        eval_data_parallel=True))
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        port_eval.estimate_6d_pose_lm(cfg, class_names=["ape"],
-                                      progress=lambda m: None, device="cpu")
-
-
 def test_precomputed_route_decodes_no_image(lm_trees, monkeypatch):
     """The precomputed-map route never reads the JPEG (the JAX loop
     decodes it and drops it); the results are the same."""

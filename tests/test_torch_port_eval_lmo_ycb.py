@@ -14,7 +14,6 @@ package's, not held: on these fixtures f32 rounding sets them
 (``test_estimate_6d_pose_ycb_matches_jax``).
 """
 
-import dataclasses
 import os
 import shutil
 from unittest import mock
@@ -380,10 +379,6 @@ def test_ycb_and_lmo_refusals(tmp_path):
                                     device="cpu")
     with pytest.raises(ValueError, match="no precomputed-radial-map path"):
         src.maps(1, np.zeros((4, 4, 3), np.uint8), "0000_000001")
-    for fn in (port_eval.estimate_6d_pose_lmo, port_eval.estimate_6d_pose_ycb):
-        cfg = dataclasses.replace(pcfg, eval_data_parallel=True)
-        with pytest.raises(NotImplementedError, match="data-parallel"):
-            fn(cfg, progress=lambda m: None, device="cpu")
 
 
 def test_ycb_without_scipy_names_the_function(monkeypatch):
