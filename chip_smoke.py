@@ -107,7 +107,22 @@ Phases, each printing its own line:
     ``eval_data_parallel=True`` raising on one card; ``PoseServer`` on
     the card with two concurrent ``PoseClient``s, their replies against a
     direct ``estimate``/``refine``, a malformed request, and K1's and
-    K2's launches on each path.
+    K2's launches on each path;
+16. the JAX package's orbax checkpoints, read without JAX, orbax,
+    tensorstore or zstandard (the port's ``native/zstd.cpp``, ``ocdbt.py``
+    and ``orbax_read.py``): the orbax directory the script carries
+    (``ORBAX_DIR``, written by orbax: OCDBT, zarr v2, zstd level 1) against
+    the seeded arrays bit for bit, with the decoder's block, literal and
+    sequence-table modes and its decode rate on the level-1 chunk; then,
+    in phase 11's tree, full-width orbax trees written by the script's
+    own writer (``write_orbax``: the same layout, Raw-block zstd frames)
+    from phase 11's nets: the read time and rate of one net, ``cli
+    --mode test`` on ``<class>_pt<k>/model_best/`` against phase 15's
+    record of the ``.pth.tar`` route (every frame's scores equal), the
+    fused route (``<class>/``) against its ``.pth.tar`` twin, and
+    ``--mode export-torch`` of a ``ckpt/`` that also holds Adam's state
+    (the bytes read against the bytes on disk), with K1's and K2's
+    launches on each path.
 
 The vote kernels' bounds count instructions at the card's issue rate
 (``vote_cuda.ISSUE_RATE``), not FLOPs at the FP32 peak: none of their
@@ -2763,9 +2778,9 @@ def lm_frames(readers, root):
     return out
 
 
-def recorded_lm(eval_mod, cfg):
-    """The sequential LM evaluator with each frame's scores recorded from
-    its ``pose_and_add``/``refine_and_add``: (results, [(bf, af)])."""
+def recorded(eval_mod, run):
+    """``run()`` with each LM frame's scores recorded from the evaluator's
+    ``pose_and_add``/``refine_and_add``: (its result, [(bf, af)])."""
     rows = []
     pose_and_add, refine_and_add = eval_mod.pose_and_add, \
         eval_mod.refine_and_add
@@ -2782,18 +2797,24 @@ def recorded_lm(eval_mod, cfg):
 
     eval_mod.pose_and_add, eval_mod.refine_and_add = pose_rec, refine_rec
     try:
-        res = eval_mod.estimate_6d_pose_lm(cfg, class_names=["ape"],
-                                           progress=lambda m: None)["ape"]
+        return run(), rows
     finally:
         eval_mod.pose_and_add, eval_mod.refine_and_add = (pose_and_add,
                                                           refine_and_add)
-    return res, rows
+
+
+def recorded_lm(eval_mod, cfg):
+    """The sequential LM evaluator with each frame's scores recorded:
+    (results, [(bf, af)])."""
+    return recorded(eval_mod, lambda: eval_mod.estimate_6d_pose_lm(
+        cfg, class_names=["ape"], progress=lambda m: None)["ape"])
 
 
 def phase_distributed(config, cli, eval_mod, labels, geometry, train_mod,
                       vote_cuda, k1_stages, root, lm, train_root):
     """Phase 15 (see the module docstring). Returns the kernels' launches
-    on each path."""
+    on each path and the sequential evaluator's record of phase 11's
+    ``.pth.tar`` route ((results, [(bf, af)]), for phase 16)."""
     import os
     import threading
 
@@ -3107,6 +3128,511 @@ def phase_distributed(config, cli, eval_mod, labels, geometry, train_mod,
             or worst["centers"] > 1e-3):
         raise AssertionError("phase 15: the served replies differ from "
                              "a direct estimate")
+    return paths, seq["network"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the JAX package's orbax checkpoints, read without JAX
+# ---------------------------------------------------------------------------
+
+ORBAX_SEED = 16
+ZSTD_MAGIC = 0xFD2FB528
+OCDBT_MANIFEST_MAGIC = 0x0CDB3A2A
+OCDBT_NODE_MAGIC = 0x0CDB20DE
+OCDBT_INLINE_MAX = 1024  # orbax's: larger values go to a data file
+
+
+def orbax_fixture_arrays():
+    """The tree of the carried orbax directory (``ORBAX_DIR``), from the
+    seed: nested dicts, a tuple, a 0-d int64, a bf16 leaf (a
+    ``torch.bfloat16`` tensor; every value is exact in bf16) and a 320 KB
+    f32 random walk in steps of 1/8, whose repeats make zstd level 1 write
+    Compressed blocks with Huffman literals and FSE-coded sequences."""
+    rng = np.random.default_rng(ORBAX_SEED)
+    walk = np.cumsum(rng.integers(-2, 3, size=(160, 512)), axis=1) / 8.0
+    return {
+        "params": {"dense": {"kernel": walk.astype(np.float32),
+                             "bias": rng.normal(size=512).astype(np.float32)},
+                   "embed": {"table": rng.normal(size=(7, 3))}},
+        "batch_stats": {"mean": rng.integers(-50, 50, size=33,
+                                             dtype=np.int32)},
+        "pair": (rng.integers(0, 256, size=(4, 5), dtype=np.uint8),
+                 rng.random(6) < 0.5),
+        "step": np.asarray(12345678901, np.int64),
+        "scale": torch.tensor(rng.integers(-64, 64, size=(5, 8)) / 4.0,
+                              dtype=torch.bfloat16),
+    }
+
+
+def unpack_dir(blob, path):
+    """Write a directory carried as base64(zlib(tar)) under ``path``."""
+    import base64
+    import io
+    import tarfile
+    import zlib
+
+    with tarfile.open(fileobj=io.BytesIO(zlib.decompress(
+            base64.b64decode(blob)))) as tar:
+        tar.extractall(path, filter="data")
+
+
+def same_tree(a, b, where=""):
+    """Raise unless two trees of dicts, tuples, arrays and bf16 tensors are
+    equal bit for bit, with the same dtypes and shapes."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) or \
+                sorted(a) != sorted(b):
+            raise AssertionError(f"{where}: keys differ")
+        for k in a:
+            same_tree(a[k], b[k], f"{where}/{k}")
+        return
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        if not (isinstance(a, tuple) and isinstance(b, tuple)) or \
+                len(a) != len(b):
+            raise AssertionError(f"{where}: tuples differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, f"{where}/{i}")
+        return
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                                b.reshape(-1).contiguous().view(torch.uint8))):
+            raise AssertionError(f"{where}: tensors differ")
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape or \
+            a.tobytes() != b.tobytes():
+        raise AssertionError(f"{where}: {a.dtype}{a.shape} against "
+                             f"{b.dtype}{b.shape}")
+
+
+# -- a writer of the orbax layout, for full-width trees on the card -------
+
+def _varint(v):
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+_CRC32C = []
+
+
+def crc32c(data):
+    """CRC-32C (Castagnoli), bit-reflected, as OCDBT's trailers use."""
+    if not _CRC32C:
+        for i in range(256):
+            c = i
+            for _ in range(8):
+                c = (c >> 1) ^ (0x82F63B78 if c & 1 else 0)
+            _CRC32C.append(c)
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc = _CRC32C[(crc ^ byte) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+def zstd_raw_frame(data):
+    """A zstd frame (RFC 8878) of Raw blocks holding ``data``: single
+    segment, 8-byte content size, no checksum. Valid zstd that needs no
+    compressor."""
+    import struct
+
+    data = memoryview(data).cast("B")
+    parts = [struct.pack("<IBQ", ZSTD_MAGIC, 0xE0, len(data))]
+    pos = 0
+    while True:
+        size = min(len(data) - pos, 1 << 17)
+        last = pos + size >= len(data)
+        parts.append(((size << 3) | int(last)).to_bytes(3, "little"))
+        parts.append(data[pos:pos + size])
+        pos += size
+        if last:
+            return b"".join(parts)
+
+
+def _ocdbt_file(magic, body):
+    """An OCDBT manifest or node: header, body as one zstd frame (Raw
+    blocks), CRC-32C trailer."""
+    import struct
+
+    content = zstd_raw_frame(body)
+    head = struct.pack(">I", magic) + struct.pack(
+        "<Q", 4 + 8 + 2 + len(content) + 4) + b"\x00\x01"
+    data = head + content
+    return data + crc32c(data).to_bytes(4, "little")
+
+
+def _one_file_table(path):
+    p = path.encode()
+    return _varint(1) + _varint(len(p)) + _varint(0) + p
+
+
+def _tree_leaves(tree, keys=(), types=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], keys + (str(k),), types + (2,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, keys + (str(i),), types + (1,))
+    else:
+        yield keys, types, tree
+
+
+def write_orbax(path, tree):
+    """Write ``tree`` (dicts, tuples, numpy arrays, bf16 tensors) as the
+    JAX Checkpointer's payload directory: ``_CHECKPOINT_METADATA``,
+    ``_METADATA`` and an OCDBT store of zarr v2 arrays (one chunk each,
+    zstd frames of Raw blocks), as orbax 0.11 with tensorstore 0.1 lays it
+    out. Returns the bytes written."""
+    import hashlib
+    import os
+    import struct
+
+    os.makedirs(os.path.join(path, "d"))
+    uid = hashlib.sha256(path.encode()).digest()
+    data_rel = f"d/{uid[:16].hex()}"
+    node_rel = f"d/{uid[16:].hex()}"
+    entries, meta, offset = [], {}, 0
+    with open(os.path.join(path, data_rel), "wb") as data_file:
+        for keys, types, leaf in _tree_leaves(tree):
+            name = ".".join(keys)
+            if isinstance(leaf, torch.Tensor):
+                if leaf.dtype != torch.bfloat16:
+                    raise TypeError(f"{name}: {leaf.dtype}")
+                arr, dtype = leaf.contiguous().view(torch.int16).numpy(), \
+                    "bfloat16"
+            else:
+                arr = np.asarray(leaf)  # ascontiguousarray makes 0-d 1-d
+                arr = arr if arr.flags.c_contiguous else arr.copy()
+                dtype = arr.dtype.str
+            zarray = json.dumps({
+                "chunks": list(arr.shape),
+                "compressor": {"id": "zstd", "level": 1},
+                "dimension_separator": ".", "dtype": dtype,
+                "fill_value": None, "filters": None, "order": "C",
+                "shape": list(arr.shape), "zarr_format": 2},
+                separators=(",", ":"), sort_keys=True).encode()
+            chunk = zstd_raw_frame(arr.reshape(-1).view(np.uint8))
+            entries.append((f"{name}/.zarray".encode(), zarray))
+            ckey = ".".join("0" * arr.ndim) or "0"
+            if len(chunk) <= OCDBT_INLINE_MAX:
+                entries.append((f"{name}/{ckey}".encode(), chunk))
+            else:
+                data_file.write(chunk)
+                entries.append((f"{name}/{ckey}".encode(),
+                                (offset, len(chunk))))
+                offset += len(chunk)
+            meta[str(keys)] = {
+                "key_metadata": [{"key": k, "key_type": t}
+                                 for k, t in zip(keys, types)],
+                "value_metadata": {"value_type": "np.ndarray",
+                                   "skip_deserialize": False}}
+    entries.sort(key=lambda e: e[0])
+    keys = [k for k, _ in entries]
+    prefix = [0] + [len(os.path.commonprefix([a, b]))
+                    for a, b in zip(keys, keys[1:])]
+    inline = [v for _, v in entries if isinstance(v, bytes)]
+    indirect = [v for _, v in entries if not isinstance(v, bytes)]
+    body = b"".join([
+        b"\x00", _one_file_table(data_rel), _varint(len(entries)),
+        *map(_varint, prefix[1:]),
+        *(_varint(len(k) - p) for k, p in zip(keys, prefix)),
+        *(k[p:] for k, p in zip(keys, prefix)),
+        *(_varint(len(v) if isinstance(v, bytes) else v[1])
+          for _, v in entries),
+        *(_varint(0 if isinstance(v, bytes) else 1) for _, v in entries),
+        *(_varint(0) for _ in indirect),
+        *(_varint(off) for off, _ in indirect),
+        *inline])
+    node = _ocdbt_file(OCDBT_NODE_MAGIC, body)
+    with open(os.path.join(path, node_rel), "wb") as f:
+        f.write(node)
+    manifest = b"".join([
+        uid[:16], _varint(0), _varint(OCDBT_INLINE_MAX),
+        _varint(100_000_000), b"\x04", _varint(1), struct.pack("<i", 0),
+        _one_file_table(node_rel), _varint(1), _varint(1), b"\x00",
+        _varint(0), _varint(0), _varint(len(node)), _varint(len(entries)),
+        _varint(len(node)), _varint(offset),
+        struct.pack("<Q", 1_800_000_000_000_000_000), _varint(0)])
+    with open(os.path.join(path, "manifest.ocdbt"), "wb") as f:
+        f.write(_ocdbt_file(OCDBT_MANIFEST_MAGIC, manifest))
+    with open(os.path.join(path, "_METADATA"), "w") as f:
+        json.dump({"tree_metadata": meta, "use_ocdbt": True,
+                   "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True,
+                   "custom_metadata": None}, f)
+    with open(os.path.join(path, "_CHECKPOINT_METADATA"), "w") as f:
+        json.dump({"item_handlers": "orbax.checkpoint._src.handlers."
+                   "standard_checkpoint_handler.StandardCheckpointHandler",
+                   "metrics": {}, "performance_metrics": {},
+                   "init_timestamp_nsecs": 0, "commit_timestamp_nsecs": 0,
+                   "custom_metadata": {}}, f)
+    return offset + len(node)
+
+
+def torch_key_to_flax(key):
+    """(collection, Flax path) of a reference state-dict key, or None for
+    one that carries no weight: the script's own copy of the JAX package's
+    mapping (``rcvpose_tpu/checkpoint.py::torch_key_to_flax``)."""
+    import re
+
+    parts = key.split(".")
+    conv = {"weight": "kernel", "bias": "bias"}
+    bn = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+          "running_mean": ("batch_stats", "mean"),
+          "running_var": ("batch_stats", "var")}
+
+    def leaf(module_path, member, pname):
+        if member.startswith("bn") or member.endswith("_bn"):
+            if pname not in bn:
+                return None
+            col, name = bn[pname]
+            return col, module_path + [name]
+        return "params", module_path + [conv[pname]]
+
+    head = parts[0]
+    if head in ("conv1", "bn1"):
+        return leaf(["encoder", head], head, parts[1])
+    if re.match(r"block\dup$", head):
+        if parts[1] == "upsample_":
+            member = "proj_conv" if parts[2] == "0" else "proj_bn"
+            return leaf(["encoder", head, member], member, parts[3])
+        return leaf(["encoder", head, parts[1]], parts[1], parts[2])
+    m = re.match(r"block(\d)$", head)
+    if m:
+        name = f"block{m.group(1)}_{int(parts[1]) + 1}"
+        return leaf(["encoder", name, parts[2]], parts[2], parts[3])
+    if head in ("conv6", "bn6", "conv8") or re.match(r"conv_up\d_1$", head):
+        return leaf([head], head, parts[1])
+    member = f"{head}_conv" if parts[1] == "0" else f"{head}_bn"
+    return leaf([member], member, parts[2])
+
+
+def flax_variables(checkpoint, state_dict):
+    """The inverse of ``checkpoint.from_flax_variables``: a reference-layout
+    state dict -> ``{"params", "batch_stats"}`` in Flax layout (numpy,
+    conv kernels OIHW -> HWIO), each key checked against the port's own
+    mapping back."""
+    out = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        mapped = torch_key_to_flax(key)
+        if mapped is None:
+            continue
+        col, path = mapped
+        if checkpoint._flax_path_to_torch_key(col, path) != key:
+            raise AssertionError(f"{key} -> {col}/{path} does not map back")
+        arr = value.detach().cpu().float().numpy()
+        if path[-1] == "kernel":
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        node = out[col]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out
+
+
+def jax_payload(variables, epoch, iteration, adam=False):
+    """The JAX Checkpointer's payload (rcvpose_tpu/checkpoint.py:
+    ``_payload``) around ``variables``; ``adam``: with the opt_state of
+    ``optax.adam`` under a schedule, (ScaleByAdamState(count, mu, nu),
+    ScaleByScheduleState(count)), at the JAX shapes."""
+    payload = {"params": variables["params"],
+               "batch_stats": variables["batch_stats"],
+               "step": np.asarray(iteration, np.int32),
+               "epoch": np.asarray(epoch, np.int64),
+               "iteration": np.asarray(iteration, np.int64),
+               "best_val": np.asarray(0.25, np.float64)}
+    if adam:
+        def like(tree, fill):
+            return {k: like(v, fill) if isinstance(v, dict)
+                    else np.full_like(v, fill) for k, v in tree.items()}
+
+        count = np.asarray(iteration, np.int32)
+        payload["opt_state"] = (
+            {"count": count, "mu": like(variables["params"], 1e-3),
+             "nu": like(variables["params"], 1e-6)}, {"count": count})
+    return payload
+
+
+def dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, files in os.walk(path) for f in files)
+
+
+def same_lm(what, got, want):
+    """Raise unless two recorded LM runs agree exactly: every frame's
+    scores before and after ICP, and the ADD pass rates."""
+    (res, rows), (res_w, rows_w) = got, want
+    keys = ("frames", "add_before_icp", "add_after_icp", "overflow_frames")
+    if rows != rows_w or any(res[k] != res_w[k] for k in keys):
+        raise AssertionError(
+            f"{what}: {rows} {[res[k] for k in keys]} against {rows_w} "
+            f"{[res_w[k] for k in keys]}")
+
+
+def phase_orbax(config, cli, checkpoint, eval_mod, train_mod, fcn, root, lm,
+                seq_network):
+    """Phase 16: the carried orbax directory read bit for bit, then
+    full-width orbax trees staged from phase 11's nets through the LM
+    evaluator (``cli --mode test``) against phase 15's record of the
+    ``.pth.tar`` route, the fused route against its ``.pth.tar`` twin, and
+    ``--mode export-torch`` on a ``ckpt/`` with Adam's state. Returns the
+    kernels' launches on each path."""
+    import os
+    import shutil
+
+    from rcvpose_tpu_torch import orbax_read
+    from rcvpose_tpu_torch.data import readers
+    from rcvpose_tpu_torch.native import zstd
+
+    import importlib.util
+
+    card = card_line()
+    paths = {}
+    present = [m for m in ("jax", "orbax", "tensorstore", "zstandard")
+               if importlib.util.find_spec(m) is not None]
+    say(f"phase 16 on this machine: importable of jax, orbax, tensorstore, "
+        f"zstandard: {present or 'none'}")
+    # 1. real orbax bytes, written by orbax 0.11.32
+    fixture = os.path.join(root, "orbax_fixture")
+    unpack_dir(ORBAX_DIR, fixture)
+    zstd.reset_stats()
+    same_tree(orbax_read.read_tree(fixture), orbax_fixture_arrays(),
+              "phase 16 fixture")
+    modes = {k: v for k, v in zstd.STATS.items() if v}
+    if min(zstd.STATS["compressed_blocks"], zstd.STATS["fse_tables"],
+           zstd.STATS["huffman_1_stream"] + zstd.STATS["huffman_4_streams"]
+           ) == 0:
+        raise AssertionError(f"phase 16: the fixture did not reach the "
+                             f"Huffman and FSE paths: {modes}")
+    frame = orbax_read.OrbaxCheckpoint(fixture).store.read(
+        "params.dense.kernel/0.0")
+    out = np.empty(160 * 512 * 4, np.uint8)
+    reps, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < 0.5:
+        zstd.decompress_into(frame, out)
+        reps += 1
+    huff_mbs = reps * out.nbytes / (time.perf_counter() - t0) / 1e6
+    say(f"phase 16 carried orbax directory ({dir_bytes(fixture)} bytes on "
+        f"disk): every leaf equal to the seeded tree bit for bit; decoder "
+        f"modes {modes}; the level-1 chunk ({len(frame)} -> {out.nbytes} "
+        f"bytes) decodes at {huff_mbs:.1f} MB/s on one host thread "
+        f"({card})")
+    shutil.rmtree(fixture)
+
+    # 2. full width: phase 11's nets as JAX Checkpointer directories
+    base = config.Config(root_dataset=root, model_dir=lm["model_dir"])
+    sds = [torch.load(os.path.join(lm["model_dir"], f"ape_pt{i}.pth.tar"),
+                      map_location="cpu", weights_only=True)
+           ["model_state_dict"] for i in range(1, 4)]
+    model_dir = os.path.join(root, "orbax16")
+    t0 = time.perf_counter()
+    for i, sd in enumerate(sds, 1):
+        write_orbax(os.path.join(model_dir, f"ape_pt{i}", "model_best"),
+                    jax_payload(flax_variables(checkpoint, sd), 7, 700 + i))
+    say(f"phase 16 staged 3 full-width model_best/ trees "
+        f"({dir_bytes(model_dir)} bytes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    got = checkpoint.from_flax_variables(checkpoint.orbax_variables(
+        os.path.join(model_dir, "ape_pt1")))
+    read_s = time.perf_counter() - t0
+    want = {k: v for k, v in sds[0].items()
+            if not k.endswith("num_batches_tracked")}
+    same_tree(dict(got), want, "phase 16 ape_pt1")
+    net_bytes = sum(v.numel() * 4 for v in got.values())
+    say(f"phase 16 read one full-width net ({len(got)} tensors, "
+        f"{net_bytes} bytes) in {read_s:.3f} s: {net_bytes / read_s / 1e6:.1f}"
+        f" MB/s (Raw-block frames, {min(8, os.cpu_count())} threads) on "
+        f"{card}")
+
+    out_dir = os.path.join(root, "test16")
+    argv = ["--mode", "test", "--root_dataset", root, "--model_dir",
+            model_dir, "--eval_classes", "ape", "--out_dir", out_dir,
+            *NET_FLAGS]
+    (rec, launches) = counted(lambda: recorded(
+        eval_mod, lambda: cli.main(argv, device=DEVICE)["ape"]))
+    same_lm("phase 16 cli --mode test on orbax", rec, seq_network)
+    say(f"phase 16 cli --mode test on the orbax tree: per-frame scores "
+        f"{rec[1]} and ADD {rec[0]['add_before_icp']} / "
+        f"{rec[0]['add_after_icp']} equal phase 15's record of the "
+        f".pth.tar route; launches {launches}")
+    check_launches("phase 16 3-net", {k: launches[k] for k in ("K1", "K2")})
+    paths["3-net orbax"] = launches
+    shutil.rmtree(model_dir)
+
+    # 3. fused: one seeded multi-head net as .pth.tar and as orbax
+    frames = lm_frames(readers, root)
+    fcfg = dataclasses.replace(base, kpt_heads=3, eval_data_parallel=False)
+    net = fcn.init_params(train_mod.build_model(fcfg),
+                          torch.Generator().manual_seed(16))
+    net = net.to(DEVICE, memory_format=torch.channels_last).eval()
+    calibrate_head(net, frames[0][1:3], fcfg.sem_threshold,
+                   float(np.mean(eval_mod._per_kpt_max_radii_dm(
+                       lm["cad_m"], lm["kpts9"]))))
+    sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    del net
+    pth_dir, orb_dir = (os.path.join(root, "fused_pth"),
+                        os.path.join(root, "fused_orbax"))
+    os.makedirs(os.path.join(pth_dir, "ape"))
+    torch.save({"model_state_dict": sd},
+               os.path.join(pth_dir, "ape", "model_best.pth.tar"))
+    write_orbax(os.path.join(orb_dir, "ape", "model_best"),
+                jax_payload(flax_variables(checkpoint, sd), 1, 16))
+    runs = {}
+    for name, mdir in (("pth", pth_dir), ("orbax", orb_dir)):
+        c = dataclasses.replace(fcfg, model_dir=mdir)
+        runs[name] = counted(lambda c=c: recorded(
+            eval_mod, lambda: eval_mod.estimate_6d_pose_lm(
+                c, class_names=["ape"], progress=lambda m: None)["ape"]))
+        check_launches(f"phase 16 fused {name}",
+                       {k: runs[name][1][k] for k in ("K1", "K2")})
+    same_lm("phase 16 fused orbax", runs["orbax"][0], runs["pth"][0])
+    say(f"phase 16 fused route: orbax <class>/ and its .pth.tar twin give "
+        f"the same per-frame scores {runs['orbax'][0][1]} (ADD "
+        f"{runs['orbax'][0][0]['add_before_icp']} / "
+        f"{runs['orbax'][0][0]['add_after_icp']}); launches orbax "
+        f"{runs['orbax'][1]}, pth {runs['pth'][1]}")
+    paths["fused orbax"] = runs["orbax"][1]
+    shutil.rmtree(pth_dir)
+    shutil.rmtree(orb_dir)
+
+    # 4. export-torch on a ckpt/ that also holds Adam's state
+    exp_dir = os.path.join(root, "export16")
+    write_orbax(os.path.join(exp_dir, "ckpt"),
+                jax_payload(flax_variables(checkpoint, sds[1]), 9, 901,
+                            adam=True))
+    ck = orbax_read.OrbaxCheckpoint(os.path.join(exp_dir, "ckpt"))
+    t0 = time.perf_counter()
+    ck.read_tree(("params", "batch_stats"))
+    ckpt_s = time.perf_counter() - t0
+    on_disk = dir_bytes(exp_dir)
+    say(f"phase 16 ckpt/ with Adam's mu and nu: params and batch_stats "
+        f"read {ck.store.bytes_read} of {on_disk} bytes on disk in "
+        f"{ckpt_s:.3f} s (opt_state not read) on {card}")
+    if ck.store.bytes_read > 0.4 * on_disk:
+        raise AssertionError("phase 16: reading the weights read opt_state")
+    out = os.path.join(exp_dir, "exported.pth.tar")
+    cli.main(["--mode", "export-torch", "--model_dir", exp_dir,
+              "--export_path", out])
+    payload = torch.load(out, map_location="cpu", weights_only=True)
+    want = {k: v for k, v in sds[1].items()
+            if not k.endswith("num_batches_tracked")}
+    same_tree(dict(payload["model_state_dict"]), want,
+              "phase 16 export-torch")
+    if (payload["epoch"], payload["iteration"]) != (9, 901):
+        raise AssertionError(f"phase 16 export-torch: {payload['epoch']}, "
+                             f"{payload['iteration']}")
+    say(f"phase 16 export-torch of the orbax ckpt/: "
+        f"{len(payload['model_state_dict'])} tensors equal the staged "
+        f"weights, epoch 9, iteration 901")
+    shutil.rmtree(exp_dir)
     return paths
 
 
@@ -3162,13 +3688,16 @@ def main():
         cli_launches = run(14, phase_cli_train, config, cli, checkpoint,
                            infer, labels, geometry, heads, mmconv, vote_cuda,
                            train_root)
-        dist_launches = run(15, phase_distributed, config, cli, eval_mod,
-                            labels, geometry, train_mod, vote_cuda,
-                            k1_stages, root, lm, train_root)
+        dist_launches, seq_network = run(
+            15, phase_distributed, config, cli, eval_mod, labels, geometry,
+            train_mod, vote_cuda, k1_stages, root, lm, train_root)
+        orbax_launches = run(16, phase_orbax, config, cli, checkpoint,
+                             eval_mod, train_mod, fcn, root, lm, seq_network)
     say(f"phase seconds {seconds}, total {sum(seconds.values()):.1f}")
     say(f"phase 13 launches by path: {eval_launches}")
     say(f"phase 14 launches by path: {cli_launches}")
     say(f"phase 15 launches by path: {dist_launches}")
+    say(f"phase 16 launches by path: {orbax_launches}")
 
     main_path = ("coarse", "refine")
     kernels = [
@@ -3223,6 +3752,1443 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# The orbax directory of phase 16 as orbax 0.11.32's StandardCheckpointer
+# (tensorstore 0.1.80: OCDBT + zarr v2, zstd level 1) writes
+# orbax_fixture_arrays(), tar, zlib and base64
+# (tests/test_torch_port_orbax.py::write_chip_fixture, pack_dir). The
+# machine with the card has neither orbax nor tensorstore.
+ORBAX_DIR = (
+    "eNrsuHdYU922Lk5RijQVBZQqSFGk9xoEpNgAkV5C7733gCBFukhvIgqo9A4BQu8dpZPQOyTU"
+    "BNJ++u19zj1n799z9n3uvec79z5nj/yRteZ45xxjrMx3rHcGqKT2ROmZpob6y9fAF09eP1Z+"
+    "/Poxwf9hE/xl4qKif3z/sr/9FhQVFP/X6z/GhQQlhMQJ2AQJ/gTz9vQy9/gVnuC/pwWy23tZ"
+    "OwPtzF2snKw9PNml2dhdPSzM/fgt7awtHd1c7V28+IGeHpb8/4Lg//W8XKzMPayA/wPxL9P5"
+    "tf/qU/pXl9pfPOyP2Nidrb087C1/hwgM/nXrZu1h4+rhbO5iaQ38G5e9i70X0Mve2fpXLGc3"
+    "oIun9R8+IQkpYWFRYUkRYRExEQkxKSlRsV9gS1dn538El5QUlxAWFf8D/usHd3X+HdHcytzL"
+    "/I+QwQT/be0/jfT/8/wXERIX+/f8F5QQFhL9J///HP57eVhb/zs6sPNwW5h7WdoBfz0ZL0/u"
+    "R2zcztbmLtwP/vA5Wvv/W7DRHyO/u8a/mfKb7L9xXv5u1r9cwr8o/a+w30v9nd/k14CPuZP3"
+    "3+Txl6G/othd3Ph/9xYPc//f8z0d7d2AVtae1h725k72Ab8RNuZOntbBv/sHD7ebub3H78wF"
+    "/1Hav4H/Ub6Cf+MU+k9MVuh/N1mhPyVZD3PnP3aFlfWvTvv7wsLe3PMfp/572n+U/B/L/UeA"
+    "32H+lK3zdwU6Wnu4WDv9CSX+JdCfWqS1s4W11e8LL3MLJ+v//Rr/WO8/AvwR508o0dPS/Fc9"
+    "j/5BQX+g/teycfilkh7/o2R+uXw9fkksoKed+R/TjH6JEEmTf8nRy9rtH6f4C/Sf+7x+J+Pt"
+    "aQ10tbSy8Po17OXhbf3XoYBf00X+TTG/xJOHNfCPNYG/owKt3b3NnYBerkAbeycn4B/x/8cK"
+    "fy+2XLydnP4by63/+/Tfr33pYWXvYvtfp/8EhURE/1b/iQv/U//9SfrPUvilnYWqjhy7NHug"
+    "Mfu/bIc/eojxL8Ias2v/unWyVrb2sbe01v6r2/hXQzH+9T77PfZL9Hn8Bfla5dVroJKmDlDQ"
+    "mD2Y/Z80/3/A/tLJ/6VBewq4ebhaWnt6AgX/RP4L/93/P8IS/+T/n8X/v9kBf5Ee/37wD2nx"
+    "h/QDupg7W/873fT/p25+v/ntvF0c/37Y2s/r79RAsMk/O8V/mVkJWAhZSNoIiolaSFmai9oI"
+    "mttI2ZiLiViJiopaC4uJCwv9p/NfSFxE5G/5Lyb6z/9//xSjXGCDZhP/9YaQp04Aa0ZPimUk"
+    "sBFsVXZzGCHG6SGHttFv7xMshRIQoLjp1jhVFi19r68HU710UO6NSyPajTT6lKzYfpVRvRfp"
+    "UDoc9yGaXjjN8/L6vsvd6krxL1kE+QTtBMBzR4zJzyF29E8o6xMkBFHxTk7jNggTohsXyMKl"
+    "6n7LPA8fLyBLieZN3jmDcPdWp68x/3wYmEqbdCeJeeAdiohfQbf7zrBkaLDyh3aCNwwTcXaM"
+    "E7pi6YzOjQsoT6lUUZDj/HSdtSdnudjCuU19Q+qjvrO1p+cVNi61WPxAVibYHz7DVG5lkdlr"
+    "woT/SYpXNrDWY41Pe80efSAuGXGjPrrzlt27b9skKszNPpSNvveKeJ4KPzVJD6Y5r5PRuI2s"
+    "tN1upgbRnfcg0k3oUbuXpM1Qh63mlvqo1l7P3WYcSMCqPspkvzoKC+8Dz/TFwmBrVXIfHu82"
+    "o8vaFrpGB490ZrzTZsy3pfdj12jwAW11UbzPRd6W9+kIJDkcCIrDghjdOXhQdFurHQXs5piB"
+    "sEcssu3JbEfL5Hnr9EYk/rli7yevfZYzs+FQjMq9JmM4bE4fIul+O1SSlFx6dSXiWAzeJBz2"
+    "9umPieHe4ahXz68qcDM4Px6ezMtCL0cTt1ql2fAay0Yo51K/BMgUiY/r7eZ9aRRvuZ4gUT0t"
+    "nfo5/rVreG0cAfHHB/GpWlPr8ZRx9FJ+eZgHVb43bjJ00U1/cDlVq/Hfv5LMj6BPmn3Pfb+E"
+    "1NcvhoGhtuXalSie6PfCFdtaQoWP06eYzMjvcSp1yPDbbERImPmVDvqpq6tnkgXCZ7MqSOtb"
+    "tfNoW/dMuH+yOHwY1QI/oB7x+LRdLvbDXC6C6NPE3VjqokcO5CV0dz8XfVHnNpmyK730dZiw"
+    "e2pBUmgga/5TvVj36TOlH4y51ZaiLp/3g12+ryou3OF6+i5FnPbzsNfwjyDRHfssyBtN7c7X"
+    "/mNSKseaJZk/Riuhj4YSbyMxRCsUOaWSGrb0aVc1lcwYNiuBzpRJsdmZY5N06TNZMOOo5zkP"
+    "RAOvDVs65Ny4JcymQKTIQG7o73jlCm6SdoyNp+hKH92mRH+kZoPshTth/O1wlWSWWB1mOkYF"
+    "0Goc/zsRcZb2jwhF+7eE0sx0gqHSfSsfq8Q682EcOLUPV31Y7t6jm9O/gqufvX7paRw6EU0Q"
+    "+UREW4Gypf4aTwW09UZ85uwju/ud/JpxF3eET6y/6OvsGjCpvIsiIesk4v1T+O9s7mJvY+3p"
+    "xf/H2f+/6Pwn/rf9X1BMQvCf/f/P6f/SDz0J/m3/Z9PvICKQZWvrvRtZxdaQGLND2KRGTBBK"
+    "Fto5I3CF8A8Y+/+EbCD8Dc0mvZ5NmlF1Zd07G2CsDWMgGEKs1P9TdP1fZH/Qnv9fT30CVgLC"
+    "kr9+UXNzcSkRUSFra2sxQSkRS2srYUlrS0FhIUtxm//D/BcWEhYW+tvz368NJPZP/v8Z9pvx"
+    "BGrd7sS7PetsspqqC14E19dbQhvoCfwBSTps60tvSvOpGjGlQ/Ngp7Rhny2wODj320NgyHsp"
+    "u4QCy94ez3EmpW8lFdE3imYJaYi4iHxhvRBvLJito0upG3LdWUu/5DWbSKOWGJs9KxVpBOyK"
+    "FP2UJIVW/MQzU9+9u6r7/FyFebxiXS6gQKsH5qqRB09cQVo1pdWH9h/OfPUcPxwy9+pcgi/h"
+    "Oz0MvRn4IVkVlwN5yFSgAhcVqQyb5qodz2v2nmoFAcoDBJxYmciQ4/4tjBH+rZ+bGsL1zRAk"
+    "/cp1/CSIFedtZoZqwJskpZI/Mf+EEHiCc/yKeRajxpUC4niPco14rs6rFaenE0ciIknEie/s"
+    "h1wnxdCvopBHKPpjePidW2d3b59Blcvuv7i19qu4n5APp/BTuDz+EDIO0bDEOeeAsp1x1hBw"
+    "iF72yqgRCNIUVgUhXFmm74Hd3icFhXfAQt0IVlwFS1CBn3B8VcuuV0G8jfdx5WKr8Cs0ICAD"
+    "XfPOBhyHXkVIdL2pFcQ4Xyyw43VR4Jv4hFTIA5AGLgFDtQJLgjDHQ75DvkK+SmBbx6YqZZJq"
+    "QUogGZDEsD3OZtnxgb3enYujlA8m1V+9sdhzia7TPRg+Gzt9ZnTWwAOv74NclcHRRSRy+CRC"
+    "Gc7h6+excN8WtEyIBo4fR41LADXssVQ5QtBw+Yu6kzJs2fkYztbIcekSgMav4/GFOI5fH+KX"
+    "4ROhmqn+3DRDb6wLFGNoyu/yPmZJUUtG3O+UkXrGaRVJOkMYESmBaf/Iy8WDiwQQrnx8wHWX"
+    "mvJuQjsRipHhCgGGipLIR0FIy92NoAOWhJBgymi8Jat2J1OZ/VbMF8VkZXZq8tcfeXjUWBY/"
+    "cqk7kPC+DusW0zoS6Lny9koPhBbPj/JVXIUFGFQqk+37+DVK1j4pEI5JXtqyQJY0MSaQB9h9"
+    "WQJNw4RVR+By5Dt1cU9d0qo6zWL8PvLR81MeuH19bXX/6UOVQjmbkHxZWw2X5665wIIdoYTm"
+    "2OQZ3GPGBZZj9FZhZGpz+aEHi+29u+7dZWde9ODzWg9kjc+DG5Jar08YEs0f5TuSa+UxJWxp"
+    "znkqfsU4mydR0Bl8Vb6qztE7YJlV9DR7/zvzwyqSntCctOuDhjOGc7YBC/itZKa+Oii82rHB"
+    "BQvcmzo5ZS7im8/pFS2We3+Fb2OfQ2vPwJWhoWMRNTCHZQ/ZH83CtoVVX4zcGIDRMoS5dR+F"
+    "vu+rlrMsHWymgRlNb8kFBRX7Z4n4m86YGTl77IuEn932yDkX1eBsVSEmuhdxh8hfdnntcVWa"
+    "lqk0GkFcuFk/6oSVzeS1zPLea+1zwZUP9moJcx3crzPp/aaT/d2fujvLv0tUYwFSzC1Hbti7"
+    "5tp3X0vniRgT6AQNthDMmFiGZN7ju4+VE5uTh5t+nVIYPpQJRO6iTBsJb3JkyydwlP2ovGb9"
+    "gW/FSV51yXANrwWsN0rApi66BANj/RqVX1+LuXY0TvHiq6A+AwMbE9NNZQWF+0kfFexQb559"
+    "4tcfvy2R8bEExWjKwXYTQ+XeZLyuKGPM06UYIaT+/rTS2r/pu5wtVDTu1eEAzeDTit4D2WtM"
+    "10PDOrp1H+F4P0lLyhrzRBTwfJUz2tib+dR0s/ybN8OWv98dYd8BUvrDtoYllJxkoP89ZxVe"
+    "gD3j+9oxkTPOrztj0fcADqYzxoEwadDo3PVXhyUmHK1LM+M2dGUjtfZZbDZf9OQcFAiJr4+z"
+    "qamZZUREgDqoK4nrBQX1mTSdejp0NTGxHEwKagqCCkoKvO2hRPOE+M4LempivEXYlTySPFBB"
+    "O0R/GXgfIZBDRKlGEEY8D2H7eAchcA1Ff0WUGENBSCCZ9OsUfYWIACFAQMBGQIh7ciJAhKIf"
+    "hqgpIASoMRRXzgWoKSlxPfgewk6IJIq+WNPNhOLWrYd8gSsjB5RP+294OvHd8XFKWpOtsHhd"
+    "UfDC2TFOqHvCTBJ6Kir0LsDEc4vbSPxt8K/WSJk8G0jpCF3wAf0YmTWt/zBa9tkiOTQ0tISa"
+    "Vj0uQaUrg4euj7OMxFb1BUcfMg+cFQly9FkQgPRX1g/o7gl4puoGDNgw4C8uZ+7CR232xhzQ"
+    "24tejEFBqkuUS4Flj7/XOblKWHx/4pqIMiQLSvqhWSEk9I30ijxDQBGyHyITgL9jocph4S9J"
+    "xMw8JWxamKYlZPkmL/h+ialu/I3Res22wctb7K/OFBIkdOKCagpLysbyRsCux6+YUruOuCJz"
+    "SL/dqP7MpXL1Z7AS0qn+DHzNZEniUOVLhMhqdCGS+kuxmKb2l3UJsEvpcQq+wqjxmGmB80sN"
+    "MnAPVM7YOQ+5//klcR1wUmfzAC23mn9hsa8FNsq3JUMnpzls+55DRpbqVDGqcnj+pVHyTKDV"
+    "AO3pK45bxqcdnZoxggxxqu6CRRJlOsgaAGzxQOtmPYp/TzpP1naob9uwF2Kz6QLq1nQE03at"
+    "uD1/vyak4/opIxc7PbwPkGra4m6I/RCtdEXx27dP55N8npCNhjqXI3x09o6hTJM/LphsrWns"
+    "oMZc5LtwpOl0zyXTkyVEDzLrbGBpiRLM4pA/XTlfOpW+SOWYM33pmjPLvFavujGO/Phh0uRw"
+    "XqCQcklNptlwaWU9mm9Odkz7oJZCa+r+gS7cfFVnryeRNQh0gMVimdhvDBH9EmpG6XKM4hJO"
+    "Nb+SBjGRyzMl2nowRdqnwqwBjfCaTFBeS/HzshejoupwdZqfJSwuPBE3dSnViVZU6qjPHg1+"
+    "ixtr8i5jjeOz/PC+Xik+KVX9yk3ruJR3HT+qDb+oB3Q99DxojRHSS0UceahitkGONaA9B7Mg"
+    "zPwtsHDJj/lcezK2e2Q1tGZJmoJMSQPKXdavqG4R0BKRKt8XCE9hVKBsvx5KsPdm6FZvg0/I"
+    "ZzHVUipcalHSxYb7i/yrgEjPAG5/bL4ZPvbNplOJyGWVhjPOt2MV+ZhFbUZcZFimHefiSAB7"
+    "j4XXRMcbMTWeAZNpZL5WdBdf7LqF31z09tSNr2aVPdzjPtobW3bTzJNcnIzzs22iyBl6zCJ5"
+    "Vy+tfrmP+uCRZmlnuvFz3GffYChxaJBnkgjBHfTZ/nRDVL7cXBM/QcNKL0JDhDNYa6ABYPqT"
+    "RqGFdPL8ETmFo1QmdpcaV99f2WVASAe60fBSCq+HNinE7m4IQVSGQE4abBFd1LvFoJPuW4ms"
+    "bRjBpfSxZt1v+V8O8Bm2BAdfg1oD8icbpDN0nPUm85+v4d1z85hByfg7h/3EqZFbn7BmlbJc"
+    "6abN+Soy/NBOIebza7eZShjGfBvkU7hvH0ZHpUvfVTqOcxOWZTISor/K7SbVjO3NZgbNQXKs"
+    "zJJ7Hs8437IAT685CI5Y2WWcu1jwnkukKHXebI1n/SkRcxoo96q+jdmZRH+VIfArDfMRo3+H"
+    "fYi9UcTjd/CPwSPEygncAgqOPNxe54TzWhSmr4IZbR3fp1nBy2w+baQQVtsSvu8focEnYuso"
+    "kjl2L2OlWb7IRZ0GNXbQ45+aMDHeH+lEr1HoDsKFPcXgvXI++lUJ5ZvXHgMFQPEAU1zgwNEb"
+    "8imPewjbxoIuYY++PVXu665jLvI8IYyZYCK/Swej3NLh1oUROLVVRYJSd0paGHcZH6MJ4Gb4"
+    "00KNbCdknGRnR0q+WGaPOPbt2Lng2YvkuYQgFzdlVw7MoMHdGajGzzqPKdPWbd9BPFEeGRxU"
+    "cPDtZ1m+xV7MELfGXs1Iz1pya91pCUthbw7cCWP5BW9rtITtKyhklv+8X6HQSnv2ySl2c2ax"
+    "Qp/e9+3sbRMxrPO7osaKE+ZHtYcntsd6vM6XY9u7rQsqgaWz/oBsHgZD4lRA06jwq26heu0O"
+    "1fjFfB6qD4X99jljR5w4leclhPEwKkWZl+dt6pdd4sLctheR9GX2wCDB8MeWYqoEdw5I5qMb"
+    "88jpEJQd0iQOh/GdY90+rOC4NexdtqJrR6VDscptoBw8DhsWXg6Eh5CPKfDwhk+t7Ng3usxJ"
+    "tuQHkxE2eMNYjGFDZ4tLR08CwNcciN1ffphUvbJ/GViNi4rmsCtsWmOZQiubbSBdtY15BSbO"
+    "5dUwjTjNiYNlXwWa2aWeRj4FU2TatoqCFHs5vIkFk7f1VtvPeXMz9xEc8sD26pB6QBwDLAVW"
+    "Fvv9sUC9UJo97mkQm8vQnqehNZlrF2gw14BlEDOiivTg+LybIxZikHdrM9daK1MoaasNkgHI"
+    "HZbQDtS1vc95pyX1hQM7tSx1Hf/ilE5H7MXpZ0aIM/fa080OI21gfTleL+6bI1mKf65Lv+6Z"
+    "ScyDrGd3rgVPsjLduXScSdIIemVA3GbBgdT1Ie9Y8UfAAcLAW6D2K2hiJJusoEfu+oO223uW"
+    "95yq+h0t60eEALWfyxybq5KzH/Xjp5hX12EPb1DnXx337pBX0uNyEJO2ey1JA+uWeOK0s5n0"
+    "ZVTtiAqAa+nHXCntXVkSYln1bGuAFqQ7AtFd1WU5571Dba8X5v0vcq+3LQxCkQStNKyCj47z"
+    "2uXC2vZxwb6+tGrVIRi0aVB9fKiEQHD4aKZ79WutT7lzgMogO4Z0lESoaSNce5E6HBPR69WH"
+    "uhyB+0iA2zIimpY1quUAj67NyFS9tFH1DVzaUjfE5M2fjcUD9xon0vaYXlmyrVF+j7R/cxJH"
+    "vGJoXCQvdSN2ZDRUNgmH2ZM1DZwSlmFkVtyJ2UY8R+k5suJT234gaCsQka+hbLFnRk8G5OEv"
+    "VbiigicyMfyl1HOO18aXV9BkLVngV7PIUwoG8qbWnAo0cQ5shVjE0wPVyYEa+Q4baqeOxv88"
+    "EZCmjYSlHKxBJ2nfvdidEpwyNvIm6A+MPmq6uC6nqWGd38IMSwCfj0BXrbU7ey6c0+Enmxoj"
+    "27tTTVTlF3YOJhsBp75Ima2K96vaqr7FiMthPaydsUa3S2tXV6Vvnaj27BdYTmuAP0B4LKfE"
+    "PRDs7p7PxVqsr91ywMQ42Yq/2rYdXK3HzbxTMVDQlVwxlSvugze47aMrTEln+sZ1YjlZ9jbN"
+    "svfZzMKLHNZbzAPS8woGPRrn3iFE8uHo4xhr3Kvg8vcBNBfw1+4JDBt3cBimWw/hG9Hezp/F"
+    "o37sUZXFOp21j5wwV/9gEPLOvdfXxzzfcxtigQv1/cF4MiftB1NiAMMY5E96jkpF++Inr7+D"
+    "bNCUWJL97IveHA4UvatHG8Ykgu9mGYmTX4DclScdTRM80QuaLFyaqUIuyc6KmG9GcOQeEjdo"
+    "LagEUOCyz4QoWBpljUP2bbF2MFYOE7rn6s5TbmftgDJ2pdheIUlSPZe8NeBIcO/K2fZl5MoL"
+    "47FuSSE9tsDl272Wo/mfvlv28YuP6D+c7d6lhVqx9KvLCJz6446185lY3nB/OGu4y90ZpkQT"
+    "9OHFfn75l+Cb9Px15mjPwNKgN22FNV/3yvY2di5qcvLYvvZdGYGYNh+CuEiy/GEVURcq71SD"
+    "waoXmrElV3NjF244mNvRiEX9qBpdaR6azJYKBexPLfS1+61csMQLRhw6pkyIlTh0mrEFETIX"
+    "ex447saUW+BLohS9HVNSatjgokcden0r5uPo0zJSF96My/xlhE8lvyKN3JzItqcGBSIKgsHQ"
+    "yNAh35xeDcrhK7rhK0zs+SRwJH2lk3fF6EkFDBtbAU6547HzIuQ4yqMngCAknHWzJpcTfq4B"
+    "oH8vcHHRgnByt19gQIeO4/vNA0Duxt7ouL2BGp2isALu8bWhXmnhIUrfuxZBUXGP9iogd/eg"
+    "cO8R3qCM8mY2qsU6Bxub2fg2NkZ7pPK3s77NfJYvuaVwuYnahUQWdb4tPV3WUfuassNb781h"
+    "WVc0vGdaFfrOpwJ/GjkHF+jVMhrxzknZVUcss4SQQf1ba7Tye2jfTBHUBXHCcVhXGkDek6NI"
+    "6Nb+vWlqPCUO6yk7GrwXfJWUgKNcW28wvL6fKmCtc/TzjQtLsN9mzrhKlw8oiEbmnB5f4wGQ"
+    "vCs1xSHTXbev9IjN8UZpArwmIA7Eml0nokoRwDxMWeZzmNJYb87FJoJvoi1PvFoMN5InSkjC"
+    "fcwfiloFcUVq8oMEnGAhMaSsR84hdnGXxQngBP860x94+5xWEVdeNWxH5udUWY8XPos9VUtN"
+    "BxTJQ4JPNzro+5jV+9dyAR910hf04QZyo8Ft3HjOHCW4SmD0ozub294d3vgiv5MQMvOT17Ql"
+    "Iu+k7QydyUhE8u4JfDpmQ9lwjyyFet5e+0To0cEMje4Y9c7ZJHmvVF3sh4/x2/CxXbJ1mytU"
+    "a7PPviw8f/b87HmPx1cEp6jenO+q6alz9VizRVvRJ99akfL8kA684aKkBLylwVaFXutR4v5j"
+    "ZVUfJhoU5UTdRiTerxTNdhz0FPCZqaNCS3sgYdcvdFcIF9WvZLVRnlc3fyeG4dZ6aqEitVaf"
+    "ODgauiRA5MPRQiKRWFPa/lrrWZ8SY36dbH6TD52vuVcrNRPEV6jSn+0Zqc/FGqw+9syW3GBq"
+    "YIjWY+ROtLkQ82hNXW074QrQMhHQKCF1zElTQqyUR/+c2DTJYw/TW/Ruw9NEVHzdn11ss4oj"
+    "20dfXgACW0fkKshXajeDX4ETrQGBlbISryYPv45aJJFtvtM2vnV8FGom9mq9+CnmOYtKC/MB"
+    "Wv8BVEYzdesKzPsNjHbRooOlw29MrYoTxduNaBfCCxGTTaFJDpnuN7Zy3jn9NrIg87VPtPwm"
+    "sTa0Csl0Rh7V2l1v0Io0rqbydWV2OpaRCUW8+Ex1I5gOI4pkhkpZdoTc8EHgLd8KOdYKMVfg"
+    "+dt6FMNIrAWwH4OVzm5xS4k+88XY4yJNavJWW22LaaaZGfOCb8jVS/S4yzCBNLqL/QkhN5CK"
+    "QL0W6ovimf14gbWtXUuN/jIIhD9GY0ssXWIXyzFgfSZj0ywDXpJ6DaZp1G4iW3bjg2YDJKfS"
+    "tUGDgslv2aS23lwUggLADc8aO76P7iQUV3BWmLzjEjyoHQKd27p21kqxpi+1bAIivh7R8noT"
+    "Sb+HXtlbfaQ/Nke8Fp09DNIGZQuhUGdDZCHuaYhA8iqhKYe4gbrjra46IpnbW/eXMbm42PqB"
+    "/c4RY2JLFAFNR9s4T8D+3Uz5y48Cn2uo6sKrU2uKOrmj0GBGRQeYO5fPQ3NSCscUG8XNXUv9"
+    "1SW94l2bSqZYD1K6NMxxoQ+38FWfEW2VEO79R/AFqeuJ9SJlP0ezpNbvuaqcfMGcp3BArebW"
+    "0pAxoJAcgfqK+btmFqqcDejWWzQJTw6iM2aquCe4YYzOyksa50AI95Q6qBJPEAG2ZADgGbJu"
+    "CFU2Bi89OI287sWAu3cqzTxdAKDfiuHL37fHaFxbIJ3V1D8n+8pp+InxjgWM+tKABAuYAAGf"
+    "1h6KnXohpqr7qJp98Ku+CgVg3fEtp30FkI4XC32w9ol9I1Spaw3t1GjjJx0km+trNr0DUUqY"
+    "6knYkFdYjFfduZQ6cPdlwc8LePGN6TeivdzXEP5jA3wyWT6L1Sr4FYpQ0EHlpcB1DVWSltVK"
+    "C0i2oRcr1VJXAQwuSUoNgiLyqX+Jqpp9vdO1ZX/PdgeTLYkoxpNe56lRmWC5Vtzi7nIkNs8U"
+    "K3KmhF1bF4lsKZsNoG4aCCrsn2iY3s8/tvRLxKX44tJrigzzHQ/C6wvzLKoWwp1GEFc3QTLx"
+    "/sMBabmD5zlOCRsvwieTAwSq+cD+U/mEUjN4phbuFFjXtxGXRNTo/plUbMN2sXPPJCOavM3w"
+    "KWQZVg587TyKvNSkGIlezT9JQm8xhF1eC81Rz/4BOBYZIZesDy64ubKohv2M3CH3aH6Ouz6U"
+    "oGepumqaQhN/LICiF6FP8GA8jTnURqVOSFqEMCIWi4ASQ11cc+pWTvJyLUfJZoEXfFso+kjb"
+    "2Nx0vNrxtpPgDp+n7TRtj2Sno9nMy4Cs3PF3NMSOR7ZiMtGuBQJnV0/ER+AtSePAboE9sbQd"
+    "VG3q3S1K4gG5+JB4X1/jvLqrP5suQg4fOqaH4zcPVNNXbEdQHie6UPFjcMN2lNd+wA2Pr63n"
+    "sW9Mm8XXs8hmx7mFVfd9zwOFZ9AkskOwOrb8cPV56x828tzKsvgpKGIN84BbxSeN3vBGJ6UC"
+    "4LDJy5V1/ptuQFRHyVtS2/fghBCeFuXcj8ba4ka2ReLOb1N/8IU3Cw8uBdmqqGXD+QYFsOGB"
+    "GtecWJyjWmwArcrgHwaELuhRqucybmuMMTu942Ah2B4k4GWiHSs89N0P4GOdH1zbjJi0hoth"
+    "EaBvQczYi0PBk45ZqCyi432jxeZEYlx3PSub00ZA10I8be/hHnLG6dM4Vq8ppfvgm2+swPGt"
+    "z2XtPq73dzsQiOLjoKml3RuigSSNjEGIwxLgWeU9sP57j9ZqR4yLpnFGVcWDiOT4UwyLtiJo"
+    "yd+19OwWMjkrcDKEN1Z7WGesGFjbsN7KBto/zBWcRg0mpa3x0M+gczH565D++e9PXHW6g69B"
+    "z6nd/PNDp2qe2QYv23c9bWRyDySsUmpvxYnjCEAQxaBL37gHjkflshRJS4tXx77+QPVKo12X"
+    "laFvrE9P/EKiWo93EvPWZvxVjVUcbJZ5pSuoiJEUH8KUhrL3uUJOVbfyn7HL4/DfyEO6GYJ6"
+    "BPeBZ1sV62i57ut+2mjTyZW9RMpG4IMRnMMF2cI3l9IQc0gCW9QHMqcQmJnSvk84FauBiCDz"
+    "oM8RvE/UOWBoveLGoyiji42FigvYPfyec9S5jNXubop1eX9EzZ0m/CqM5li6bm0FSjY93TmF"
+    "IrMDrBosGjeGxgSRPg8U84TG4ruTUvqGVg1iwSPWXB88RXT0g7YT6o0G+ECCkNyOcvs9eGwY"
+    "7CQRuJVQ4CR/bVCM40dxG6uOUAp4yefIo/m0Y+YNzdH7qV3HjemSgwH6NUvF5kZaygLgBpw+"
+    "/WaxTgdjaLJSeX0KWtL7ZX6DJKW7aPLcc4KGQJ35mwxt2J6ZNWTdmEH/jCefrfJdKu+l8lOK"
+    "dQcr9FSk0nEFc5/0NvbZiuRlc8ygvoYm3f7VluWfxdiRLikSHdL3sv5YugWp1/vrRwX5pPle"
+    "FArE4nks4eZPB+VLg4PyWO/NvezWAFRd+YmPjW/Nr/B93lJNMFEFKEw0IjQV7/5YkGgiOZJ9"
+    "JIZ6m+6sB5NJh/k28ClcBBUsGY37bIjAXO1xcRXT4KR9V4JDhL2ne4Z6+8+Xyw4wZlAGCGrN"
+    "0woJwRfaw45K1xOxMmO4AxgVw6FhRlsvzbKLnI/Gw5MQIKQ8xJjQ6xh+Ep58sEXywX1zR9bX"
+    "B3ihZ/UpSiAl0GVJFEo0ci29OZGR3nlPRyVRFogXIbWI934/YxDSz1HL6Ml/HlqLFcJ5Xhgk"
+    "JAQvnB1Dq0jovV7K8fSebimOuqz0McQynm4w7ZqFsFiOs2HPXxQ04QiEi7iyEYY/6Ix+NcQB"
+    "2EXh8XFzhYd7yHN2YB8ziXZj+HfPodYD8darnmFUHrondVPhV5Dzci7hn+1PJ+ME7gqU6LPN"
+    "LH7AVubPv+xyuu4aFDXiJWCPi7g4gODt2McjPsbXL6zYefqe6mJL8rFTSxoG2U0Ax0wkZcwp"
+    "CmO2X7gjXn22ET2BL/c5745ZTLm8luOEZPZ8ZRAFORmrpPjcF6Pvz1ra/bGr55ivoHVbbKVR"
+    "nNpWLzBkPXGdQVzETEnKeHEVBeuBn3XtdSzIhJm68K6EZZSFYgMqah6E7Fzk+VelUm9MK/i7"
+    "TE1sw/wlz1uLCo/I7wG08+rTRwVeHH3HG+cjEqk2mgSBqX55pDuaAYk5P9JrGudweATtyYtz"
+    "4uQTmqJZnyxB28UhzKcld9ytulTfm1t2E0tlTp9R9MP1bBSNzvT6xn21bRdMGk3uCQdIbGUQ"
+    "InxVj4k7iFfYYQNQr4CUVVvWs9LHvTaWXt20ovjMSHC1nsvoq2wP1zFnf/NZDnR4uwPpWyAx"
+    "mHId1+V+Tp4IOHxK0jhgPQl9mnAb6daS1dtZ4L1irmmrAWgexlkw2DNhX0B1fDHP80YF6BO7"
+    "P2ed4zBBg9m86A1MRWg3bHO8bez2R+Zp1DrxJHWFgoU24s46FifArLgZRaf4WYlsvOoMz22N"
+    "VPVgTyysqm/wJsLcx1Y19wrHuqZ/v2SaiEMJHXjVUpb5M6+PyX3kngLKwUfB8b4Utxm/ImLQ"
+    "xh1fwzrVJGGd8OPC3Rf7u8ygBrnwF43bH0EolvOrL6BNdAUcqfqVhVs0IuekLY5F2nAXWT1f"
+    "kRtZbaGxJE2SbQ0IbQt6vXXtCBrs8mE+/N70y3rfXQ1QfOJAYJFsA7cbRugsm1YhzYIYurjX"
+    "GCtYfIkkfZv/Le6Gz57IaIEtUP/0q8Zz3/Um9mamFuultAv6xSa/XLdyBPfjzDessx4BKKT8"
+    "ZyShcDg+zPkgCFPM2lT1OGGKgWeMak7GV8ewBwSTjeXs6OuUNJpnNlubuOzYlYq/L1E6TnWY"
+    "iP5uOwtdWJZ7qQaxORcsLtxAxObKA4QFmLevvJPh9Py+eqxHcpjklna3X/+dFKQGbltl27i5"
+    "29vhkg2NU3/eotPOuMxcX8d5Nn48TaZ6b4pjwwL8AxMrZwL2Ov7adFwOXD8ruDdraknhi1fm"
+    "VXAt1m9eM92mZKOedZ1dxfNJOOCQ3OkjmR3jNnu1gehk+Y8VEoo/kZvp68DlzYCmGTEU+c19"
+    "QCMFQiJ9z7C5pIeFJtSz42WHLEsLGj0DPULjVprAjtS4yzPXVmTFDA5J7/605PsIWXj2Ny4o"
+    "YgWSOfKZ0UdicLhV/rJOftxxW2B2T2viWTJzRc+UvcS0HlXxRkT8RBo4mBhSrsQfNfoGe3nQ"
+    "OmUj8+ilS83Q2eG1Ku39Jy8mOWuCd6lPYipPhPgGkFw3lchhqpNx32+rxwoy7ureme3TJcyL"
+    "llvHzztDN76LcaSd0n/wvHqfvv3NyprlVC+MNp9HoruVds01MPs5/FHpSMjzZiwfcKvOZ1hI"
+    "xNNOP1FOKFMnEctUU9Y6QOf3BccqYJ14ASTINa4yyT3raViTZy8mtZ89dtuBjo+9DKUAx35r"
+    "tQssL8kbNfIy/tm8McYWUKFbGGkKF62xWZhON8+9bFviz1OURVLhIu8Rb6FRGwzVa8AqKVzb"
+    "6tnFxbPgBBX/uFGNn3sOL/tX/ZJrclN3X9D5vKqWGTgCOIfwn7HunF889VTcACchD32mb08E"
+    "9QOuC0vNTc0tfMRWnmcfUmbn9wSfgjZ4gcJEOPfbewJLBRpUvSdOrjUBmvW8Y58cnbiIFie+"
+    "rbw4h/RZLUSVsSiqQGXpPKVap9A1D9ndCI0Wfcm3xqHTVUwfmTeXjd8KdTEsSEQEZS7+HFIP"
+    "aNrBzzbNnuJ0nEaw8j2zr6cX8vf99omfNzDOQobOHbAALMuH2TnbGjli7f5nSRJnUPxLqGjA"
+    "k7XXHN55+FsuEixnJnGlec4S+80a33f1BsYXEdw7C36eYJ+vDwFT4DLu3JeGet0SYuvEqwnu"
+    "29jD+zUwP1GxT24AfGrGg7bjN2XZESN9bxpdxMa6t7Ch4rY1J3YhPHIbYNt76H2GeCOKZu5X"
+    "KC9FgfJ8e45igX1TXwG9+DWDHP8tpSohBGz9ZG4vzbdmwT0vh+7R6hnXeiLZeRHy7R6g58IV"
+    "3S/SyFo38xrKuIGljVpcYR5ZDik6a22RaXm185GwFHwu/XJWNLGp9dw2AbvxQbNKpUalq6I9"
+    "MT3PCOvVW8kaTH90IkEYXDlqnnwWEd9ss649by3oipa06q3oY49iuCM3U25e5hua65HjaheX"
+    "WWYq4Mbk+ba+W4e7yfzzjO+ayXpehLegxr4Yy09A8yEwFbhOdhznQbVb7B2JzipeTWIhxJHL"
+    "DR3uQQ6SMi+cPhJV6DSXhBea1b51PIODfSpnH7XpAeHNr8Gy3T9vkgaJSER1vFtYOwwpMj6l"
+    "m8rVbi1p8oIUXn14gLyY7WbUSAhO0Hb9cNEiESv9XUWyVYP0gawNpSoKFtCIN6BhfkZCS5Sy"
+    "dPllRmgknHT9Ov4FjaTCWH4wCGLC4NT5KHSg83ZUn+DiqOeX76j92ETe0UNis9UKy+LryK8p"
+    "xVkJBaxZDFF1WIuFN3IJVHqzeNzDreETBrGspEwlDdSBTXUnXtXqHrjlQvt5xebYgSjpgp/Q"
+    "8r3VclMYa9+97KWWjLMYqqyGw4rQcdxn8M4WMwCjfNaXo9Z0Ymk3eGiBzvOppcw5GwHxzu7T"
+    "73NvFJrluDgJXaHY5Jd/WkT6sbxPIvio+4SQDaAyxBC9p6eKWn1UfEJ3dCrS+RTuEiz9LOpn"
+    "j/U4bpV7JUo6h28SYaZPmt5/PBbBpFuaki+ScRkIj4HMKXj8nMM7Qtja4nO7yO+lf9OmkMPs"
+    "HhDkMIYAG0H2iQpZV5pxKfjs/PO8RfIlkDG+Bt1Xj6vGMEApeLhi9YIBklSXZ/mYqFCNdJ/a"
+    "At8A4e2um/wC0cW8D1ruQGn0N7sU893vCbw0A01k0R0FtSR6HMqSuHq+hlPM5DI4dkYVIFQQ"
+    "4e8X9fSRbzD4Ul1FtyLyxmt5e5wYVsn0zCYvXWn6bUsPGT9bXfrN9MejfV/tlONA1w5L+5Yt"
+    "Jk8Sg/KXrfzH2l8US/gDHTkvaZyWKq5LXeACjsSZes1YNyWSwvMA/bmr3U6rHw0XREY3YAnQ"
+    "rsNmpqSNKzafhBAiji6jNpKv/dMFiq77TG4xUfn7JtSY2a140atMnHy646w9Aqmuc+AXyqr/"
+    "2czySj4csjwrSUcErJBsZmTZvo1IEEs/fk2kLwNpYcOIIL75hhpKXziGmNKou9A6ETZy7xOG"
+    "hkQn04uhlutsenPDMe+4n2bgHpvCWRdidUJNE2UArcfMn3Qoy+f0Jq1T57wc9ssCPWrGCncA"
+    "p7pVPjDD0vZjnXL/aDPKjyGyuJ8tAyWmpOmJ/p5yzuZkh8Kr6C4mpnfeJmUGhxJsWVdH+CkN"
+    "LDED7lJfZMh9beTxgtSU/pmqpq9R6pdau5nYE2d8l+0RanNtFayBpkVYxjvfeuYkUZ19nfhk"
+    "f6xq9NbL2w1WVaSXLzewTkULmoepQVzTgbmw1ZxHHBn7yueudMNBsVNanLBabWCE6Y22Aynd"
+    "tJTytDOnblzKfZECz4PXZDCxqrWVSRnR04EHccFX9xYEQ94f4P2QG7lzeA0HXMOld+tbjbCH"
+    "GqsLVqx4VaZKwrMZ+hDihPZRCIkHKr6aiT3/a7a45Q9WHmD8SPbJwDvcNorZ8j7aiLDAvqLi"
+    "6EolSwB4VwOXxnLutMC0n1srV71QEM8dawIiCKrIcgGJDOBOyvB3jcr963G2fKDG0s6U/GDx"
+    "iSXCvNOz+XrLSQfQnD9hbtPPibtr6Dw/32T8tLhpduK8bKI7iAhYaUe6Q7l5hFuWk1gt1F9y"
+    "AfMcbk7sGqPdUumrXodkrT9w/bC3tnYw4L0+IzdOGZWl1Ju+Z2YzQ3hP1g1Umc7uY158HWA5"
+    "o+fUxK/skmC01e5bltm7PJXSl93A8dIeUQBz5E5v7Uo+T2X1C7Gr8Iny7hTII9aY+LryLKUJ"
+    "krkTOeaV5L4853PljW5PFBQdUdOMrtceW8/ecF7vL/eBdbMYRSKjYYQ74ZiISx2Y/2A5amiF"
+    "0Uw9kF8QXj7x/IUkg5nJOX5WY86oxXR35kNY+kx+t0lFXjNjlpCz8tFH83SBmTz56uil0R7Y"
+    "e3C0CD4PTlky91k8Lryg1QrCrPF8B9JJLdInP8YBHxNc3aGZ957ffse/dUf6fmDW84mxt6CJ"
+    "/WNhk0Js2gqQOP91kNKS/ck6FeQTyWNu9jlCGMnaN3q8m3dDTTW4AuPRmupy+Hh0kVik4Xrp"
+    "cDxb8Ap8GxTc0MxCvNI4/3JvY/wFYITyo2DDs5xm+o4xvaPMXc881HGexj29iG7rvNUZKsrN"
+    "GIYQ2W6X1roMuguYewlx3iFdt6tescS3wkTAp1bVh32tCbJiPVPJd1emO/YXIg95+GPDJijr"
+    "DgLXiD1n+9eeooZjmT3aClR2tY6gDljJ0nZwYp7rOVe1+tYzXFd9frdtSG0Yh1ytzWYVo5VJ"
+    "xQkjN/+cvmf37hZtw5R61dmsEalTu8BNX8SqhnXfNeTOe9b772h6VOFAue3po9c7Va8Y9wEL"
+    "nqkJ3l2+N+EewJYHxQp7rg1TC2aeuEYUFZBl/fJIhV4Ft30qtwwXA3MRT1/N7wuYpS+D2qav"
+    "xkYXQh8Gvd2TvzaxYYMInJ/V4fW5MbrE1RL9aQVi+S4J69hWKYQM9ZJzDQZ3ZEDhVNCQYNPt"
+    "4vPpbRpOF4Xpkesmr+9OGhwFyMjDKC7INeoHOZkvR6tJBw2YHJdSlx80LtBzLPsqfsn3efGh"
+    "7Ec6FU1Lp0rMy32z8DG7MwFT0Q7hB3E1SATBHMsJ9Shg4cnJzqRTNIDiuEM2saXuTNFq0S7D"
+    "8o1NcKYhn2xdgF5Lw6hVRp7tJ/vLmKU73Ex9yDpgF/Kanu38dKbXpwWKkrcXLWeRWbfzwly+"
+    "6104e1wfarHUh9/zHZhJwnVgm90rm4/u3nKh2a1zUAoIq4ctWD/Y0V/rEIYCPK8YRHqloxcK"
+    "CPunmctdil7AIuBcIamUTPTOoDbI9ldABCemnnWs/Imc6Oj+z3zeRDh9iWszLFp9E724Yp3g"
+    "IRE3ZlQOmdmQmdemyQrsIqWZXTkue0Bxt9Y9q+nw5Dhe5ujwtNg0xxeUpGHiLeyZWC43OajH"
+    "vW/REikfMnL15Q5GvGL7rIZOwnrLbZ/qKWSRq77nmeWoxg7IzXMiYOsjjRB9HiPZJgxXd89z"
+    "XzLb8jyQHfZG6dpIlfvDU73ARNDlgWtXU5/ROuM3jcXirRvNyoYqe4CK6+UJrDF8slu0l4QX"
+    "E3Eh6cjQA2fRQ0bo5srzkAIfm5ov/MeJJ/Qam1zKIqOSEODCBB4ceD46688V+DpTBNLB2fZK"
+    "dcFxsBgewV+NGmzb8MlpOG5EaA2bq1EBIEBQ/9empUuVc9L5yMoUYvkGShrv0DDMNRjneRVu"
+    "6uvQQ2uI8bzGQE+2WgO3pwSLjOHx95Z97DUX39JrlJscW8k9OSAdnkWgQ+IHyeKu5cUKIN4v"
+    "ynwJylFHvF0UBxj7/i07lrVEnq75ZEASUZ+wp0dNsHcJ2fCYgNRpvGkh+sC9BoRQM6Lnnhob"
+    "hPNWfPfNoSiALm/KEMDkg0ksT2Jq8mUUNtA0+zn5JsswmlkmCxn20y8TbwNvlAXPG7Ul2GOf"
+    "hyvhj0AXxqzDNJ8dn861LPVNUhUzCZgW16jm1iSVTZ6xA5eSV/ObyUyz+B95MaXfN+Rh7a41"
+    "C1RYJpt5u/vI0t7JTfHRJmek5KDC9Bt+FKR353mtWs2ZpMgdPteAGLGPnWGfsAqzHYAMV7tz"
+    "TPVRR0JIenzI0xuko+EhVNDaZvEGi9mTx/b1y1GQtUBdzenRAvRj6MULw2MxDQ/saLq3dzDZ"
+    "MVw4XcQMON34rHg8+I0/B6Ln+10KdQAaGTrmbnwLZvNEn3eJZ+0TX+IAcH2K9GH6u3AeLT4g"
+    "ZckSmlmtiOX+6WDikeA5FwxFFwQTknoi+rOiEudL0JqPYcJsbXhLBcOASjvTDwGgGshkbjUo"
+    "xskOcql+IQtLKUNKO0TjkvGc4MBAn6merbZtT7J4zwRE2kRuUeuSIgbNwVtb0yi/22tJujn0"
+    "smbnofH8Q+d7k9mMxqtuHfdW6AVvXNiGCO7F5vBgX1w1lXgAUYjMkmWUkRRBamFRTLeIA2ci"
+    "d0OPr847EmRQvzIK7PUBpIIKWxH7OWKHsTSccpmgkDsHkVawNwFR4PTQOcZmem5/+kGZLkrV"
+    "wrGnO+iEy4fTF1cvVl0atvQ3Hb4VDGw++iZ3p6wPQEgaJS8hLjJ28aN8ax/ZlJEenvMM8SWT"
+    "2AMwgNFrGg9XMEYXld/ysg0iEbi0gZ6IvwHOIn2kdBPYmJ6/TLRPI4speJyp7Y+9m/pz6mDJ"
+    "bGpr9vAGTeCzDpBzYMiBXbZlZzw9al0tJGJEzld5lEHm1pswCkU9pM5O+cFb18/GC/1aGiLx"
+    "leb1fiNWZ3SZh19fwMbINvGm2F0xl03tfc/dxkeJojYYGrlyS6pV12UWTcuMJYtLmupunJNM"
+    "G000YIFxjavGWkJNJ0RabtxJvOB5T4GteSP9ndPiuPI1XOEckcwlHPpQFa7TQgBKmaKJUziC"
+    "jzvrWTi8FbB8i2jEfFT1oz/EUvh8J8RtPx+9/fIrJDUIU6juYyYwCvdoM3YW4294OwAqL+YL"
+    "5EyvBDKeZg+Frbcd5qpJ0BpvRPEm0yveAGf64eyz0WOSRhdhLxZD2jD3/Ha5LocDGgLnh6GN"
+    "DU5C1wYcOvJCXmVwo64V+CsGIIzxDSK1vQxByTTL6tCGCdVLgxdRfvwH5H0Y9D5anFKCyMcs"
+    "0Ko2t5mpuYDQl3YFz8A2oQo8M76RQdqxIHMQ1rX6IRM/1GF3oF9iS4pJCMKvg3Yqxr77iWdH"
+    "hYTcL0GZkLuJHCz5sMg6+PDFunsxyNlKHcctMjq3xVmalJoYHJ7gmlC3O/2MuXP6hedx8m8O"
+    "zgXnUbuHj2WExhYSmATHlvzGAayA5ttVnmq97/mDpfL2npBYdBqtH6O+BFyxO0ngzoD1ph2p"
+    "7gnRjQD5Pq6GXy4SoH0bUy9xZwkyLo4Ncx8Z2WEfgUaChMjlH65jLPve1/MIeeJptdEQJgyv"
+    "tTmIA7PBOJItGLWh6kO2NIWUsO08kWNNLUzgxKkf1wZANlRgArodN5TLKwuEn26/J+UWBNKK"
+    "evwg1mzrPGe1p8WpTlgq9HEJwNFiiZq9t/UD34+yfxHh/sqhFhMYD3TmVRGbvr6515n50jSA"
+    "Wekyioso6+z+Np2H3NucyxY5hTn3i0vmMYTMMf0SyJUuNPh66YjvEJzgkyxN6VRGw4XseNTp"
+    "q5XMAvHQKBIsMZWo3cu7bwcOXMWalVRI0ayFU6fiqu43PeqsTkPt5y0WSzOfzD5da+6XNM3T"
+    "w8mYX5jzHd/uzQ2bScVvKrYb0uvjcoSUy1SF+xhmg+X7P8I+rc/ajIvVH1Nxrp0PAp9Lep3I"
+    "6+EKFjcCrntlynSR93l3n4itH0w9LsGAOxPALl6r9RN9FV10jPRjujiq8qDTmZvZvPgoJmkI"
+    "9fz3ShHiHReJXfTnwpr5bXmxS0IkPFIcna5iuziR6+pVzriUTisrtQp2lm2OD9OQ7qNBSnoP"
+    "g6IM6ZcoxYX2dic6VtHzFaNsx+mRYG8aI2xxQAXM4gS5J7EX7i+XA5PhpTEaGW7280v84ZxY"
+    "2Hw7fewZ0Jt4fRWigxN5tKQVbv3zcY/NxNfBxMLELLS6s33kwaVmZX6pLe2cwUL3saFoo/CF"
+    "/MZa+upZsJpTuHvK4A3plTiT8hlAgFJZEaEg/mXGCl0MG20cwqqT0F1LRekd812/8ZUfM5/z"
+    "wlkLRkOG4wZe9rg6C7qsbaC+S+NUF709MM9iDx7aIopwnWmt+JrBGeGC8OXskwAcNMF/yzWv"
+    "PI3aC74Hx50QLGfZkVhK548RDBfuwKNaYIeQu4skCTGyS6qK41m09YcY1QZd1uYnraVDX5pG"
+    "SO8/ownl65tDFiRtAC+/vxnCNO66AEOiRhMuErEdlvv+UEl7uXea/ljdtQf9YJT189IDcbiP"
+    "st62G7hFYpK8NKTJL61xqOLELD73VbC3qqALmSJkPE27nfVcRlAD054PEGh/0Rx0aIxTeQNC"
+    "fX9Cp7Q4c/ciVKK4J2ADr7PZA6HOoMXarqfT7y2utT1rz/UPNtIQQV1sqadXLGo1isYHi2SN"
+    "DVZVhsULEaQv2kTHjrvBKhIa0B3VKc6IeTkjaU2WwFs0tQKZJyuB36RtRTdePxAuVoS9whcl"
+    "6Oh0RawOfWPNl3VG7Q/eXHjK+ul1+Ho3hzSr5kQwe9al34VGsp9is+mn8TXi1iA787sDJpIo"
+    "m7oqG5axi+HO6kMW/ueMGHqa0+pvM5HEh4IJfOggMO10nqgsLLhZInEjN3kimh1PiZ3pEGBe"
+    "3Hgf+OyOUFLiF32R7qWGxLqQftI99+3o4li1/c9Hr3ZlrcKn/E7duiU4aVQL9WgOD8VCV4hZ"
+    "K707SdxNTlxj8Cd+Jx3+66AMXipTgzzSRoQ70kw5LAbgFBUNUos90ZK7sO0kQEHvnVIZpE5L"
+    "704Xc+BDd2uO3MovbjUTC7CmrNE7LnJLYHjPy2dJOVhUGgHMy5RcMr0iAVHnuafy1XHr0QGB"
+    "9vxunbRPo4YJjEk+yE1UKK463p5foZgbgPO9NwmV7wDP9g0XJH2AIR58m2fhwUsB37KKRHnq"
+    "3d83hJ9chueuQnXqpLdIWHe+zMrNkcy1K/qMCPZTPymhYWuQlLpnGH5vFISgz2RysOB6tE8b"
+    "uoHYrSdxE49wsfmO2cDe5DyO8t5ZloAwaIT6BC01LWBFXlmGhnuShwUEN+G+aG6hzC8SCSGU"
+    "jdAEjIiZRqws+yNHpeuFijbK/Yc9QQYjF3VE8jnurRInl9kGt1ez71F1Bz/Yj4p5B6ge2A6v"
+    "1JrH78J/6vbKi71scxm8h1rtkk4CYXxb44PaaaZpaopOjiC1OXIGhCBXbxigDXbWE0XhGUiO"
+    "BU67u0wfbq8asS7otJuyUIBlJsiNBdyFRSRt06d/iEO5AOVH57To13IZcYdHIqcx7wTgHBf7"
+    "GuKjbeNh5x0CbY1pRo3PxwT6D1+OL9RM6Xdml8dVxFeA1YXLrUl9v7FvhnO9oZlaSMKrHQrY"
+    "6Dbw2L5FszC3Ra2jJmaKu31n0qz69Ftr1u6vT+Rxn31VzK71RKq0FrmYBClfNkpehHg3REL2"
+    "BWo2nX3ZAbltpAFlrNOlNAVhp2/klWk+SBWG6DO6Z9mcEwBt75yd/MT+ZEEeYSMeG22cZeAN"
+    "SOhGc1KpoRUFN1y6IOu+tNrLdB7EGe/QFwFQY4vrqRXuGBlVg7HG85KBjyjW47Dy/SpX1UDM"
+    "VnHbtyw9zLbW6g+5NmWhogyDDCbeq7x8zOV7TkymfW9XZm13BnrGOPqqhobXdHMluYx/+q0W"
+    "90nwpYU+9vpQlml72ARmYRkJN4SuKiNY+3ahveQIF0mPQeYsfffdspOE4A8XQYxbmc+6yG0W"
+    "VwEeeqIto2/k1J4JmoMPFGBvUd8B0WfZoTgBTZ/CF4fkGPcz4IHMY59DJPKo2CdHepfh3kXE"
+    "Simz+Wnhw+hRlmbeiBef52X2kneYQ1YOH97YY1kHost5wFbMSVJVesGfYJbgnhDLOG2ScBxr"
+    "O8Egy+kxBU8FH07IUMTydvTXSeiAAQ6nh++k9cmBIvvy/W92U8jUQ1pAMuILOeeHgaTPX4rn"
+    "Mpm6rCpH5preqU7PdXnEH3xJNCgFkFw180K0vJjQyBpZN+eP1ag5eMUhqvFME0j5aFBvhLti"
+    "8EY2Ej99sjl5bnBIC7G3wVd+32tRSniSdwezzg9M7ikom9NuW3xefGbsYOmTKppPSO57z7iF"
+    "gIxmdPzGmXfskXOOhnAXJmU0uD13XSRsSwqUrnEeM0cLDx/EX6e71RRtEgdlU3Kj+Sq0wSsP"
+    "JJNHnR2gnR9ZnVYGmXEnpMavugg14PXGvvW5gWxmtJhXqQUZp4JNNn2lwlejGtgmZ8QM2/dy"
+    "AXiV2RVuzEZjncxpCXX66F1TPkMBk3dXUe/3h0Gy+dWqvnuNEro3ud8hmbmLgxYln7FMjbEs"
+    "+l7NgYzt0rYd2cwKQ2siYlvRo+/fA1BHjUKJP9sihXTTIE199RkPauu6mkWtTEWyHwkSN9oq"
+    "v+V3c3I55Ny1PKIrfr9loFOTaj0OF9Yu7gjZ/bo8URnB2nf1UyI3cZ957f15MZqRKNNpPMUP"
+    "e3QF9auGauAQa4z5SuJkKesgzFvvCXaahLf9zh2ONT2xzwe6nBILUfiwnKlMh9jPVJ902V/o"
+    "1yAn1EF3SV3BJ1Jojv+PgvP+h8Lx43iSVEJSybyk0rL3PKVSWUnZW/be25FQ4Y6EzCM7e+87"
+    "sveKwzlnHw6Hw7n9/Xz/hPfj8Xq8nq/nL2/U4K2tmKZy+gIKArQaI/1up8aV282H8J0Q5ywU"
+    "0BvKDH72+CxelkAf9WgXhcJjMom0mJT5syE/AUHT3VvkpiWccpNA/ca7GBMA2MNb2JHTPkGH"
+    "FQyq2t/PeijlJS1PaI3614WIjWuDrgqpxAEub4rBlr68US72P5tZ02pxDOlnryjyf1xc2rv7"
+    "EfVWrA/Xf+sga7PSer0RfcVIq7x8d0lXdnxf5SNUQw5fFf67MRKM4Bs0S2GxqgP54TXwiHzw"
+    "HvxLPsi5LRKlZr7kyPoQu5kPn/WqZgDq7MtaTmV55tXhnBKjPfps863Ik2uEdlu31WgQnXFx"
+    "/vLck3K46arUfgpupeTwB0hBfV8gC7/ZNgK0iuV3BnG89JAVn1EIoA9LoUqPNA0rsoeS7zp0"
+    "vLtNqhmhNy9y8vMJGXIRWVqkysKIDMbNZeEiFURzxX/tRbtHhkzM8RNQDRVu/AdOZSWP5kCX"
+    "hCa+vq6t8n8RYc2bv/19wdyHCrhdWMzAEgfs97wZunTFJ7kPvLnL83MdwNDlgXdMnbvZH2Qb"
+    "Liit26Jbb7yf+XmzpL7hhOK/jImRGHu5ivaW9357lnRsNADRCDYR8CLKfT3Ug2WRBo+SdNWf"
+    "vnUVMW97gsxcBCkkk1oyPXUlhMgqnKvBB9oT83duCVkITnltJv6IS9V9IXbDir3Hzyn4IbxN"
+    "5X3WB33+kWViWI8ujdjOoeRZZTLomo1SS7shz1VFTmx2OqmwPBzmFcIlXTHPeu316VBjjSqJ"
+    "LeZIi3K8mRMijgdz1rO5wOnU9vFHB1R2eB/07G8aj8VvyjWuTELBBDgQMuQFF9tsQqhapnsu"
+    "I2syLzMfYzWE7lCUlYSZxhQX2Dke+Oc8hgab7azOXY9BbzDlkR2Lf+qtNbyq70su0fAl3QaY"
+    "aFy7wmapnnfwKEq+MQnzoSfINxxfG9gemSmWB73EfbOArlOziI/zIZHAHCc9YV4B0sItodN2"
+    "s02Un5qG7RDKrXSa7X/MP4jX4Q6EmCTH+LNz5cJqQPYtTZivGAUAr2w4p0Wdn/OXCJWxMLl3"
+    "QTPrNjKfNn2sSappIMlEAKM3v6iyikP8yehntHwXvflqnsDdnPCFLTgMZ36aUifAHWdc63J+"
+    "3FSxNsEoNDeuwfaNpYiHkulGJ32aqjYjR5JUzZVb0eUoHlLG365hCq0nti2qBgZsyrOBVfwf"
+    "ednLFfHyYIivwpks0I8QO3yDmSbg+GrheqGPWK4lCNXQfVlzZLzX5mVMha9euZ7FbKYRKKeR"
+    "eaLlvLBuj8onJzhgtxCZmXlzv3vsAlDFJfC+rG/YIyEBHZ5fny1R54iulYzNdmZcIqIJ7GH0"
+    "kXyNNpP5wN1jldDajh2mWEt0ahtnnm2F/enJYyVT9HUgpbFa//q23HYFKvuWRBANdgS3yb49"
+    "afvPYc5tr6xwEhD2mDAWw7ZxX3hOzQarDDUfW/e6eBxPk1hhc+9jaLpMFPT9F6k5FjAQfNda"
+    "9e6ac1MzbsJQmMW8MdttC6T8LTYUWdJmrs6+grAZTfR28NJ0eEPR8lV0smBxGSSoIXUiCoU+"
+    "hTL92jQ4kcU4A6/rEr7OhEWpRKluX8Zcv7OMIq/rY7qjv/oyA0HNt/pjmFzP4bp8rzwMpzGH"
+    "GSqGX1aRzblFq/7oHseS7Biyv8L+scb7lelW70ML291bzNvytfyFcbWaAo0pBrvvKkdDG2bq"
+    "Pm+sChXqEmiysmyhnPG8UmfA6hb4u2O/wAZuOVf5zYt/7nvi954co5Fdglq8pnu1kq62UnEK"
+    "TjlnmYE7tEL3GvgH3FFTIQ86cP/FvyGfhY5u6pznJ/pjWh0E33cYSoni9j5ieNrYngSwee5i"
+    "JOAWUBtLNOUwlStqwyhPFNQKOhjOIfsIhJ0VQjKl9hnxde2/n2KsAU5elg7RP1yOJJ9ars89"
+    "bzq1LVJAf2X7mIBE5NiGbrlpBtuFpU9Edn5lggUUcDVsf8cEy8UNw25CP9J0aqH3xmOc6+Z1"
+    "OixW1YMTjmhf6WfLWKpPeiR0OoJxj356kW682hYuv6i+xUpvOXvFFuJGPPunikzw2bw13VS9"
+    "nVbmZy8b1QpXrFUwGg0g1ab1ieQzyN2+NCuybxP2OMwHGvpKyhckTls9pJ0EX6NfpAwsogPO"
+    "z6W5y3htX6d8EPx8+CDm5ukNQx14TLvn7jvVQk9nl5zeCmubgHN2HWLS8PWL+2i9yZpi7RTN"
+    "r8fL92kutnEDKb+m7LEjafn9bL+iVolADoT38tKw5CW2VOAiq5Va1ttb/NM+zxRwkfaAgLFn"
+    "TznzG0GXMBqsNYBXmrsyUsU/lO6I1gA7xc5Wp7Z9bLefyK+rO3s7Fa3FUqdKL9457Il7sKrw"
+    "xXzDjyUwfzkMa1n7FSOaRSJZ0Y21hd7RqjXG406uNznf72aqNcvNZj7h5AtjeD7s8zZEZKEc"
+    "/TKCYQAg5tfYbEjRhXO5OvD3Eho6JM4Jx9nLOb5bhyV5uPplhvYEnRuwjGwiNNKClI77RwYk"
+    "D5oRAfOlycwkjPqaPze8Kmh5fsX7a0ss2SfQ9IKtyeHLdSnhpiqm1udPNU3e+GrxKwZEwzY9"
+    "dVhGz19HsyC8VlJ9kPwirjjiu2Cc1/5hNZvi3fnUE3ICWfGnHB+uDIP3uYOh+5zat3ECDXfC"
+    "FbZu+BodMb+B+qzs9wQlMh66T8ReRbh5Hiu5DC3o4bIxecmQC2L2uHMrASdJAkTsUOANSsdq"
+    "xSczxXeAoNDTub7ggcqdsoNPP9eFljkPRUgQR42OaliObjmmRXIHxj4bEeqy1IGqfDqiyoNy"
+    "FdUNlaUbn35fhz42sqJJOoRJHDpm0F43mwNE80+6dP9dXgr/HOBTfNMNWvZk3WHRnCuZYOXn"
+    "+nsNEkI+75VbfUQ5OskMiCnSVKfM+t0wYPtbdPQTwuAahjFYG1Lv7gLcdJZU9WDsjKt1+v6U"
+    "AnhHTijRyBlY1s3V/mKQZfIch5ywQvN9zhpvsN6wukaRqHca3i7xHzXlixzChW8DoSfSwdTu"
+    "rYbzRP65qwwrBMvlzPNcZZNgxne0qEYHLugJrpwT56jxIEe7clo3CudZ+cADU8rJcfFnnNDv"
+    "HPb2tAXCSJbOVBu4o2kb5keztb+tAHpNz8ZHvmRem2/L3gjMvb/xqim0nz3NfYwsJ4z+q7G3"
+    "Zw0HImpone9CJb4y5nF9xWyray14FKPhc3YGn0gBlMVwpCQKo69xuhbmO+ueCI1UrZ2y/qXk"
+    "1G2tCUDJQ/0CUvqAVlIhFECsVdFJBV3lTp1uBye8LyiMbtN+xohW4VnLxk/LQTnbaxryX0Lo"
+    "pvZinbmj3GnALeDfidnzEBiQEr5eUJxyKDcxoo69lFwsL5aelYuWXMoJp5Avg6YV8jxaKMaL"
+    "F1tVQ4tH5ByeoN+84uJCw9xULynNsawItV3wpdzGKW6ZLkM/uWApz0JGj1JnYD6DdjcXCwum"
+    "VcY5fSFbzMsYVK2SQ+yTIv3jo1uVf2AxKzq7uiM1fjY3xWgF5t0y4y63z5vbBviyYc5Ejg7a"
+    "16TdVyHHOWMH1Tr96KndAM/+uwu8Seaa/LMPHjO2CCxkd4QWp8XEZu0ZD6FJxjmOI0MLHgyN"
+    "AOVT/rnVtz6N3FcRXfWYP9u/erpMQpFZ4Db5vdjHsRdShMKeB67p/B6RWa4KSINlK52wBK/O"
+    "r5mLLO8fNhINkT1Gmx4HFY0KpqiotUoNHGtBqrDFHXe0xTUvr6H54L15dJuNEiPYyKKBJok1"
+    "cf2bMoxAkuYvj5Rbyo0p4dQaGmnicvLIPWyPm3hWjQf4sD6o9WhD9VSq8tZJHlIwOADvDVes"
+    "AUpsmidHs8e7XmyB9NwlFqYTxEaJvTUO6YGtUOKHmCNvhSMLUInBv+cG6qNiyS5o7Eu8lsq0"
+    "21UoT9rSrlL1KXuSV8X3FQ5LkCMUR6MR26D9ou2lmWAP6fs97VlU+TtiarJW+cN6XqywV5lF"
+    "h25DPWReiPefqsUwj6PoijDOypQ1oXSxxJOj97iKlubSwxeAGZETrmeGT9jrs/9RhY56zvwf"
+    "7XvGbvsB+lVEY692+Iwxhgf2NDHUKdPfu12H7nbN/UleixHp0ls7CPFzKjrzOS27KWao8oc4"
+    "uWylYHZLowuUmLzDRn/hU5cg8GAlMBrhomGzRFYtAYjT04GYmj1DiL+JCZXVXuiIcUiF8m1H"
+    "PAGqMu2+jXs0gQcEd90elMr3nLnmU0A+8aqBgPeSFmR9zCycLJvxebIc3RgtHUXMskF0TZXg"
+    "WdUlZMS4NHCmylvXL69jnk7iJddaFmF+Ihazv+aLe7Eb1we9h2q1qYc5lpjcsUezRQU/lBIW"
+    "wIqC4Hx/6Jz7UeHvH5w8tCedM3N+Ncpzb6yaocp+Xh+V1Mze17SvXHAxAFshl1wLSYJvyGdq"
+    "TvE0/bDXN+OR07+aYD8xTBtYGb7/ApWruYyZXhZv7cI+NR7MzGNx7/GNp0qPiz+u7B0eov/O"
+    "93B/fmifu/JwDDvJxC2ddpwePq/i2U74RfXExOYr3+VkXhDxBXl4BKqi/GryFNyAQqqqaywH"
+    "nBRPHRwfv6vnJmEqEvlLirC9TymN5A+ciD1k8Ir6V7rtpEwUNB1/vCJMyiZHbN4R6LPeBvK+"
+    "urr9YVys3pJWROfe2FGOa4KRM/uIeqqc1Diz1rj0sCEXuul4gTLi8pbdfIzkHfrBr3CUus5r"
+    "WzohouBpxr7NiXpRwk9eBz8HcynKj05R2uu2N4RzMf6gGFzjGEowPBq0O5tPsnwxptz9i/qe"
+    "70DnjfC3+ue2AuaQohOFoiFmsWnoXMh5SzaH5IMdkO7ZoPdC2NZY3j7l/CHtC//EdKWXARaj"
+    "I8r+2f8Z81Aq4YBdbAhwlLmLy0oZjVpyC4AZ3n4upMR20PQCmjPXcmvmtP1tBUXL5+aS0brq"
+    "9pKWWNZxTi8JqHCBekh7FeAQZWHusTnvb2spaK1jP84ynRhAiU28J4RuFX+KF89kAeEUmv+C"
+    "88ykx69HsJ0/OLi6O/+keqOZw51a9F3MhXPAJTwGbIg0Hvf70J2WHfrwn9bqpk3UqLXeAOjq"
+    "hxFcCiuFDGfZXv7101h+G7A6gLypK/DnHlfX8dp80fZRaEtrMMgPwzrtHBsFLUMWjQ+b57j0"
+    "7yoYfUK/c9ENqZy7t5J6Oj5ZuVUWJWav2pYLfYeezPuvjicNvJ+DpA181UIwnTqH3v79oqYP"
+    "6YsP7WkCt7C/ccMe9AbDPU5xukt4qll+mVHdTlyrQ5gS9SYp+uSqCuU/FwbvTHc4LOLTdq50"
+    "flu8ebrDfA/91nMtOjR1soMlDGQQEplfOnmo6uK6CUoM+rF1VXQ8gWzbDjr7RXlj3AbK71jU"
+    "uYONrjDzK7JbakInS9mq3mlw36swPBA51rDog2hFe5NLjJsjYmVDuEkxswGd4YhnbS2GGIv4"
+    "pH5VcmUKDjl8dn/hVifvFrFWyuJqjEOx2H/6ngFiWgrNACV5nOciMC8odDoo3FdC38Cn2nXs"
+    "+SpuWMUNn8k09pdp4vqZNt8g5M5iNSTE2AZydg+Su9ocNnjmrC1WiaIDEubSUFjw/I9DqORB"
+    "ZTMXBYL4QlTC9PHcZXxukTRWWu2Y8tLBqLE0X9h7n6w0gSmlHXDgFOyUE05Bdts6U5sVcire"
+    "1OG9mv4Vjwb48+OsmrsTTRXhLTSACV0JcHdxt/VwpcUD3SoxssBfuLgAcHTYb+/tsWRLhZKW"
+    "p2fibps+HznuWZHEjBBdYdc2fszeG0xQ66yyirkwbq09wrRH9U7ZCKb14E9vuFSqpAKfjqzl"
+    "txHfnN5do+S/d6dEm38z/63EkmVQ9GzlT2ZksovdWYjc2GKaezg8undV0sji+mYD6jSP1IKl"
+    "qEmdmQ7hX0txZMZlILex0ftBY3btpXUSjYZf/6U0B7ozzyxnN53HkOZVgPvjczWiGckB1W53"
+    "EFiByCZBSkIdAE9fJHSopbe1INTM9sAc6fJKbbDPSp8GJ2/4B1nyXrIoCJ64qBJ60HrcH+AC"
+    "jaM4qDRe2nPM+QBOauvhBWy0rwls/fAoiiVBEql8f/3q3niYw9GxKNwtbeAVlYu6vclh2qGJ"
+    "j3IU5sE+LCRTTV3JqoZI+IEI7CmlurE1nP8bYdUK0TfrjYf1p9cFLHHbx5+L1nY6e5EhZsin"
+    "KBC4HVQZZUfvZc0NFFvfAQBmZrfWs/Uk+h9sXiAb+2reUzKEsbZO+u0qf1AVr8xNsN69OirH"
+    "YgBnAb0XaxH3f+5QnJkksKFyznkRSDwVYz5CR0oB0ayHnAciiOEJS8+j71mfVVbTrnkJQ2nG"
+    "I5Qxz2TyNptEL4Rb56LfJccLY0g+w9CLy7wH+3rI97jfJyu5VR8kf2dXNILQelD6SvezoyKi"
+    "tT5nO+d2USjlF/j8eJt/3TPcCdYLPWG5KvAPVXnSP9z1sa1IUErejbuxYq1HyBnFL8cZqmS7"
+    "Qm6xAermHG22wdgR/VJo05ypzxCIf1lvipnCDftrRUmEQu5VfuIzYXptKDvhEqk0yuE2rloH"
+    "aVZHBmzedGe6VaHXePp94lri2F+RZezwyp5hu1y89CxmtU/3i7g3ofLjL1T4tEf7swezd/lU"
+    "CP4NXPkee0PeSy0b36ucBe40EwXqNXQmK4Wgz0KHrCZrUJq+9lWZv/auPdWvRT+phYw3Xi76"
+    "rqTljNre69GbJnVbwB9E7FtmiQfLhXiONPW2hZ5LRSkFSfY4MuaqWhvHW69JvEP/UFnnPH6T"
+    "IECqilQ0zD2tkIsSvuStHAjgg20OLq2h9FW4JdoGRSjZFqpUp3ebfuvO4u2ZvHLk41FnQAc+"
+    "W4tAVhOlkjvO3od5iwS/pjiIvtRk/4Mkc3bzeE3pJifis0OYsamzEd8WngHvFT+ndU5n773Y"
+    "yrEIVKTOwpSkF84u4cum+fd9rZF7vih2JfP+7cmxl8uTzcg8QyVz0YAdcmhxhoti2tFSnq6S"
+    "W8l37AXehWYm45MUvvaKfvaTdY6gDa0t/g23nccY4Seqhyx7ZD7Frb+Y6UWl4a111gGj7GWX"
+    "gKCXYir67Lhw8w/FmPt7wRAYJIT9e1enanGHtnKfrCjvOKJHu4Ez1JP3zfBO7O64E9pL9ubS"
+    "ycagWYrMI/iNtURAUPlwK2csrzOAqu5y5hPlsOU8LfSe9qBZIPytu7ssKrCnK+Wn+tSvbMxW"
+    "b9b9DULolwbXyETggae6Giq/a6CxQPUYEaX6AMTJ+/Jkms4xx4izALVjiMmhuqU7a4S0eZlj"
+    "0PYUZaAjAZworMTcMBCV9iaLtI8+p0XsNfyONLyaS+Y6XejbBLuXNGGiHDPoyVcWB3ZxnFK+"
+    "agzaTRV7daCkBt/me2G+EAfa3zONcHej7JeOwDyHDwo8HIsrJ3v05Hp6V6/5gHd/AOpb/cVF"
+    "le1+A+rWP8hF6plHug5H9lnIr498rk5Zy4XraPFvBxrNXT9jn5LHjT4ffC5VsaRcct+hHb06"
+    "NNyd4Sb00Odv1/cK7xOnGDpPGryK3bW1yyxkXeedtx4fwEAELd4dLL9Cw8f+R6OKsiAkWGs+"
+    "5LikKuQGzLV9LSlWwK0qz7IvlnVX7qys4XK616JUe/ZspeX7XVGXGztXZILBV1SGE35mQ8uk"
+    "Yb640SduEo66FMjhbumdtLAwkYUEQbLZ8RuNEKunOIQqLyNu9K+5/8wj+5w23kXyrI/biOrC"
+    "YUeZ9lJK+jqxBmr7WIppkbbtnPPl8nmzxc9z3/1LZKmimVJPKtdbPN9Lz/SHgDQBlpf6eXD1"
+    "9VWw9LDFRkCRhet2LMH/twxawsHN/N/oy/1YjxPNmeSYuB2VddkQrUXnVlivl77oZ+y9HHcB"
+    "HCb4E3zI0q9u2Uvbs8rons9X39rDEBE06NYPanjgyQ36axqgK20dwXF8/zEc+pbs1JLnko4c"
+    "PQ+bj1/jG4zdO92KkaBC8nwE1DXeJdwtKkai3dE92y2NhPgoYzTyFwo3Sf3ZV2OBe7QQ8lK2"
+    "cjRzX8T4Urji2i4wOiMbiTl5Kd2Y3SozKwRKtLgTae8VT9ZcS9w3gBzloLsifbrRwc0hR05s"
+    "VgKyhEH6I17jBUydHCP06pH3wpoyWQa1fclCL7ohoHeG/foTKwTEmKVatDNfqDbuwu6l0zWz"
+    "rzvV7SXFBsUmowFomdLic1ATkNObQHJxcHPoHtIn+MIX6CwLsepi99w8iL6Zsx6GI4A0RGe3"
+    "9puo/7qIPl/Rhk3vapMCSzxy47j46ujIip7seK5N+u6Y5qici/9WdgrL/lvNVTWvde7ijo4n"
+    "e8TQYfxRZkv/U/FwEWY+iTndxt+qvcPUy38ahT5UraNnHgPXKfeexhfys8uyOufep6c49TUh"
+    "1WBXlbn5fkmhGqJzwcYuX8ptN1cADuUecf8sxfxM1mXp76cNnncUuJWOeydvjT+QKe7Yj++I"
+    "20Csdne6ZaUA9ILOGpb7yQG/K3xzqOeh6KMTu/1AcEeFCx7G/jCK2lQF7e08HLdFvRxnPD4x"
+    "XQyd12VyZF4qrLtZxOojMoGqeJMfKbo1xz7/LFff/zwVMIo74fVhagafG9sMbYHOV2+DuGlM"
+    "6qBwyU7cqv17Wo/5CrfhJ2E1pVMx4cpExOw9vvIV5qKqQljZSLjrpCek5a7rvL62ekNMXfTC"
+    "vqqPKVRca1HXiZcYSBMJaE8TNSwqW6lYR8kLbGbm3Qz4PfJDHgilAHNhLBPUsAvNlIh15dMS"
+    "lRwZZmF8l/Rfjb8E1l94uHz7I9ur5GNlJpx/eF4b6I3UyjFK19/3+AGFl9/hbkBQ5juPixsa"
+    "NIOgpNh7HLT1VGNrlezwJvpB13ItHOrqGejhInwNA16YL0IyWAdXVa1stifhiQ7TKLEF7+/D"
+    "tJBcYNk0zKnI8DY9RuNY631IVl7r3Ua7q5eajYzNG0XX2Z7Ksr5HfiFOe4Uu5HtNlPWwf7hZ"
+    "lIoIb7tQS5TMmbA5mpCbq1IzvPhLpffB8tgYck+BySzwYLCWRL/oOaQ6GVaDln4nLwCzMzV6"
+    "jTmXpvyTcl7+tc4/4QsBO2q1agGfm47fe7o/U4tbz/SNo11zWQLX+Is+G911ogCybLiiWJB6"
+    "bKoMFua6OHK/eoPeoO9d7AOqQgDMxEPED0TpOOXJwjc3WJ/OnNFHSuzDAMBnwFusITYfwsvF"
+    "LdpuZrgNh4ZsI3HrdlVP1JWQKQIuc+hlC+d5MBERvJujXHnVzuohpvVjr/RGaYfOugqyHNsh"
+    "kpk/MP44vFKpjCRzRicp4qdx5EAgCz7G+1H4Gux88W9hiJt9BfbwhtP0JHM4ySN4VMTF98ki"
+    "rPRNTuiaaar/J+K+ao2IZRXmlnY7t20VoezlaLdHuA6CpKGkyxSkyPOM8XUVR3BbpFsB1zNW"
+    "+LvG47yxopGI6kP06g2GPb1faPqOaPQ2/JLDQOVpLHVvVzvhNcCo/Tl9vM5JWzyFI+epQ50q"
+    "+ZABdORFowGJZ+hU/vgiXfYeod1RudxhlxGfQd5y1Wl5xuSWD4EYAI59x+CdAN4ia20ZmEYo"
+    "YSbEZ7FPPz+Kls/Imq2pl4lTbyx0PHRgsf0U6so7hW1tAFge2qbGsZ72x+NSziSYZakY6VvL"
+    "p5RHoWKFaRe5BViXlu5UPTBdM/RZ4/aOskT1rv2dQIRsPAAPn57YKlCqR4FDF+Hgjb1Ho1m3"
+    "lcXlLMqN6Nwz8+9iw4hBDgfxR2mUs5C79KJdh/bXJEl2gv6nj9C77KAjePeLEO5fSdSopm5A"
+    "YKrk9uf4wXcGuSITc5cxSYUaai5OSsMcf2L96Jq/25W/j53PCUjItaSSg/0ckMHr2vPlCRn7"
+    "B6STTyKnEocyZewzXJvOVza7A2+4tLOkEGt8Tb+28UNCuU5MlTbl7Xe+MlQ1iwg0IBe0dSVf"
+    "vw1Wi91jDhP0gHI1uXQ6/LvZJ33tWGHG559VtCIEuQfbd5tBJFcPOUwqCGYzERix4w/5DUc6"
+    "Iqs2+YN2Aj7hIMicwWKs5MA+OF5jw/KA3nO6gVkRgUuRmqJB32ZVhycL672SrWr3b2udqO5h"
+    "CKfRoYSofwtnId0qoOXdODT24XdKmeMmsyehws1tPBc+byMvdeoA8WKJu9jWxKc5br/K8e+t"
+    "ijUOfAnCjctlWrXsD24R/+Q9Xwy3UG/ALunmnJvDs3h8dTBj9Q3Oephhfd8AsvPwSHBLsc0w"
+    "WCPNVBsS5RQU29XmfBsv0XoKwYDt5vvALbFDau4BX/W8pwKUP/uxT8xMe2tpbHpuTms4Zpx3"
+    "IXBHO7Tcx4j3sN1L/6y7+D0RO37vGdbgYJpuyd8lLJqz76ctNlQVtlCwhpDZ75NZ3+VvNmz6"
+    "cXjtysE7763TmH1qW1vY9kSdOJ+x5ULoKfygSJmjLGfLMuMVuXEYfpya0uBG7K11QUXp7700"
+    "f99e2a+PUx34vXXPtYiZgwD/0D7/y5bksvn3a2E/umuU/P3fYx7cFdwBu6f09bO27VvHQc8U"
+    "jfFXwsss8xuHV/M2H7Lo738cCWEUS3zYdtOiBvqBpLZq8Q0oLJz56PShDD7+cstJl0Dzwclh"
+    "wWlt/5JV75uh74b2FVfzQE+J1qhMttS/ZUeLsi0MPs5ZajYVjEU3Gol2Jm6vP5Tlt9Hk8EIp"
+    "qvZ6RRfNNnzAokfcNwmTlNujCEdw3fDj1oWbj3ftpHFOwHyvc85cNaFZMXCP/rUCuR9Cz83Y"
+    "NNAUpX0psgOyeJRs98hhQnqPjGVROR0m96vVSTTfpWcwSesyOMwusnTtE2zQuFlk0HTP4ww6"
+    "wKr65hYrQmqyWd//rUGU7Txa0AOh6xa75iMRzBKGWuYOba3ZTJqWWO57UtRv2i8QI2GrhcJx"
+    "FTDLcSw9aSvBtF7lOn2Nqd4ftuCp/JAN9PEtrHU4JKWyIZoGaee8T+Qq+B1OKvpL0BvpO++a"
+    "OYVnuXA/dNbusEt1TFCnlajDPlPa5AIeWUDOIrfwBwupM3ukha7PGL+MGTCAdaeYme5AHfsK"
+    "pHPrB0T2dOb2gsQj0FdOO8O5zc8Go5U6F7UtNiFHBl5HJ2UNlZjUVuMjh5YMtt9hrGGSBJVF"
+    "zaEjGw5hTX8f7c9nKy2ISuCa99IGRNO/Z53HSsIdEqfH9mnY4VVW9v3+r9e3GQ74j8LugCM/"
+    "Q26717sCqu1iPaNAUzxZ36goGDdFQSk+g9XiY9TMStNe855yZshjFpwLRRr35+8r4j4LLoiq"
+    "QO6o7Wt8Ub5AUdUYuThteyAzIEOLNeS5Ne8wAA0Rz0YtS8dXyPK90x7+8sCUC9Wxjif8XiM1"
+    "1oQIA1A5odWEqIdoGVF5MfNEW+BrSrevviFFdtQqHZrZizySzv5AFxFGl7s8k9s7cKpXFh0p"
+    "bc1z2Qtn+eOETjeq0L3q9Rcf0uzabwjVk6W5DodqunY8xE/3Abh3LcCsHiNvgazp6qluOVV2"
+    "oj4EG/WV/tzbwabjKpKvuGXD13UlnP0PjHHIxgfEgZmXMAFlzlXT+GYN0Pf6GQM+UgLW9nhh"
+    "bOMP6rdKP6xEN9T7bD/wvYbfRThqALXB3uXw1/KciWQIOVRX4uAvkqVcB8Izogc53C9TGWuD"
+    "TJUiEaWkF6gJeHabi4v4c8BjReQFcXZcz01ki/ZTQeEcSOEGreiwchYCERYfLvWELd/iZhxH"
+    "/XGRWhdE38dFjIsJ79KIIp1eg3O1KgUZQBIafzZW3/oO7ip2vykE9YtQp5o7vgeW0pvasM6G"
+    "A2jCBvOyvKUfd/uBon5RcrrfeuEoVbHtRNpfgaFL96IbDygRPJy8AOfz6Tl800UT1qOiN9pY"
+    "ZDydoobH/1hLxFLN5WYd0yzqEkO4fBp7O5coU+6W5eR+DySfZQTrCnU4nwCkeASMdcBnur+p"
+    "FyPYS9fE/TSn+ItWNw0rVHaDwg+t6aHlykEkiXcBfcS+w8LhPNB8D1M3S7S+Odylk/L5Ud/v"
+    "sIMawJh4NbN2aRbdwfMmO35lm6l1uiP32JZ57JAVJtk6y8jeiAsFOYAzHIgrHKMiDH91oQlx"
+    "CiMyUwHp/sdojjqzp++hFwTUlkK6Pi3MuIbF88tatZ0wtno7B0ftMz51985w1NnweI9cadgo"
+    "mkISHjvnTMm9+rd0HLXX3sQeI4hVmsvsNNTbWPkqYM886hiu79TFuti5T2CFYgkkVuPvtq2X"
+    "39M4aefnzqKKSYwuKK2msB3r2bt46ZxPg3kbf0duAAGwbtOULJBPoI/xwi1syYtXtdhjxwnx"
+    "h6F3YLWT6Y1Ga/xrLNqNCetkDRjktsCLVW5/xKSrT+1hU4sxZx28TsS/cY6DdVsHLXy6e4O6"
+    "gH0ybX90N6gx6oirHTErWWdJ8haM2Wdv33ebF8roXK2qQFicDPZrcK7RjN6D0sgvdrCnfYHk"
+    "mCfaIdsdM9b1bWdP7eMScQeiGdbJ3RNhu+1FIr1+YuPqWeYFiaqHVNLbQg9ZaRyFBHwtG2+E"
+    "ew+1hifP59MPbvPB30jdrVIFntSsYGg+ewCz79bQzzhtp3ADlS8a07GeGPCzg8rQ6FvQIf20"
+    "myHI7aiYo73WtmZ0d8ADnJsOZgx5sdMy7GPdjrQ0gTNGIs8jX3icwQxmxyzTAuupe8PZwq/U"
+    "73H4+HREsdtT3r09s7lQxjfssYfir8OC6jx593qWeI7leCTDHfZx2NGxXwvdqd58MnBo75ME"
+    "VFTrBjj9yhxx/Lek16uAFaHAp3yBbw4eyHmgx1WvxvJQJFXiBIJ6pn12rBer0Ib7YiGMNtRH"
+    "Lx72A48oHak+PB1NHZ17TqbmqJSYSc8aFLPHdoHPO7c4tuEQAeYp7/glWTBwwHfEPM9t3oHo"
+    "5YQGUzUna4DVrqL0b//g7c/yAlJGWR3NbiSSG/uTbAq45rkhPndMMWu2GOD1C7qpBUBOESXd"
+    "f5wqKdxXVS/d9Y8cAd4HqbUFYCZ31sN3fA3lHzvgA3a77H7vXRGbMrSISSCulC8OK1f3C6wr"
+    "FfLWWNdebXP4i6H+Bro/8um1fSPbs1uAG61oLjKLPcJEsjxxU7pMGC15WreyrpPJHzxfk7nL"
+    "svBy3f9IX3LXRYAx5PuL753kL2HtMKGUpfPCgvGrr6xpfpAW+DPEz2q2bi4ny/yRUsf4N1WL"
+    "e1vP2O35kFGYHx6U+H1yNpyePRIXKbnd6Sbf7MB7ty5RgpODfiUnRKs39mwOanqk2d62yoUB"
+    "LdsNUCF/Bb59gh9aTsZlv/91w5BATOqxuQuFpst9UrizeLFG2uTRMkF6I91/G9i+nx7ATFVY"
+    "TIk9Jco9u2e55hl27gW6M+3V7PXYO2yvtpg6TFudQAlho09an6ZaIhu8JPiEZ+1ykD9CMyme"
+    "bPZz23cXroQvg6POztOqmRJXk4jEWw9HGJrrGy4Gn748Ta+gXGHxwwBuqmY83rlO3XYBMyDK"
+    "j5nC30I/xZ2IYBGjYlvsVKZ5k4O3mqJeTWzGynfJnNQX4AqpiyZaHP/OB77EjwIqxMY4ZlwA"
+    "tSpYWhCZMkUbtvEQDVcBwvB5YpzBIO7C6cvFQT4IkDGfHGR4fd+1d63DSGzKQw8OFsp8VYrs"
+    "LbN28xbayVL9ncohRpk985sNUE1PPbc/h7zMWHuQlK1w4eXRNQrnGv9KjJSa8IDQYpnKVR8G"
+    "8lXb71iZShjjbU+A3ZHIztqXQCGxpmu7H7g7M7FPDz9XqeeIPboIlBPDoehWrVe/pWsMjK6W"
+    "TLIMCy2jw6I1mFu6Or5zxRABIFWU173wLucDEk/NGeotcyU8Nocrejos+OXVvhbNZaMsu3Ma"
+    "YQTR+nYuWI9fO8EwP+Qcsb5/axp51oEXfkMwl8ybBb2iuRtVLzzMugm6wKLsOz1yO9QHiHuo"
+    "/UDMw7XLHofc6vTyDcB8DLFLpW98JzDyXsHsWcRu0H4kjAUwDxYbuaoFeOwvHouHc6sa80fd"
+    "x8J3dZPJDQrtn46Vy0Vcw8aJzeNbcwss15pHbmgSclSR/4br56OC4VvdZuHmtMi5lnL5j3F5"
+    "FOckjfpx6jkzzeK9poOOyNEJna3fcNkrjmcU6gjr2iAq5P7ZL4gDZYki17hnEV20IAKS5qFT"
+    "G8giI9WLvlv4GypXGz3H4sxOGHMku6MCl/U+AIZVfqHAqnYAWiFvnOyntoIvSjWpQ9pGafq1"
+    "JGCKcdI4cJuOttCcVndyaDqwt2QGNrTbbjK2jfcZdyRX0NkH0FagLrDTqYJ5uIsH/bxtKKEY"
+    "PWazcXNp9tsrQl5+R1cWk+lOFkiUvmDjQjsjhdUZZ455SIEmd6q0Q/wAM1dgupgK5uCJTDVj"
+    "JUViB3Wc6+ASSQwI+7PKc7ARi/AE+yyNbo1RlVFyZ6xAv34AcFOARAyJhBwmCSaj/McTJ2cG"
+    "2x907kdmnaUJqLPvVePPja0p5cgPRFNtOu4UqFRwGTmNkYqUzxtW812U8+ZPZ8nZpliZCIKu"
+    "2enL/WJfPirY5xVwx9kvgRsjMMSRBjJt5QQV1hPqr5RrPoPaGpjE71HjI9uUuMXieGVRCzih"
+    "7Njpux2fx1XbajlXh7BI+8n93GLmse+EAw/llh+m5PfzrxJdq+fO67v/etSztCY3GkXYu7j/"
+    "ERbm29J6R5pwnvYdNmwFcArSvThEf4Fa8Pa9dcXd1iHq8TbS7qQXUsMhJHXZUfSQz8Qa8NMp"
+    "7fbunAE9jc7vs/+HU0GO7eBZWIxD/1fRa+2hETZP8Hq7W/0CQz2M07RiTMeQpWtS4jkvqe6B"
+    "Q9azcY2DzUVrTOAt4EhsqAkiy+S6J+H8nOyQTVDmCHzSe8GRUk3nhf0ZTRufuf1zHdesr6YE"
+    "lJh7H658BbSUCy00+NL6N/vXTf3YGMlWrUs0TyHNZhjt3Lqma4kVXFcVm8lYpg/vydnRxcpf"
+    "WX1N+Jf9o/emVMil5kKF12Xir4yW8Ghm4FfQE+Fbpp+T7upYG9TE2oo9NiaAsSaVYX6KmqRx"
+    "0FL8twXmVZfw5KNz6tQbY6ZZFwXyY+N64ICNxL4V/3EBjtRIVWzbjPy2XCh9eau3VK7WcMjG"
+    "N9xDo9GUh7F2nvK7teh65DFD4u4b9WNNHjaFl6Cve+2xGyI1T8YOXMaRnY+mGHOMpZkH68hX"
+    "ptD+JekVgJFVn4ixy4G27LegdN6y+RS0ejDlilWs7OBJLGXbG0TrPGmJ5dKyVdRZwE7ZqM0+"
+    "P+aHJ7JuZzJrh5CuIfRAGhVYFt8Ki6bF7bYf4do0vm+ZYV0xSWQD2bFnU8wFoHQXqmWJ4g+W"
+    "kHjiJwLCmND+ZjDc2Dm5KAeeyuayQPnTMisKUqx1Ajz7V0/seX0rjUaKmFlLY9IRD8oQg5am"
+    "vKcrPDQf3devGVhWqdg+umQ2L3hmdH+xfzKP3cVuV/isNZY+eOBAPAQmulmwD9KA0oC5LAAe"
+    "uJNwEuQT8eKXpQY+uHX8Z2UCVaYg6Ez9crdruoasVDtaQyQ5CpeQI0YtrF/yyrqn3NMqTBr7"
+    "vBI6/x3uB3cR6if6iCn9F3m3H4shoek5hJrZdgNn/dmfzJX5vK0QVSD6m90cO4xYvl23tdwZ"
+    "S50dph9WS4eU+/ydS6+zSd3pH0LvNWzxrBYemNF4ffJxLMP8KaEe4ceJOsd2m1+QVaC3BvJp"
+    "CsmTxbLeShVPOP6bFetaxJvwt+WdwURyI9/91tuysw4Iwn93LcPQzFLvc3EsoevSJDdMQUeX"
+    "j9uxpAhWSdA8LTzijxUv/Z1DUrcaYrmOe8XhmXRoPHxBT+3iIuMr2HfbHJYMxn7T4s4WrFEM"
+    "JaG57ul7sOrpwlXnf41K0H86kJ2lhWuUqwKFhIbiOy1sQHS4OfWTx8CSydz8e+qp8mfMxebk"
+    "TMEnxX8USi2Sz986vWP5TOzHoCR44uvVUdyn+H6B8BUeItJ09xmZSLjkoHtl5bIpAS6DcqOq"
+    "ejCfQwOPOc8THH/pMrPUahqZgFU7oMF8SZxH3PQrRtLj+B3Y8dtn7N0dp4vUuN38GMHufqn9"
+    "GSfVPTti2Dh8vHKbd6q9LWqFdIBIUglGVsGS5VYaibcWZi+ksG9cPHdSaOegEl9LnoI5xkYB"
+    "M1vvzftEjDs0cAJfr+EksN6GVxmt2O0Ky2JfjAyZxtFrxj7wcoQ+UF+AVFAImnbvb1Qvcfq+"
+    "OuB5WLEE+w/rKbo+foHtAfS9NEO09sQwwXAopHMTVD04vm+I47Hc611/84n9yx0dqkiERKrC"
+    "nzQlt/ixYXL+3kNI7/OwmlkZx/c+CrafaPPFYA6dd0CASnYhj3GXquenBRtgrtx7b08vYc+b"
+    "KhzO8H0FI11Es3MybhNTMjJhrOYUuOTqKl+O5xjncx9Zmi17kRG+N6pFYArycPH99bMplcqy"
+    "3XDJfxXWKTIJ/OX4yCiV+9eakl74+7jwDUbK3pg+4ChQ2DBfNilQeNVt4swM/vucXCbdm8mh"
+    "2MQgamthdhkVYMI37n5Ci/o2O5G1VSK8Ht4Q6dVyf3EUqpB/QtpeuZFDWDW44bFsd1JDPK47"
+    "amblu+JBMLbkHGN2Lw3ZUBrIxfSSb4WAOWswykHN70J+FmvLPWAfqVprobKwU+xaVLFc10IA"
+    "t5/I7Q9XCZnqi67v5dFEPtMuCyzU0Yo9ki0GoKiycAq8aUA+YulbZlZQcRSK0fs9Px4pVtjb"
+    "7IcbkuENJxievc6+pfmKcvb49i32qwoRoFbWZMYxQZEFkdh15VBFlr88HRistLPxVqZK+dp0"
+    "S9P6uflavuBwZ98rhziElyzi5wg8MuRL6xOY4JGz1tqTU4/FakZqLrUAAfSlSTUimPPOdnFv"
+    "jP2kjRjkt7rS0aLjlI1Juwe0HWhggjT9+leBQ/MffaWB32SiMPeCeJoKwv6CKngjmWcZR0GW"
+    "X7Lo3Y1yVhpnS4xeieCsQPbRDRYyHyTQ19FiYLNo34xtaZPKSNr+I8F8Mvwf9OVVxMoslrki"
+    "b8dEkbwpQC/LjNaVNEeQ4K6WW+/rYsZBr2v98cVKJrjIIVDk7liX+O85DF7yVbb39nqUW4e5"
+    "Jepq+Y//vEThotRIifyvvQtiq4JO1nxfAewgRXCKNSG0W+2ht9S4u6B0TNNhAEnl4ale9hi9"
+    "k9FjkGlqCTQown36i9Gshj9NOECcVtEWEjKKo64qdPehWhwP5pM3g0wlf1xGtkiFnvk7PNtH"
+    "H5GkxtvyrbCJYrTPwaxBgKwVTQBWcbf32f7NcdqjX1vcbcSZPLhdMwmEP/n4nL4imaLhn3XN"
+    "DXGkZtPkfjgCumP5tT8ia/xIATpkdCf1sHjTALmuzdXBNHM5vtRDV/F3qxwnXlA9/rXmt7Ct"
+    "m1OaHya1i+hJePLnFq8XEI/HGWxSGrJhhqZxeIvsUR0LrWHEn4Dy9ZJurcGz9SIVBrB258zi"
+    "S3vearqba7ai3Lcy/qD/BupBFyYsfknzpQHFB9SheBp01JVaRRAiAjum5fQ0jov4WmbpMcor"
+    "aV6jPkNlIEX/jCMeeNb8KKswDiabJp3+F7ph1tJOXFxCkVvuIq8qV9dwfnqqoJYCaJgNtuYw"
+    "6avpCNY4FgjakQBJd9MbdNMeigXhm1rrGUv6n7uuR0lhOVIXijO22Lq9sQpbX823lQlYp/Ss"
+    "kkaHdMLXgG7gSexeUNZh0EQLl/GxSXhxeBya6KHzF8xHzpiGHNf0TgXeAxmvMFzqm7gEEebu"
+    "wxG8ROt8ht12Th+VdacruGla3tmSRQi6fw78M3o7ZqnmfvrZfjSK35atJxl3bXvv35dNzf8s"
+    "h1Ts4g4sQIB32Yr1lrccugqSqt7DmxBvZtO4F+lzZ9FB6jfceKUvpe1+aZCQB/weTfND+rkG"
+    "rZaxE0GoycO1BMeRO+yer1OlbP0feFl02Lpdba/cS1hc1ZiBZUityIbwlQVoDGh4qakOu6Yp"
+    "F6cPHQQtfmTtNy1Ah8oj4nufEFCE9PJFD/rtTN2sBJ000jvUdMf00gprMPL6dzGLb93+eWSv"
+    "qJ/BE7dP/E7/qYYAX9++z6ArMImd3uTo0IWL+wZ7uMuc84smXcIhJfS1g0H2oFyF01TcEi8s"
+    "N7WEfy0r85OVpkXFYSXGhb6E0n8QGiadLhlSxealJPdDZ85CCFpckGCjr2I7eK5y14tfVNrC"
+    "x2zR6+gm4W7Y2/xAs1H2Afa219cq8BPrqr9T5l2EL10aKFRbpLKvgDBxrLnsnz4xKoGybrxn"
+    "UGVQYaD0jSzFBft/0ZPEJy8KED1cAE/1ViS8eh0/JPSZvs4z+qT02uZL7dTZX00aqMdt7Wjp"
+    "99GzeXGxn6NWUm8gHyuwJytf351/pMcQnFORy+xdwpz02qbQJu9pfbnCxHMIgFN9fK2+35q1"
+    "e7cSs//6g+2on0KwwUfu+ycCAxwaD9iZ8yX0PiZr3U1+fWGquK5Ct5GG+GGyh5to9XtoW3EV"
+    "/3AnCEs37mK4cJXh3K2Ic+fEGcTP86nlGoVGXnjx+bvrB3Z3Ldluwq2w039W75S0JxhlYt+S"
+    "mHewwXX+p1hC3WJDLFb0MX1p3EN2rlhin1Dj+4u25lbl9jNRMHpBFXzvJSFnUeQNhDvl3l/O"
+    "oQuvmJguZ4kLAEtVsHUo039xGg9L3iXeYfgYofyQc3CC5QaLeqiaxSMgsS5IpUWl7HQNvj3z"
+    "+tq9Z9wyJ/e+yejCMmKAQDBp/9kjpVV+CVyaYoCP2Oqgl7/Lw5YGKcuhzXcu5gYbbsibG4Gs"
+    "/VHCTiYDKzRXbAI0xWSNy1gR3GZE55DTQPGfCNFQtN2MuGChnNHrUwN7evX46bAWod3UBOcD"
+    "l9OgDOmP4PV5V+roTGPDabNzqsxoNrnpTKFdYnbfMPnntbf+9NqvyNaTObK9YXCWnVt++D8D"
+    "2zsvJKoQG9VWeanR4dJvnY9anG0XMQ66tPyvmbGTjwE+xg3aYue/yQdmY4KyZLV1nT12aXX3"
+    "7eJIkOBXi8ltU4T52RN0jQtHiDRO9FvS0fdqHXe+KtiXWeRa96MnYbi5+Io4ieHkAcbreV8i"
+    "T6ssu9VGnd6FZKjow6eWzBOcxp7CS9Cn4jZvXnR1rQh2dfcKMlx40fP5p5a/4KlZOwfu3vVI"
+    "z/vao85pfsaG+atAwVk9U/G2yfyckE3lKbxy4rT4++cBe9wawe8yeZrszmgplNu663FJDdZf"
+    "3DqCTn2qwpoATeZY3sOKB2vJe+zHyjfuicixqoNbp654tfgWWNf02I12g3dEegKvbcyVPLhY"
+    "ICEykxX7w+CPQYpbkJA+z4klWZYP/NWV+Y2T5v1n4LZ7G8z8qGFqDpeFJNb5TrFEhVP5cBCP"
+    "i0C/rRbS8/XeIXZjENiteZn3lTKvD6kDl3AGf9g98PFt41JyNmrwY8vioWZmXIVLMvq6pFzt"
+    "5BURuduJOy2tu9COXZM12pK5jM7EtDTEOmVUYcfcHjyH6vBaWBNPrn/PmWl8fOLkU7cAULrL"
+    "ynzh6EXl0rS0xr3nd4qScuhPzV30xMrjy/7NyEo8rjemVPj0jDq7Noy7Y6tqkBX4MXDqicXb"
+    "Mkn38B7IyYCiBgOWgpXPaHussRH49OlTM757/6U2vyuBuQPYV5J7rgzxy3WxYSQoZEJEcxN1"
+    "64QWZBF1qJx4D13bMBqMQ05n9XlxDePTP3J3i7O8mX1ZKqTijEyTkGEj203a7xpUjP6mh5a/"
+    "2LLSujZwFawX+d64pCOd1OHS4qbn+PrCqtHWhVsxJddKv/1eqmcPRfv4CorHfXr/jbXyHpuG"
+    "uk3sXpc7N6q3UqbJLfnHw9IuT3GjvL8HgR9uBmmFlc0WPeNyU43+cp6p/sHraxxe1l/l+RL7"
+    "A0Xnfktp8B1WtDUmKjgH7MMbZgR0EcGEHwVGabJxTc/B169z3rxp6LdVpGUxk3Maky7Qm2jm"
+    "5wcvLyzTckn4Qq83wWukIfKXhgJ59bGrs4rB116h5oJ9ir4LeonzjN4Oddlbl7oaYqiooJ+J"
+    "BLmTKXCROxEM5+QjPD1FXmgUdO3ep7wyFuPG6LC1hZR8oIRHcVpFvH4qwD5woS5a0ulGxPXz"
+    "l6TuPGFc4xVn6bwWcYGJCT9vfJi0/1mmfTPn8B2+iZbkF5kzAHaYfWuTofRktrTcXBIHFsMv"
+    "cJfYCiAQNnrEecf9tg/eCUYYADx/ZjIDBmyXAeDxdv/IG3a/EcdF3782ZGyuMXbIO9+znMsr"
+    "CaBL1jwKeBCQDGkv8N00PgkmBOF3ousybB0YNUQxqh5RyuQLPYQIxo58kUWqRo2lJhAMKDk7"
+    "FQr6NIFou0AvkNt7Zy8QAqXUugNghPDnOkxx1N3u++QJ5TadY5KY6100P2S0OryxRswTn0zT"
+    "34+4xSVUnTUAtkvkJBYNzjuvu76gpCbDcgj/+PKFfatMIKaWuNEG6GNC1l7K1ce2T5/gzVxg"
+    "ZsVBw9hVtraK1DBknahVtoswf00eoXK1UAJj2edvqlpiw+jkb45ozwpARICWg6II5VZxikXs"
+    "YBl+sUCLdvYSa1d9WgmIQ6ct2EVB1qE9tCq538JGgceIFzWZttY6Hd0X+nyoDGILV+1ygMnD"
+    "TbUVtCJkPJ9rXvyrynHU8g1yHl7MR790l9FjSZIUsaaqHEEzbO5qtlI95y5ca27xTGK5tpVe"
+    "Uf2TQYf4zPiiPDNdF6YHVIWGXELob84j65AwdyDm60emGv1YLpXRyrKQSM8XTsYd3qKiOlp0"
+    "/cCPh+n2XMXpMzLSD1XiV3STT6JqQg4nRnq/e77J1B4xP3NlzkClWwkDF8Sgdy0jMMqtoJGD"
+    "hdZLhzrE5MDrlX4a3j7tB3Jw3f9/NjzYJXMsb0VTBRk5IBtCLZAqB12Xv6PsHGWeGXOgdi6A"
+    "Xr1NX1iRGK1rS9HEj984nGG/FqcN+tILFmyEtPiYjX1aqs5s7inmEbtVLe53X85dsYExjNxw"
+    "1+/U/xQPiY5q+wIQ9sfvcFxiRwGPBEbFjxI+ktgMcdjDq/ixnS8vF1/3B/yhFrwUq4secVff"
+    "0CTiknZuLAafWfy9awG0n9D01X3RmLXUdgMebnOqHaplCbgXTZ4J8hDT17Fxn9ng435x++XI"
+    "eegSC8XeYsRjtPuiPpfH523tiTBUwhx9szYi+EbH4RgQtMs7kVgs7c537rUS+OiR650x7/Ie"
+    "mq4/RTNC23P1TtFOZEIMOvphoHN0hPB5eqJqWGzjfJPSn/YB3wjD0BMKQ5XuhOrns0rYiVig"
+    "SaWphJk3JeNNx3/s/ZgOqBa3b7emFHk27xoeocNAEsJeNZijKNlui4XpwTqX05T2s9IEyxny"
+    "x5ik1Vd4rkr0yy+jWx2tSiw9SS9UnEY3sw84OPoV7LIob1zJB3zyIhh032/kX5cptsJ2RLy7"
+    "jlkcP4flNOI8lwqx8w9FDrmSvbFgzqr0g/7pxHT3ypmeyfdmutT+m8b5urQ3QV6yhUqqbakf"
+    "Q5wiE6oyogMA7J+Ne6+PtOf7rLLEksZp2pkhUfzsSyy+4RQ63198pBneE6MNsEx2Ifun77BA"
+    "M85+AxEfkXV0lh5EpurnjCixnPtoCcN8gQMaJTgOOxGZ0SIXz/j0ywE77zcN6Nm39L2FXXXL"
+    "5cbkad6LDrmRiIQ6hjPDGVksqZWbsLixipkSg14WHooY5hjnymkE8x1aBvJRO1zmHx7qb+O+"
+    "vRI+O1QJyqaW8nT+MewSMQxYeLo0VAzafRebzYxI2DTlKq+FAMwpvt8n4oB1ScvoQU3xbBd4"
+    "2pvPpqUSHqt79EreS42Fl7GrCRNtgRuL0k+seCItD9QK8uzH/nnJtbFk9UbBDNALLJ+F4deb"
+    "igYo8SEkrUDIanFtfPUTv3HvMZ19Xs2JvrLuDwcrrLAiAi9hoKzRYJZBVEYJV6W+68Oaxuv8"
+    "iZBTw7tlStNyWGjlXYxEvXJ61SNnde+poMyiDz6ND4GS+MBbzc14UMYTnD/awCfBvHT3S6Cj"
+    "BYhx6smsY5iT5IcYGyxf7Vhak5aDlYek112WiKC3NKPXxmFCqckYseqqqGXsAwmrAcbApiWu"
+    "lvtHcMuzDSvoTJwVYVTsdVklgOg43IMv6OaX/CLGlvkEASvYNQuvdF2iBxanaiVT5JRX2rf/"
+    "ssCGV2LOtRwF6MGx4SSEGmy1b6ZT+NUKBkqwoMv2r5u+yA7Twt7PHRBYUBrzDMzZ7wM0hrYV"
+    "LkD+R3F9OELhOAwYVzLKLF8h4ypFkp19XCVJVlIh47Jlc/YdZ4TKqsjIuMqqZO91Z2Rv4ozj"
+    "zOOscw53zo339/4Vn+dJtkMroWcwj0t7nAe7ccnkYhhaLNO0+Fm+EGH5y9WccohsRai95rF9"
+    "gi+fvYZwm6nVuzLpHxKxoRerrD2y1RE2DdYwCuavpDlxDHfeNExyakYZZoqlcp44O93v0T/a"
+    "pe4rTBo5iIXymsnpfkjpTuJZ3sxuj+xhO9t0ZvxfwWiPpp826zhse4OQf5cSGqterMs9Uom6"
+    "9a3iG0coKw7b+qeJbig8Qfa9n5+a8UWhsduv5tlCNQp0r1mgv7+RSHpyfB1ATztJ39sK2zPS"
+    "7llwDP0Z2MHzlZSP+IdzMput8hYVPfCtxCfkXPs8fNu1yDpS3aCEk0DVqHrVxrbcdzEX62EN"
+    "XOXRAzsPt5CE0LSzc4Wo+m5gPAkzw7JC11w8bvIbOUFK9lJC1qx2bYRDG/Z3/3o6YemaR7VX"
+    "49NgWi2x8BjrSdRyXPT89M1JHW+TvX9c0lJeQrt1Kj9etL7fwUI4XSIizNC+3QGh9pKRKd1s"
+    "Ob7m3IStdVXcBv3CpH8ET128g9prW4SOmkLzv+LqnNBSav1qf1lbWXYbfZs3dIKD8HfhO9lw"
+    "e02LAL6WmWd46MIcIDSAnLh+bUgcJD9QPKmSDqS+FzO7x+TDdKbi33ZFv928s8onMvRafWFV"
+    "wMb8VnXBnhOhEnzz5CqsTyVYo89ndq7qHEkCscmSgZ1/7HX9vjybXC1nqyHNb/xmH9nityIA"
+    "fvmqjc7D8AvGUb0/1BB/RFQaMu4oGFzGb1MobbbWgXIt2iQS90Zj0GyFtKSxJcfibrX31pD+"
+    "iUXBLwvMnwhMeS7p5xNbsBbzuChsT7NjdT/U5xzO8RKGaBkVAqDsf6rn0GGWUz0zNkizvRwS"
+    "WAUpTgizpLZlkln6983XHDY9fBlKocYDLLCbKvEfNaRD47xxbLVOPu0qmYCNPedWwTpCLtno"
+    "jcZswGVohxyNkRi7XX1ImPjfex9lid7iW7lZPPipsQmUYn1hMJ2/TX+KPcDs4vT+Qmtmpe/V"
+    "DRYmSw9gl/xSPG6f1Gaz6DYjFQgg+P4qkvuuuuI2HCHRJXZbTsDszLjY09WTme/FnySIc7Ij"
+    "AGnMqEcOQ5RlYRbDvvNKh/jquUC79VyOP1MLtDRKfgNUZlOBGzu3REaNSwelb0HcxGvSmhlE"
+    "3geZNy1Vc97u2LB9pEl/PE2tuPol5N4rNnwE+Doaf+bb5nEN6Mw3m5jWJIPgHZbcYY48Q1MW"
+    "JbZ7Vs1ttsvBiQC4MH8vYN30DFeJeIW+3O5RGtcZo2w4tUfqT/f1lvZXsdKNJvwSZ36NXkhy"
+    "3RRCi5189xOwCok6othIo+KUsgCs+3Dsa7R0kDnFBsXZuFKjJARA7f33qqcxbpQ73oVaMT0Y"
+    "AS/gcwylrLwiO5WgQiPXcixhtHZQuG1EGIaMphz7zg2jCM6HRoMfkwn2oPxFDdj+sikw1KdS"
+    "i3z1aPTgws+jvrvXkCxZLIraq4SzkWfxqIou0GCrERMqHEVPI/c/TtrgzzpVqlitvvdQk9A3"
+    "z/WzZixyZeUifISQJ6P/QjfFLkRt7PR73NeLuttILDohzYvVLeemJk/xkVy3y97ya8L1N4n8"
+    "rKTT7VV41PRjzKi5JrzBSfu5rfjZU+C1Qmw//KnO7CpXqmYDoxB8zWapiaR62s39iuUYuEMa"
+    "H2bT2X7TE/nizvXT6fMmpsmiS7pVyo764HBAUGO4tQvEJ+aly/zdIcwmmZ7wTjzq82/b8DMy"
+    "79CgXC6cSPx7ECTuTzeLv1fbr1BBB6sNTV9Sw6uNi6hat68Nh1K1KmOa4dwMk5YNLiqZwpF0"
+    "fbB26wywsgxDVSYfbMRiKEU0hu5pmjar+2Jack/n6spKH1DumKAYrqnxK4KO3szHYMjMzjR4"
+    "zsXdoGkz4bwXBkynnETxnD3vZB9Wtcma1RxT1OtxARk0axJy01VW5qtEoSVQXO1Z/Kzok41z"
+    "ZjxKlRi1/mrpqXfj1c47S1WH24/35nMNgz9/oN/861DcnTncsn2+W40fHC52fM+Pzvfc9VlQ"
+    "oWGOy6OtSY9yW1yt3AkqrMkL52zWkYIS1KKOgrpE6115eGJy/xzUrNdCPLIJZFlOlCzEYizT"
+    "Z5sPZM8jq0aKzqqx2bWHEf6irMVzTcs51EaCLrQB0vLTJeim0HzfbkI3bzpd0X0HtVo38vTX"
+    "6qW6Dj2ADFBCUaB+zKTk2FhF8wHl0YRCK/7kRRRJSBQ8f1VVP5I4+CxsodGXQfeOperUaAna"
+    "3QZH6laftD9V/eul/Nlo8Ygymi/MFvCkK2F9PRzq9s7ovROnMbufPMX+0Je7HS7Ksijod5Or"
+    "IiRZBSpwozEJv9P9kzXTYIt4KQqVmmXTcaoohLlK9e3nMebLWQTxFKjwQ1SdKMcoB30mkw7W"
+    "AB6GnIWgrrns3AxsjRRRAduHR48vhDUd8E5ayu01Ju89G+ouNlHgD9ilRQOE/7rdhrIPtWsx"
+    "HzVr5g4YnbGIxeOcWs+Dklo5ltpqpF+6VFhGXHhnMxomgWszK/kLJjdnPQowe1d1tUSkDPHL"
+    "l73kAXl8niJ0O/m73AndW4eJ/BmpGf4+kYyGnsm9iGs46mqsy27zdhguzLPuZxyztkwJPZs0"
+    "7JBVDV+aOtk1YW9vnJP/xQNJM0X5rs0FmjT7Q/Cb0ReDbWJ4PsV2k0bzrGxOv0qUSCvmpOaN"
+    "1TicW/yYlILEAnZEFFj9Qi51ZGvLcNm7oxI4PmLqD2GYauGrrebkTRdkSlWByN1Ecw9a7/Us"
+    "/Ts/x7vO2jauqs7Oz9nznHbqaRZrEgWu7H+ib13JyR/oSEoYP2ZB0hVugApBoglQ2gtCjtBU"
+    "PD8Xcdt2zy9mciek+GKx6xH7HjdcRNffrvd1ayc+lpKAryE1UDy1bhU4d4Wrh8jjVZ2G62+T"
+    "jSLX9A3vTN3VUsNDTvOhEcCmjwvkfh+H9sSwDmgEx/Zf+C/NMUsmF7qFeaXUF7xLZWTZckWv"
+    "DsdpUsaPP5uFYNGVqimRm/2E32AcDOJ29LW15zCXCbZUZZku6Za1A+SbQW8qiULlte/nf1/U"
+    "axsv90XcGBfqzA/PKVBXZipBZ/4kcQKggXbPDfx/bG/AzKhJ2i9cy3VCXkIdNR6X9JY9GsPC"
+    "+FGT/nkt3wno6UDgUls1W3PcxojIvkW9Ui4F3FoBezwstBGTkFIzr5JnLezPnJpAODQE9zbM"
+    "3Jn2atAkmZFBNLtd7xPyrjdfeF2whtvuZw0YzjyrL068n24XnwypIAEiS01fovNXRSSv8X0b"
+    "ul3WJc84p5FMTz4dlvXp2AC+hTQPzctnBecwT8+TBPr84Gcuq7mi2r57GyM+af8o0bPKj7ma"
+    "y7dqU7dJIKY0qTuT29H+OV8L1a9NWW5zTBggSbi4r70D39ZMNMIZd0waC+xbfeae/CCXESJu"
+    "+phM4/3n2oJMBy7ncuy8O57juAVeY2Ajr1T+GaWOlSJdkMXWjOgLYbEUOFsIiocRVSb6kNmr"
+    "uSGWe/+wJqITbZOZU8nIDaTvY0nfmQJWvlAhdFjSJKWGNQriFyYSETobJH04ODzoQzVbOKGt"
+    "ZtceWLbRj8fStMnCKqnrBcjwLXN/H5Hwxuv0+RpI6iqFWVUSRDVPiNjSHzdI/QPcLi+QDulf"
+    "Xj7Zeb8MUHxE16C+pgkUCX5cf+11HfhYnfXwHctwRyJEPNJ/FuSBIQb1jjfJDDOa0TmdQnGa"
+    "Fg43Kyf7tLcWi0ImfPEEoRn0VlxB4zJT5s7V1p6Q/nERzaYQOvs5M6wRWn4tlu/3Dkbkodk7"
+    "uM/67X0ApYfnU4brFe5aCXlbiZyrA4NiXQ2qwr6xomLid8IMdBKMmqEaMOaj4Ecj3AngKeYZ"
+    "RORFHwPh1sykvd5S/o1FVsKY0KIHHE/yPLzT0KrgnhQUu+s34xB9MnhmcRJbuEO1qXr76Inj"
+    "y0IQiI0ygFTUKQZSoNlk8y7tUZiAxtOlAZbeDu+99XnpmtZwnnNK18SOtzMs9TRQmJV38PKY"
+    "vThcry+jrO8AXJoiVvtiIpyva8hrNniyK8XMbkXA53HrJybK7XYEutOxpe7KcmsGrN2vHXui"
+    "fGHbTj+iK9LvEvKfXQYz+ogL8KWh2Ha3dN94mq7kKg/vQJul1a9M4FiRTzShgkRKbFP6QtQv"
+    "0+3STrnDyxEGCD9W4svlkeHXUnoVrh+a/EHEy1tCByr/lWdVMOIja6ATHBWlVT2NIvi2SYrL"
+    "sfTZr0sSvEk6FbMDZTUuN0Q7Nsrs/ZvPl7hHRcwcm1BmOjYcu7Bf8H61IigKb396d6SbHNmS"
+    "apmr2+bDOfyySjsYkuLq4yfu0uS56U2RfvxsdFiCZ1yz4S/4dkrFQnZTCzwA5wkrF82rKZgQ"
+    "b4Pa/+6CLlusbjNhkVXwpIG9zGyNkcblS6t9w4nLErsfNi0ovVbnQd9H75+lhcn+J+SvfREv"
+    "oZlrZpXPjfiQt3f9IOA74yxF5PQTVEQyfLP1M56IG9gaR4i0QlKTEfCwKMELg5z4+jUH7PMi"
+    "iP0MoUxDbAReHtH1KkAp84jTJt7sMWw61Ekf7eko3ziOOxJKI4hs6DptlNCdFnJ6/xXlLbP4"
+    "JDX55u5OHi+06jQHNUs1wbK8cepzz1ZeH9odph5edrFY03S54HL6y8X31nHBdLBvv9/Dg2uz"
+    "MiL5AYt5s58GtZ7fTT1s8fxZw9cOwLwqKvbtSJhtnkod/Owqp3ZaahBmcgMyPuNVtUDGjnmy"
+    "tlQMF3k+PRY8C3Ku6H3gil+s9D3dSuzI6AIpB7drn2XzeyatCFVojuzJLwCn5h7XtgAqqCra"
+    "zl9SoeBatw1NEz1X+u4RSuvF4mciC2H8egDJCzoHMB6aXs7BX6Te3gmB654rty2tFmj2fbfa"
+    "F7iSuOAdbmCRobKMpkUuBA3yPdNaIM7OLi34CI2ilr/QHPzUiqCHcag15S3Pa5LV5bj7o0DF"
+    "E6Oa0T/OQFrTR9EUo8BImj/vQjkV8Nzp1gniD/S37amTvmtn7CSAKN1T8k/Xyy8TmLB4ZnUx"
+    "uiKuD6jUfJwJ+CG8nXpp6JWTTwJYriFgCXpPe7/pVCt0EHx3jjmHWCetqZjaN2oHg3F7a6Mw"
+    "vmPzgXuTCwd6Vbnkc52QkdV6roy2Uho3euXoPC6Iq+vTIQT40WIN7Rcaycm9A5ag4+W+g9Qh"
+    "71G01kKGpBHJwIdofzZ/wxoufyRd+QkLZ2IZoSINld6HhqKHbCFV4IUjquMdt3XWPlVZb/bt"
+    "+v7TW74Ky4nirZ9qR2PPfln80rIxojPEqqd05C0RKwQcDZhZEr1oLLgdOFw9cBF7c23NTbzu"
+    "zteuUFWbmXobWV+7n2mCCY9D2DQvzOy9WoN8Qgn7SeeMDD0eSewjvKJc6euPT/1VeigQdLkg"
+    "8Bz8RHWYzWkRZM0tX2d1Yf3l3pngwp5BbSQmgJQBpVYQAto5KTLUqJadroReyGxh+e/tpo9d"
+    "gclQSYcYZnLkPMqx4YWW8Ybmkx80/2SlOTohLmOWyUKrSJBmZz97D8AyM/8PLV7Pwk/iyi8u"
+    "CBQIbMxnfhssTHHz/TkznwH6ir4Z6l/mTytnkLtH06+xFh/iBptxn7aGuLdIEQxtqM3p8BtX"
+    "Yt90w7nqCZYYI6AVhRSE57mh6IbvGTSEInaGlm2O3dZEOtcst+kd88R8viO3Ba5RMNLcvu/O"
+    "bMKzHyNj4las7vn10UsxUSk6u8dcXDtsE8zUfybkR4XNYlGHCfE/yn3N7XoBdMCnwPnQO3gA"
+    "ZrvAV5tviih4k22AHrN1QC9IjQTj+H5Dwd8C05hm6OwWnx1DtzMErWh0mQ6JfWvQAsFYyybp"
+    "BpMDO5rTkM2TEcFUtxJIZcfBsrNegtkdsyWJs+9azu9VxpbXWEXgPOSrdUrmhpx217K2urdN"
+    "/KB74aPTq6E4CaS2RBOMVI1PAG9stBhS7oqW59HjZCf9WNPO5DrVrw8DOq3jGew1HJV/eAZ9"
+    "haN8DJjDCuHnmFKuz1vxXVVqTSca4lKgJqmmVh81peNJPgXplpDvUk0Ji82ggX80sx+QVVPU"
+    "OSP4TeCmN5lVvosBRdtg44FPY+yFKq0++F6+v1OrYi6kUSmexNpA0/0H/JP6t2ZaLS9GBSvj"
+    "wpi4qxsH9L38OY9N4R123pPf7kMch26Js2+CxGmzmILudtzu34PO3IuMr9thogpvVRNkpMcr"
+    "GYWDjPvnFDQZ4uiLlsxa0e1/V1ucoZpuEififbleWfOmq/JV1JvlreoOUYxvi2DcbC9rSC3J"
+    "oPfGykXaq76lluJf4RLBjzz0OoXSCfDmm7CwyKOBfv6VC+xx94PPoN9EShvfKAvaKXWyu0U8"
+    "LTXFzYn3HALHIuuIGSdCVQ7bOn/PMk2dfrtEhNypSpn9kvwr78UyMkbsjlWtjXIwFWmrWJlJ"
+    "HdTQSmz4MLo24njvYDr2/NnXVBuu8YW/Rt+YOcVHSOoliwfi8ITPPeOQMMx7zHaf6loDQ/bZ"
+    "KLOpwHM7JNOdOyeX9Cjlw8yTWt7dg2tqH7ljF8sR+J3GShtD3ZS7jhRXQSDtingR3wK9rQ6z"
+    "/ektWs3zlfYcJK/jz+zoahfz/BXNvMYwzUf9SdMPkR9r1GciuBsuw3MMLHYXn6i5Xo7Y3ty8"
+    "HW685iNGWOMnCHQiajQFnMIUY/d1wl8fxNV7haseGcQJwc/504RUBbuuTIFRLFLGft/faO+8"
+    "qIXZDXUsbKu2PY0Arl0OJ13RPfoRPH19I9Y+Y84S/RnDIjSZU7wACibHp5iJJ5Z6w1UUyQ1F"
+    "SPMKk+7vXQ1tT3r++6CiXC5cv+fUfA0SfjDSxfOblTPSrlw4njx64COdz5b6VpdrFh4asUtF"
+    "fZ0jAL5KvH0EroFzMwG28x4S3lfhoqPJQcNNtb/2jh22WZ27ztP4BPORiI75jgS/g9GtY9CI"
+    "XoxuolfIFC3Xl67a8jdcyHKJg1mUU2lwQW4lrHqbNt12/j+9AllTSkCb6YnaB7ELhUAXKxBD"
+    "jIPyGZouupb7Yj+e+m2j/G/BhTTvaZXm4pGdWLnzRkn5nAkc/1zrcMnetzM61hKcbXtTrTl8"
+    "FKvTudLnGeIzA167sET7cmq3dO3YUBvuOXOxgdr+iqpjd9UOUkJKledWugEoj3CqiozwZkEl"
+    "XF2RXxYD9i5uhA/88/M9zUy2H0nPlOzqPPlVsZP6l4kAf/A9imDZ2MuMCXni2MOdQ9UaPVGw"
+    "32+07IkwcyXC74hODSN2WODvcY8SEF71joG4xUc7HGrhQn/ev/gRnWXirDwygY3JEMuKBT5s"
+    "lL88jroWuvp65myed9urDezqw6pEM+KLdRKrpldQLP6g4fY5WjMhfL46dYZQdSRvQV8vL5E3"
+    "yz/1d1fjTGeEUQFw/WePBieH2Ch9VlNp26tPe+OCZus8j/A7fIAJrnt/pvuaIn7BDz6FeE81"
+    "lRyN1rlFNvuHX2Hf8fkhhFBYb9J/Mwo6AyaVe1HCZTQl/g1+dgIJs64tNBc1N/S00jJUkAd/"
+    "i9VDjWHWtv/+lRZFWAR7UaIWyo98tufX7m+rfRHga1HOp9dJuRq1lKE6M3WVXkgEJd2vNzN9"
+    "yz1hf7flTkCFCIzTN5OLn7CXx6elwHfcbk4Owbj22vGj2sce11OTnz0zsQ+YaNMGxrt2VZxL"
+    "WuS1moJoiUy9+f6ShOvjsvIM+zVP2sYdMv2IvqC0St0bDggt4bAHc5TIfWNMyAh+aQNm8RE2"
+    "VTnAxrc6P3UnyCudOcUhWqFtWuGzGxDWVvlkuL3Fh2t94HKLZ9dzAvVMDTE5M3vWIfsQPzX2"
+    "6cybiqtoVK6MW4hCFMrA/leFNtTxKI25EbscRicU/xIdvuM2Cra21fFaGYpRiHCHEF3PM7L5"
+    "MGsLlFRK4rKkoIhMhKZp5BKy62j7M9kGn6E58qaSQsSSZokjMjUdEt+SVVjW4edq0AefSOUg"
+    "BzmSjLAD1mlmMaE25Sax/WqSff6o5QI1EXNmcv4tPlyn44f98d5/3Pb1vKqTCto64p3+d1u/"
+    "BcGvbwfZ4Sbn+CU20cpcb75SbNPsF4M3OJbFXv/bpk4g60+RrVGR4qfMcfEqrJ1PQvjiofKS"
+    "3sCZ175aYTIcpbOlUK9uF26rZsiaYhdxiwYDi00s6vCmgGlPzITtX7MKHXDDEKZD/TZriW4+"
+    "NOhPXvH8iMeX5qbqv7dSh+rMXlduA7um9Rnth9YJ9qKdbeWpsYt7+1Rm7n589qKSSmQ3Swa5"
+    "rMNGGdQvrLvbRdCsFIaIcTXceAiGTQkspoqL7Wwps2c1ViF60JFkGafI3eUEP67LnTyg+rY3"
+    "bhVFPUyJnWLkv5fnCduU3t8ZLxTY/FMkXiBk7BLMGd0Gm5+khsHzsN91wfHeWXZ/HdhyBF/K"
+    "LaVcxGFlxEJXJlT+Gnw7I0E3c0BVqXvw3l+cXASZme/snWqLAo2AFMQMGH+t4hipqjYm28lv"
+    "O+ODsmG48VnwjaDUdWbtg4r5umaR5KJLaz+pe4s6slkju9W1tmGlJgI1zXehaYPCScaaXEZu"
+    "g5i/kL06PYEJ1U9Tc5kUfPrjOYGApKXP3V9efyUGprrEHj2PuLF4gIprpkZslK2Mbhp6v9jY"
+    "6t2i72FE30CFqj+XaP3EkljB06CW67syOjsWyL9/fTJ8xjgrBw3kq96TvBlvFisrDslVBkWg"
+    "FHhwZK2sUPAlDvKbp/MrPNmXDipixWenk2B0aU66V4gCJ1L13LCMw0ts49XgvZYhK4xEiEJ7"
+    "06sSv7DcPgNVwNFoqxa3gcpw/hdLmWOdyRTt3hFPbicUJjCXXwnOvVrN0gI/wCsfjfQLppcs"
+    "bPoVMr9VpGakkR74/MP54IV/Sr4F0M0uuyycO24ysyvBJ3KiX2kXZd4EXbGqWPgNeAsZVXxT"
+    "Ary+AYkpvpPvbjp0iUVTd/TE6ntloRr7eXquIOvg1/+9yuga6yXu15pIlVDcQTrzSs34muWu"
+    "ciRhaXbzFYL0GDEGiar5FqBKTND4j62gPdjz9dvX7lH3o3rbv0/PwyzLg+rkCO9bJLafmTXL"
+    "bdnfEwwtVxUjC0/Zcgfe2JlH4Q+WruRs7xdeRXPGIo1CVxO7aqZSps9PH1c+ejPHMW+iKexD"
+    "S4h8rvYDu7mXoBZbKrG0G43qTpUfBdyisgasbrA9jeyTRKjtUPmvwZxbxp04APYMiP5ax6/7"
+    "32f2pU25aEM74cqTAMRPjrq1JupD+K9uqKipQRPpU6vB1s+6Ou3r//yu6Oz0pdLvYu2vZKxb"
+    "qhJOZ8ydWnleTjEatuESDr5Px/yDpM+9MeZRWeI69V2khuABzWP/ff45tOkdYioc77Azzye2"
+    "eNn/PdjdQHStinfgWr41V8/GSEyjY+CbZ0zh9047SNaADorpImjwTEeIQ5mn9LzSjDwB6AG0"
+    "qw3Xz9pa3+w67GKb94LK2tcjOb/ItgYktW4vVaHXUyd+fj5BmyPakkHPg+B8Bzaw1Kp4eJLz"
+    "VNJJCt3Yw6/hp85d4VVGBqx19Rj/A2RRntf50dk0csA03Z8gvH+FhYty76AKjSrZNERbwK5P"
+    "BPMG6vYixSMc+w6yvWK/lYgD2HFvo0lEjEF1soIT1lMpIth+mK65GieueyFiJGTyJFIjCBgm"
+    "6Fep+t1bGkWVWGgEwhYE7rhdauFDNJzvStXYF8swq6u3tp+LC+q3sTSx8fX0CfJNt/X07JOr"
+    "7WoLuY01XXTm1WFLiGzSZUC0S3CGKTgdP0iC+EYtmfwhsBjrM1R/8iIzvOJUNzH0uQ1s36en"
+    "BmadAQt+Md5/Ool2+TlPVDlh4CixWvDO0z+Euboal1kCV3i3cMruAkjV6t/bl8EWos90atW4"
+    "evr+xBtLjYZzXcxcmQ2z1llvqX6u05hwzHl6rhHzCo/iU2rQr7+M9GBHpFC0Bp9iYkrU8QFD"
+    "rAG928k3/iX5JKUDFsWJjwnOmYXQeF+hfGBg7oSchuPC0wjpVFotEj1DaZoP3eYbUs8J5S42"
+    "hUJygGaL7mOr41XPUkJWZlUSA2ROUSs3H2XnSk8p9/RNJu4qBZT5mzHwZW9wyTkhF4RQxCh/"
+    "9egbcJmcUZ5XvP4/bJ4gkfw7YhKLk4FuDXfDraFcPZpeozQ7SC3K6QtrvmpVmQmvnHvzy7GI"
+    "7ga8NN0XE7OqUoW9gc2OzRcIpGU04UzVcnzL/OZM+jUxLYOL0h6mdSOy4o5eQ1O9hxDvw/Dc"
+    "Kjak5Sn3W5i6o51ddsuC4ZBbAC/cSLpFneXvWu9prOD1+TNHQoa5byF1uI16B3ZPDTcqnSv0"
+    "QH/6CnlweA8QLM08aeS0YTwIeEyR+1PSWh+1GeChypGiWcHDtegoo2zXmNa2OwgrOHkf0hep"
+    "INX8vqHI1vArol/Sm96cVIZX6sDz/HfngZV0MqHqH6WXqhvcnEPQE2hxv3tX+4s0ag70xGTf"
+    "IcTd/aZZUwOW6Y6ShF6QD3VfnX0bWvqoIOThqFF+nJCP26XIB+P4DdBMdTezyxljGx15s+cw"
+    "g2L8jPTeTArYCUL31+4ynwA6NUEc8es4E5HycttIelOYqPLa7TZhzcyytL37dkOWbXGXTu7P"
+    "m9ZKPwl4BDXMSzXQajbslbWAylXdX7kxj+mOcsozvuK0GnPunD74pvm0o4Ove06B6pPPgt5O"
+    "130cGG7AYkouwAcVJkWp7LsbqSLr2wWSI/2nm6fTzFHMu1Ld6G4EengSM7NnsQrOjW/Y3cy2"
+    "12mpMc5oaypLswMdis+7Jzs1h9+WC21dd1UJQJCxKqQfllSVxYiywe07SQvsJ+wAWtO9W3HY"
+    "/4EagfKln7KHHh/tYF88HXTzIs+tBs1NWs9LMD0i43KcwPx4uCPv3sX7hO+j82vA67w4xjfL"
+    "v3NlbUd8sAS1HF689Uy2IZRycbRb0hW2dyo0eCV/P5YYh1LnP7jH22EDF3vDnnmUxsncBaU3"
+    "vUldSoY/RNzdPgCQbyoMyCvHnlwpCPgB+YXGZf4FKFNuLTE/nQHZsnwGGm+B32sPLEVSjMt7"
+    "pb9SD6Ra3+8g2Vf5n/WEX69y/tFBO0f9TD6oO4u75fwf4WvQ8TK9i/4ZhCRnkAHEuUC3ktHu"
+    "6B6s/C53rbZdb0gCmNpySb+bxmicEPUKsvf4dN7S1HaPyoNaYFbqNkSVRaWF2iSfGocIqSEI"
+    "sDnOP+x5B2KPR6Bfzn+E391bz9yejGRqggBNrNdHIyOGtx/EkeF93zZ1RBMHH7etLkZuNN/c"
+    "VqLfYKYOlMDEiPMS+WowwRx1wu5r45Wh+jYJsc2aDQn/oLpbn3BbQyf4B+3M1ys1UH/vUAPY"
+    "B0yHOxMYYZGSm+68davkAJOYOtY7EwI1g1LI/dfovnkL4G/xUF3tCtF0enHCJ6dbmOHlECCA"
+    "2sjQZ6yxf3PDr59vCRWdDT5mvEvY9vhg79TMNwWUMUUK7PdyOOl1ErNVqxSant7SYho8bmlT"
+    "jDh104yaTnd32+3Cy/9wABFuY+7vjm8r6b7Os67OvOCpsd5y2SAiKcdmTKFfGXjarzr0HMKU"
+    "M3s74ouftRVhmvHNDEKDI1oRHm7L8n92vsTdxb61CP6Y+ub0l8BbBa8fkXN2a0zvhi44iiFw"
+    "wMIHWk7v0mT+Q+KHyhO8ryWmCTGhVBbmCXYoeffy0MZnra6F2ixdltFdZnpdegEl6CEUgOE9"
+    "ad7co2yQSMk1ZrKJlYPy9WSTy1lxOFl+bU2tayMwWQ3TiGFJ5hCLQucDzp6Xx4nTT444c1gK"
+    "RN0XD/Xj+KBhq0Fa32HvUcrwCDY7/BEyxOa0dYXgK5Tkt+y/Ty9mphTkUppPNRWl5Ye0T4tD"
+    "8qe0NO+hLpdYL4y5tJad0DnozDYZF8RYrt5jFM9CY9fKpaTFsSOP8cuqw8R1xCNGu9lrcAA8"
+    "Nz8gwnOjCqyrjg6LK0m1BKUtcI4WrNK94wVeip9MDpYCNK/heHjX0GHHwwU/4f2ZtahQ4R7+"
+    "whOYTbz43oO1W4xlprrjXbOhWdBQ3fiLcEfnrLBjBD1hHoRpXhYC3i6y87XoqInTa7dYo4no"
+    "QdbaXNLJCsG+iH/Uxq3KtZxAM8arn6HhZcHTzz5KKzQ90XQgPpxFPJSWPsAkLF92q5qF3t2a"
+    "fDpEQJZSJdYcDo7No7ka+U7/atrgZ+6oRU8mMnxK5iAKjRVJk25sJ01ai2Ijq3LL7Ofi+26O"
+    "R5iBv6Owfc2LRRlnYm1gBbKWh+obhQa9b3YrSVY8ZkdH0x0ACnq0k2ttQQe5n+cQHmATl1Jc"
+    "VvdqhbVsTpGo5Q4BzF32q1uRAHnVm/mfVWl+NSdaFN8JwMe85gfEusnZehsl14HSWqpQZPYO"
+    "/lXM9/CjtrMBgqXw7ua5SmF+enHwo5b5N0sB+yI+ZhOCWDJ0xFmirVOo3+JUskn74Cey9bjT"
+    "eCUeWGrfrB0zsseYTwB5sT7tGQ390qbJ7FGoEUbN/4kjo+/YSMpH/8o2J+5XvVkzbczrNzRh"
+    "0APti7zal+lLnKP/tRz0tHr62qzFYO2a+Ly8Xbb8tcK7cwpsYMlkiSif47+ioaxMv/upBCEk"
+    "T/T1rufi1xhRAR9DPqsnGvk+QpP2sH/RzVct87PYW7iGgv0/aUoW9zkEJVmGTEZ9kvWYQZrU"
+    "xmd+j+wdUYgCUizZ3z+nUKKWCnSLSviFItUNmFe9aZ0SKYjWLDh2xCBTJFxXd52a18D3O2kI"
+    "lHecYczcEHeHkCxJPI2Q5EL8AgJVIAmTGEnlPjWsqJSs0U6xEKcmM0qxCW5OW+9BWxHVFjkq"
+    "EsHBJeYZcPrn/YuMSw1t4vUpAMuyei1QFa05ESURCQ/74twG4ycJl8GPzp7rF1/odQO2W6+f"
+    "tpytq8vU7hMd6+ra0ysdZHafAUFgJy5c936eOd0bksaPa10M5CiX8PbwNmMLvggNpnaL6ZcI"
+    "wXfsq6rIfbQaQJHTRa7vp+Z8S+r/rhlMuhHi+SJ8PRGtSokjHFNElFrCVLc3WPbf8bbeM/Ad"
+    "QKrt6L8jM7KL3zr/AxhadlHtSooZ/HzzFW3g27vHM6eNwfdkv5k9ANu63eMmoAinKEmd2ACq"
+    "n8eu3czIl7CYZOPcYLdc4qSneGQA0c+3+Sdk/FbC5vWFlZ/rbmJCoVuj3j9+hNbSufkO43TY"
+    "dWIQZycJo2y+1Qza2HDUYOSuw/e114d6aopnbtGm3f+gNaM1BROYnu7VAu11p61MUz1UISDb"
+    "n/frxROJuf+qF1C+ZlJXeufRcQK+4Vl81RxvRqy/V/CrAWdkoLrqALQJSOk4AXt/8fSLencw"
+    "o1fV3de1b6l2SJzKsgpBmkaO6hyAk90Odu+7XWL0zauJO3aFNn7U90YoY0Nid6DMsoXu1LCt"
+    "BhGl0dV2wfzcmcsINsjPt9kdeVesx2clK++5HBzOrHuEKv7VTDz9uNVd2U8Wa38stZeTXuW9"
+    "T/l1Zd/mHPhItsHGkSaHMpJ8fxT6wYfC1bH7GiDVsGt4LcR2vdl9HAzG3VMuPoQq+5LvtkNo"
+    "C9Z3k8WR7aTyg9AIN+2e2YKWd3bZmw2Z94Nc1XFeyjgQ9nYnHXG9iXqaUjdekBUsk8Ubrzlg"
+    "1TqgfXfjoimcuOA8jNTK8O7+Oag3IG79yZNOJR5WPqp32dcHWdyraKIe/Pa7ma2O5LDEpzBv"
+    "Uh8g2IQOD1fcZmeL6bM2OqcdfIW/XH2+4tbEKxoVuoHB3Ouw3IenQH2M8MkH6ZcvrmPyNt8o"
+    "zV/Xn/3VpHfLGIcBB2UytEZJAsm6e8XbPmqzw5lFjU350xY+v28lesJO6jy59/deA6RXpcam"
+    "zmTnVEQMtZXzdNE7JSzvCJUrsw5zBmeU6rfsxLuBJD3/UE6W3BqfX7costvL+PN87euQXaAC"
+    "WY6CE1MN8rY53nHFIH/67kXSe3dj+t/gLi0yGsbETHYAuyOr0JWNnN77fO6pxawXujQwR1fR"
+    "bTvmDr6kQWQ/CcLw0AunSFW3+pZ7GYWfVfxPN0YdOg7fnQckGjv93FtVv8ijd5yK0TDy5pr+"
+    "j9yoStPzKPjZfTcTNQo0TQZddE2laHKMli792E3VE5lJ0D3zHoK8RxYyK1K9odgLGcImc6+L"
+    "LEwr8xZ0PqO47IfFxV92+ynH9x1VN98cZnjI64YrEX8I/lPGMXSs9pz7gZaI6Qq5Kh/GseL2"
+    "DwCzQb8TfWvxTh8n65j5ccHwsvTz6DoIMTzzI6A6bN8GTF9VKHXa9DaW90dOTc+uZiYOav70"
+    "dKr6FCP5NAFUuH3ffkcoYVNk4iRZqFf9NbfGFTahqnermFifil3uehu2rsIa6Gt5dSgzIDEJ"
+    "BCxR2WMV1UkjtohCJY++rruH8S7ot34i9pBaPoXU+XZoXv3BjOWoY9M8pam9C6nj+OnGcEcg"
+    "X2JfUuKm/qntGAf7Xc9VAcSp3vLdgL0uEVe3dmImmB4eWRtke25lNNi5Gho1F3cAEcvAYAav"
+    "TufJ18ukD+Y61AIrKangJvtnK5kTvElL8692PMTBdXynIV/Utq/B/6gGC54QLun+KJlnbeNZ"
+    "J/Eb8G+PVMEhBRbliu3XXlY9uzGkTYkNMOC7gg6d2tqFmiGSemUv+6DMVqRlrzBwKrF9rIrh"
+    "LKI2yLAFmvXafDrXYdAK8nt1QjKr4qzuFxD3NnHuSwR6EyRUffNUxXkvBKYP3fSW+N7zowXB"
+    "rfNKUUyauhSLwofvtCGOhvbhtVs+qZikPqWHI6cKc9LrORtyttJR4XdUE/CrWYcZ40JUX9hx"
+    "6eK3KoZsXmog/4qVp5pJdvTRLw3Ohuy885h2QpUmY8PfyMxu4kHkIDEpUQMBeN4Ct/3hH01/"
+    "IjQ1Swi872HNEdiUYjXi5uQua/o3UXp/XYApznxL3KFT2OHSAd1VM79Q0TZYdafh2fazNQvN"
+    "qQoLyMMKDiw5de0g+FM94WtvRWcCqIJpv73TuB1wSMGy014iTl6WrHl771yro1dgWzaeqGWk"
+    "8ipqIOB3pGMEfYitiqNH523VpfLGH33zKczpOxR1uIHqVjuunCZGsVMsN/xUvejPZyvwlrx8"
+    "osUHIv7hDqxg/fpRp/QJ1j70gHEE0R1ZR2dhX+PwtquI9+lgHgJ6keQ/HhxOVtOo9KzZE4IY"
+    "dPDgU2Gv4IQFzdrnzKNGOjPkkQ4dKnpvKm8dzKwPbBPRQoPWTdt59EuunH5wvdbiY3pE2fE8"
+    "cTwIA26660dIeOsNhO/gl+wP/B3+ujfc0l721Apj9uquo0cNxkNLtMEejyL8EUsV4d3qlMkA"
+    "lcfD855InVGocMkFiAfo+eX0kbaNZxIvTeC5YXFC/RUQfS3FwxrY42E37sVXC0Q2PA+X5Ueh"
+    "1Es2K/V+5HjqQuiceqAH/ASVKq3AC8dRmqaDfyS8sr0yQZ5gZkv8oNU48vvbhcaG8iuhuDQc"
+    "NPxrQWCsh3s2hUe9hrS8oSz+eFNN8ssG5aL9ANZ8D0ge9oY/StAUKiDbXCUPDJdIDDWe7liw"
+    "1eyXYVcq81caZ0Hic0c9VviToAyCTtYN9gWZ8Ib5E3ZkF2+W9C21nqOUitGcIF/AL/UomhEj"
+    "uQ8kp9AZtinVpHRHXOdkess3XzJgLZTKQQ6fOVE0d5UcaTYak9i62Knp08uKSEDLIIasL5KO"
+    "gv1eE0gk5d7cAx/MHbr0uXSNzshbix+/iNLSnpAjjIPvTST9qZHbJiCYrMGShxFMka8yF7bf"
+    "Dn1qcG6iQnWVwMf2o4oc4xuQ2hBjfniu2JDsIqFhAFeB7Wm6Q/Esz2i1F8nYWk4bgJxuq5Pt"
+    "eVbbiP2g6bjEGtFVapvHukDnaYFViU0pt0LJxbJ/xwKvYlGOgH3BAMaQsrLXTkS/0SrLbzvq"
+    "co5KyV6LmnJjZkbIN6TIy5Z3ASH/bQY7uu9tc49sQw69i5tlzE41WcfHGmBDuw3v+Aq5m8Iq"
+    "4yMC89pR5N9hshxU9ORgH99UUIRcLjnYUb/tJa0TMvLt2Q6zINwRZ7M5ztDFJ1x5EMDBUcye"
+    "JRMHtpmR8gR9KUQzibHarjQ+J6DeiOHnSfTExo+Uk1uneyIbsejanqd3pgtuXg7njj7Osv1+"
+    "mAG1mJnMAL/dtQ03dHrdVn1t2+ZLsrAlIZYmQUv/b+Tx/Vec7E+tfrWCFlnCtIjnvMDtgH3p"
+    "fyBeEpV/KLoj9cst2tGvmn2TVV2XPlEUZQ8o8jUwMcxts0EbZ2ctJJ+g7TbUQMxvPLkUEpys"
+    "lcqomF7OGbH7wtdV8eX0bNPnKIBG5yPMINmNSUsa4XEXZR3ws/lw5rh7gd7uAorbEZw+vjmU"
+    "kmzQ/0708fj4dCzDvZ41NuhRjUqFKuIVV2ybg4WbORxgdoF1KgQ0fBBnkgvUi2oyAWLWJto7"
+    "PnrbulAUds6LXEg6trg1yrpokoQwCgN6Y4wGEOf28oxiIpKR+WMVjl62nQgzk73dpwtYEYmz"
+    "MMn1lGuO0hudCyRQLL3rdYKsX8/O+LcS/IwjNFFuh/exWaov+7Fg+9zkTtpgir6dcjepOIm8"
+    "Ul4BKeK1OgHkJUd6ogpipcUzeu3nDbWs173lEROLeJzHo4QY+LSz66KDb9HsRbhmQmrBvP8/"
+    "PVO3KnOUzsft+8TtP0UAITfSgiP8Wro1Y5ts09tcwdeeBycEse4ZRNLCchaC0nY/+lJF4sDr"
+    "qO9YZoigK7pjidjIEc+GzpdpwjJm5tOzbYZ7Uybz8+PE+bp0vRQYXDIKD3XjkDDhe81M+RaW"
+    "XBDnO9g5QlxiyaxPDI4LDwqpnwwR3y5rv34vvyjQZSVED7zqq5tSQ/OWtEpoC9WUcPRtLops"
+    "mAU+NHOJow5g3zH64yJYfi0H9vr0NVJMF40lzuYg7odTs7kIpa0PGbP2fSheNoscyQnUvUWR"
+    "M8FCeHmcFDX2d6f3Whz5myzbymly21k5P2dkb8e7wCj5b3b0R48+Lye+s1wBLtw99kHdjyhZ"
+    "aLqfbX+ea4yywbl1Nk4adY3QXGFYgHTvlINVsuGONi72Uu5tgUzahDb+kn2V6WQVZ+FLLmZN"
+    "NWk01xm19Rt9IUTAIHLhAHfS4e67vzBB4UJV20rd2zvFTt2ZWLj7MlSfaw4yHEoEARl+6B2H"
+    "QLKmbDGI/ysQGh08v7Xam8oCulZUgYMdlIt8tKJyzwK64Kte+krlGOOsse78g7Q72GjCEwmq"
+    "TEvJ4W8bxXpKJvlSFs79UGnfKFK151NFJQnNTjbV5VD8/MlzTAvhX3yacZrxTmuJVWIzSLOW"
+    "pnpaVfHtc+oho8GD2ymgNCIqm9TyQ2lm29T881Xan0iKaFJqDtx9P3l4Tj0C2DtQ3AuNHxx9"
+    "y0PdmZBSGFMQ289W31kozv+98XJDjoG6M2agstf76ThHCKCHk5JBsWJmFyCl4qnTHDvl0i9F"
+    "NZxbMp/MegZOwmB7j9LyQUtgue+thqg7hay/pal6C3LDrkgpm5/PO8/+v5r9oVOrHhaj5oXE"
+    "ghHDBX8xtIcmSCq9V08QHYqRBqsBb6MPknWuJ5s3LHgjXQbd+aEXc9uf9kuGvG5q9MGHL0ZI"
+    "9f9o3VPYv/7HW0FD39hwsbc7+9Hepceex4V1Bg7nU9w2tQBRv1tddsUobzeCS+dvIM0DlN8W"
+    "Sm/a7Mbksw2OCwkc5xJPXOGU7qRvtuqdt3E9CMO5uzUAIdHSzWzvZ67pc+m2Hx4VAdrxiIdm"
+    "F0/Oj84cMYmSPpNy8iLsJ5cQuNPFEQ9LifTVdibb/jTftjE7SHPji4L1uslj2qhQxNnS/dNj"
+    "SiOxK9UoKJVYpfGqLmBvAvR1S6Nrf/N5JOsqOkQGgxs2ecs4Uyt5LFBXrDuVpYXLCnmN0nEb"
+    "crBbrfJzoeXNgn5xJa7HF+Qq9fkOnltl2qUuyyZfo/4tHF3pDEfskb1RzgPIwYZVD1haWsD0"
+    "psQW4zd/bjSKEa02CuTXOUmo4JPKb+U1pwFHS5EGI++uQJUVcap0brU+spRUdGdF81uG8jYs"
+    "ckJlxMAbXKXUASwA9cTwFOrSltgOVDLLCdVSub1F09kTa+pLXTzM90YGpyV8KFhXHCSMKrd1"
+    "R63SBOk7etwK1lkpn99jr92KH/wBWYenxBa/2fiBpdbN0QNdLQ298Sk6i/clV1wWACHGHNIU"
+    "you2jtRqt+yNjEAu4nF0ouvOMffJ+WRkZ+AHU8jIzZBR+V2hINbbEq5FSHxYmzGUXSKcL+Gw"
+    "HPbQkJmu8AayuSnNM82V3NLx6ut/TmRxy7u+xUBZKPhY7IrsiPa6bAvNv4sWMrtqO9VQ0btn"
+    "CojJyRfv0p8XjRiseCqlH3GL4xx88Pmb6YXnsIol4SkQVQ5TnytDPyr5CdIm9+uQGYqMyyrd"
+    "86Na3ZM5lzm+srlVq19qGMk0HAbJpTpWsbeF2ZEYvS+/gS8zzFmZ2QVj/FWdIktBhK3XXyVD"
+    "lmnYd7vKLDiOQvtv0zs1s0jPoOGclH3a0gWDKNRO22Frfii2uxwnCKvxAZ599TaSCV8WVNCH"
+    "1OWZ+uWuPW34Eiy6R5r7abL72HprTRrrL6s/OaNi6hBglGmkgL1xwlJWtvgdVaOgZfO3RB26"
+    "N0zoJoSTIA0b1gDqmZuEx7xXywB5lZvQh+sCr6si95r3NlWeqT1equhFpPyvvrWbd/4zZcJ1"
+    "Uc2xpbIriQgZImNrAA2B+nGN6jWy5uu01TxgSM+9V/mqFNC1mriY80MkO6vF6KMJho92VorU"
+    "n2tQNWcD3X6v+xHQtmGnoJmGwlCCBs2/9ntHOa6Uwh7CTd5SOMrlY1tCwGLtb7QTmfE8wcm1"
+    "rpJMLx3b7AHDijCmOvk9yaCOU+QmqYACm8errXwA7crTdDbrRh82WGI5TAJ3cbMhc10YRggf"
+    "b2/u6c14QskVsZe8qeXfnux9LHMt30dL+iEiKdOjI4eXh2zoId5ZM6HGTb5Zb1qY5HrS5t+8"
+    "dvlTvv/89rBVXUkKR1ZvUBCt2f9aIwgmn7vDReW/MYsfjwZlVJvr/Jjhi5Rzmyr5XIEukuUt"
+    "CqCtUZJwO0cdC2tR/WbNX8Od6SMbqDFBZLBtJa0YWQ78rfvU9j6df0BMa9frL/PZlRbnlptm"
+    "8wZs9UN0GTKzcJ6Mat/oMDuhWT2rd7sPDPkL+ZzOUA8Sx69sSgZGbLx0TNSGm/u+Rdly9CzD"
+    "I+MXeZkCyAtYuqOfPuT8lA3AS2+QtUIir01CpkeroiFR2/jAHb9kueXueF3DWE2zCnHx9xT2"
+    "FpTxpQuj0UA87fm3aTsnjods6lXu7eXslmNXN7fpq782CEWlcajVhAD2++69S1XhaladewF7"
+    "s8+dCjyXOQLXMkfBZB5I289o5j75IIbbgOBQbpOKVP70B/Pimdn1jPXr7bYmhJiwElHtgdL9"
+    "xB2YNjrrSfdVXIzp8Yd9ve9eSHnd2Nz06NVbuqJP93ovq7MAEFdPnnmYu5tFx79j/N3r9mY9"
+    "JzRi1qF7TfyItod1PkmQxbqrQefSgzwe+El9eBG6CWs+kPMnUsDFZ06MFoIOJP1fagmU6TCX"
+    "EGYkv3aEzdYuJIZhBihsc6OeN71ZuXT/Tm3ZX7YdM8BLztSAgwIuAZIOCO33bCUtzCDw3fyM"
+    "4n6Tx/FDMNFM1zMihgt4LhPttiarzgHzUm+jt/O94TWjSXx4OS0rd5uSWhU1xRP/SUhq6OUl"
+    "60l4p4tecura2g5Rlya/kPNJWajt56ldmtmzHFfA/Mr0UuqaTpJcl5rWZndNk1Fa5JmzkB9q"
+    "Yb5b/674dbp9VyjbeH8zqlKVPYxamYWYLADmSFJ5dPw+v+ClaQqL7m5FmIZ+C710Y8BoPfiZ"
+    "p51H26ssO9uN0YXOzbYdD87jJSubt+t3pivoNWo3Ht0FZfn4fUVeHiaqfHQrmS8QYDI3MYLY"
+    "qsMX+KwUg4NG6aN/1zsojlJ61HyJQN1Hw3VrJo9StZ/J022OEf1wMtZjWjO4gSbXlhzGUCaJ"
+    "IGQJN+f2SAsXMlfqlUkPZzf5qlo3oqd49gJEzaRfPf8j123bUOYimlOmgOlm/UN33jIQseyG"
+    "iGeKPuOZAmzZDH7ILEybAcHutxOnpHtOyJupeODtUMl74ADpVr1JcaQU8q2CfXH2dr7d3e2u"
+    "hSv3QAU3n/8rbhf/b6xBKYh+AbPLF7I6I/jUZjD3ZdkPsZdMR2YN0oEu5baVBc44KRNN6hud"
+    "XZc+s94+U/Eg8nKEWF007d/lgaD5x3UmqPiKuqY1YxhW4ENeKlVlQI2H4bnfINQnojm90gBw"
+    "WHknjqne8e+SuDLd6KLtbjUNvLfT6qpzZbrIAVwTNJMK6KHvXqGxoAbeMiTIyH+Wh2LHOuNs"
+    "8XtcYh3VNmGm4HdHgCvHK458wpe1EUFmWzYY3LzgyT0z4ZSMAQmhyYkoEcE0A05xxbD2CtpD"
+    "qoUDSFP2rwPTeE5tpoOx+47i7Sh1gdfLFlJ5YwsRxicGTT2JTuTBkPJvgB9eJ7+39wLLOf3H"
+    "g0YO0IsacYlJx59wSyxdb/2tJdzzIh2GwpQ0b6yeuSQkCL0aVc/FfP8V9HArJ52neORtQhOC"
+    "U5emtXjt/NR7AWDnPGdJq32Hqn3v64enZ4UU7uNdBkO2JrvZtbnmlL0Udh9ZZ3suGqIh1bSF"
+    "NXGekN0HPyN68D0M4QauogqYoJLF/BlwDtfst7gNbJSR5j7XC1CYcOB1cXdnrdh6RbATeWhq"
+    "3yrjfT0Lu+KhkWEtCXCLOKcRjfld69Ik9KmE6+H7K8Y6DcfRjODvoFIkDT1UvGe74qwHtT1d"
+    "SzLPsb+GUMxx+hNLMKoNh7zKMJfDGj4GIQOZj3D25/8rtSbxACzF/J9vHGb7Cr9iHl6beohp"
+    "wqjTElo6ld9C3h3P8jKd3+Lf6n17/42v9SHmpFn4U2HEbb6ZIGEw4k4TIVoxFvX85FUkr18O"
+    "C8+3FpN3hHKex+lk8iLk8CdqCeyxgxi2RdzNz2vSybsR8at2ctV4Qu+s6WyGPJwvYdQKAIhR"
+    "uEZyTrHSNZl8jBFZn00HrxTGJ9QzBYjeNq6Xz5Gwrn4He8spgJS8N2hlEMS0vO4ngBPkHaNN"
+    "evwZ6LQ1nrM7Ca3bUXyDMpKnq7++ngPUlWUWrlBQu5+rDWcEbCr3fHT+i8RoKcFQY9mG6jcr"
+    "uFG0FE1fuILvNmFAGyFKNARZ2HQ/1VK13yc9Iaz9p7pW+HuSiIwfsArSC0Obl8htz//GxPs0"
+    "N0U6HsaazB8UndMKt/6rgeGxFT9k/jNY3ey7jSk5WZmMF7/TAWnZ4ASwQho1YkT5TnWdBw4/"
+    "zUA6Y2Mk+47yoa9CgevM+tkAlGU+itU+RNlidexfjD0Ojz8mTCozngju/+NckHuODHivdXcy"
+    "dWUeN+qWceKCetzjLtg4YrRdpf301eW3aM6IZZ0SEd9zBD/DgF7Wmz/CMWI90Tv3VYnY/qHO"
+    "hhwz1tmcziuBu8HhhBcRmb1naQkO23Kt6sQU9pyLhTiFEw64XviJtsqv/mHRY0lRHh9jQNNI"
+    "Zy8KPF6o1zT/cnAV55Hcd4oalLgm4hil4rVPvMPSSlW/Z2lSr1rsUYYq4C7mWyKyqtMmlcYN"
+    "The0FhaNUsfeVdr6NdN2AcT7ZH9eo65ghjrz5X5yhD8Z75KwkSutrnBizjd7lLthnKhbIpXb"
+    "ylpf0TBh/upB7eKoiO2fim1a6MU/Zp6/QZTC/veKB3XXQgdlJAu9nuhlZS+qbqSeaVMPKAMl"
+    "BPCA8J2tDCVqe2OuySdzv1LKaU0TlHUTeR92wPuOOSdCnYPvWopJzC55E5WCvvZ5Zo9V+lU4"
+    "E2gSmEpOmHv5fExbSVhu8ooTOHOimJkk/5BxkPCTwxarcGbrqI+4iNreTv5RSerJNZCgzR0N"
+    "yUbZBl3cv2kz3vAtBOTFYb3TDT6maoztXoziMusFZJ6YsutG+YlS2cMPqMeUEPe42JIJepgn"
+    "kmNow4wqcfLuEZ3jqcHEfXtXvxfhOQTQRWbF5nntQaSf7oXyTfsDIxXy952kxb78vOXmm3aP"
+    "zDp7w0VHHxAv0Evz6bNybH/aOh+0A49/gPLBsruvK9t2ZlmBwNnFRAUnLvPwHZt9Iv18ZOq+"
+    "4pPVgLXJ/2O4PvyhcBwwjidJZSVlj0pRXyGUzVWKyqpUknFmZO913Bkh2Um2UzIiexwOZ8/j"
+    "7H139nbnHDecu/v9/ojP83reqONCFNseK/ldiO6GKo97Huj4xEF3Gn6kFJm0UphU5S0QJHif"
+    "JNoD/D3iKT/9D/rA/OLvho6NJ5b9HHaBsM05yGllZS5coPL+iA4ZcsXvYprg7ZXImVFTAvs1"
+    "uY04wSRPweP79BlfTPlJKNee/Uu6cGh3kKXhdnFAJiLK2JPMo9rWIv1ec6QLcC8ZhWLKajSm"
+    "wVUBytHQFxkldGP6D7c3QH/fy8affrbXGfJOXkt1adJezUtv3siSL1MWXtfQ6tCFruWt+u2G"
+    "M6ZkznqUhxz47UjQYxZZlL0ebXobcUpTNbZC8z8ViMcmXsyDVxUXkx1N28RGF19DOjdT+f4A"
+    "Z3K//H2xNa6QNoTzzc2jbCOcVvtzEVtzcPFO7r5I6WhjgNFvhZVzkS98Di+rL44++9sw1++c"
+    "yk7V1GoTMls0AA7lyYN92KuDv+IHFyo4JND3cgTE1abAci0X+qhZvp4HdWqfpC1ytai18oLK"
+    "XC5f7ltoNdaiK/X4pihWh8oclQJesasxk2/+AKGNh957A8bIuQjVU2+ecwCk15ErU0AcD6l4"
+    "27Lut3QXTW6SyFOQU/aJrS3pgjkGxooWpfCqWAZu+y//nlKxbABq70EbIAP/JiyDtjnaXVqW"
+    "ELOt5E3t4+WTviYeZs6iNvruvIj4IRfQQAMcKeyFhJBx7A03vv2Erx7vkmCOoLDspvQFgT2B"
+    "I4NbHgPnn0OOPpEOzD/o/KyWBX/QzPMl39J5Dqts50Gjm1S6DhbbGIp7FjeRVTv0afhcVUPJ"
+    "edHovZb6w++e65Grd7kgoQ/laNRVp9ewQsd/UyFQEU2mS2tE3JngrDPKOBGfcwUfDpoUlpab"
+    "eAcaMESF5p5aepSbBCADrrW6dvR3XOUgVmjsLUHrpUfbjUdbgZHmllVqXDFfwlvNcmrTV1SY"
+    "k0rTW0HFE681rkcu4ytaX3yqCKdq0HpYz1SRzw309WGsWbX9SqyGRTRn2p4C9n9GZFrRQULQ"
+    "oe0EqIuHnQchKBLr79z0YZ/uZn5QNMZnwyjaPJ4Hj0VyLGJO9Y/m1mw2QWNTE37ap4XRNzah"
+    "XOcQSqGHS7WtBdGndl+BXAe7HdWs7tkJEEucebqpcivmnW/DyjUBlGlD/cjbjBXnQtvbxeHJ"
+    "C79yDSJ/8ZyFRIvKtIack3CSyFGk+ut+6QoxKGU4J/d6oKuKGfGhqHMHS1e177TRXc6VWWjs"
+    "84etuj4TEv/nYDv010xJB/q36JeCOz39RsXY8dlSv3FakHXRfevBmYsjcfxhw9hWwiZPxtl7"
+    "fX1Y9jBN5sZw6//X5E7ouXwt3dYWFJvOno8x6R3i6MNP7G6CY3BP62JsZOPwGznCwL8en8L4"
+    "t5hz2mzZeR9DdZl5uDKfMvq7jXK5ofdoFu0WvqGYGAa8Xr2PguRry2zzVUd4iupf+hBgNA8a"
+    "KVlURy+8T1jNnMj1HQ/IfW2cK6dS1YwDbssy0sHoGNnV23T7sMUJyszLzepph7UBW+0u8fKG"
+    "etx2Q0igLkRTCzhweG5fWadSjBa8UU0sMNr9u18R8oarEgkgmBmzCPTGcTh+r+xgVzk1vGT0"
+    "C13S26Kr8Qgh5m7qDiUUaM+taxUw9RjTPhnWc08omZI73/7wTJonxZMryCurttvvG65mdGWM"
+    "dSxAIoKuicUabR+85IBPdGgDo8BQacSANuRh0+JjrN1A11IUMsleKTjZPUnALAeQFNUa1Kqy"
+    "sAbOhzYBL5sx8Nsg+PunbdhTu3rF6dy0MGIbQb2DwLC0goqPZyOY9S6aiGutZ9DaOPa6VcR1"
+    "9qTHralu8neRyppL5QYWmVZK+S089KIsZbSF1JH/Lf/UpExG5CYBlBXzfM/KhPmqRwFnTjki"
+    "Z7vNx3/THI2UFVrKG8CAxZ81Yd5qoD5Gk/wxd/+0oMx20O/R+HIU7IF/WeiL72W7b8RzBy5O"
+    "jiwL8zDdgJ9xmBo6Unm0xiHg1cby+L5GV8CsCbW2yDww6JeE34YW9kPb3HBc29hqsW8ZqYlV"
+    "63WXocySwGGrCKmRRyWZOPGwQVQVUQ8u2eUWfFU+wXijflu9DzKANdmb0752mtR0KCWRN0AP"
+    "jtTCq//61VX+6x1hLD97A2uL5SNPc/RTPXqVhCpnRQGBXpHWCvi45xNIdYvuOHVkB/8u19xp"
+    "huGKESlWsy4pE2MpxWeUhczQtHeOGLkT8t3XQPHFJfoLQq3eONxpevkp+vuSjvOvvlIUa+rX"
+    "vUq3DL4kF1Lt7kX5KqHWQrEfy275KBfsG24F/EZVtnt8/FK/6X3VxrDV9ru/iMvfCB8G3ZyJ"
+    "hgpqGmqPsh0CjlJrQAm8wGsqpWuwTOgb0+MEULpv5Xj5EmwdTDCc14VitW0hP5zpSjOJsivn"
+    "rQLfbgw0/hcSRQMgx06wb4yEavU3bGCnwtrXhHRF8oFeKo4LuBzWWJ7Ni2YIQanGjzbuF7Bw"
+    "xtiX3W+ftedxdytZdpYOkZUC7mHQIx3lf4KjAlOyobOOgs6xFkYLC4l6lLRtjexrc2SxyovN"
+    "5dwV4E9n2vzgMza9b/feJjPQX5sO70XBtqUXa5cbNhIfpmaFuivC5vMepe59EmpSEpDoPcSZ"
+    "Jn1DKTFtBxWv+o4aRcwEuZRn9NXWq/wMeeQWQ7jb8kuHcSNYJ4X5vP9S4ogApA/o1m/z78ZG"
+    "pYFmbtfy6qTlWcdu3jQ30iOlD2kStXTNIUXmU2ZxwC0+7s3CaWzrDNfQEEtW1MNptM51iHZt"
+    "sqGh4VZpus8IYcvKxArx3WW9w2gf5MlLo7rP+X987vvfZkrMbe1Y3xWPtIOuhbkGlRYBki2y"
+    "LVznWSCir7smcd+wRP5xOICUTBW0HePp9Pow0SfOLpyhCacCv3ZdYQ+fKFFfUvE/76Ya/loU"
+    "Wg15ClhD/cYsnxb4XEhied8o57ks8XLBaUFMUTuFG4kG/T2SDKqi0d01Fg4c92qvhFwoXxHP"
+    "L8DshzL62a5/P35C4cxeqKy8DlHhDDEcpFsHDQD2sk/eKfEGoHc5xIffQeiAM28UqRg44yni"
+    "nXksZguwWt03C0VOWD9YA0x2Mic9ZvoYe9wWVQfYgjPGiOOT2MZD6NodXb2Ty0Tb9kJrH8AK"
+    "QtZzuK++iP4kQCTHngfplSo2q4SuFFHHf9O2CU2GpkXN305Uy3044eLriepWnR4Efu5aP16H"
+    "RwDq4rA9Aa9WgyxDbIS2sjstMz/ZY5aWFwQ8xpe0KSeiffWde+nAZXAsKu+aBHodp6JEHf5M"
+    "g9fwuf+ZVScas5pq+8YafZk/ydfxgnyUjigHhUH8ufcW9ywPuzWIspqz07rMbQWZ1LnrF0zE"
+    "VeqBPfFp+kvXgmifQxW16vtO3VtQTb25bYvzM4pqyh/EYIfoLeeDp9eEAvDVAy/WzQJuDRw5"
+    "2kLH/GIjRlRT9SvI5lckPDDtJjbDWqgi5ZTMre2QuF5EZD3ZrUWEARP1qPB6x5PRZ0g+M+lM"
+    "YJ6zhOwxiuXJxgiLPKgSS8gH97NoV8iJvtDCw7khr38aljagcFcrU3wLnLCuyAb47/z1rIe7"
+    "w9EuhMnvOy3PAmo9SfyOpdIuNosU5GNS54Frfz5jn//VTlQcHGgsiWwnIhZC2Qd5uk1CQObx"
+    "bNIC0bd8W0IXzNG4bLjBFb0vI7+itC4Z8vvdYsr7px6lNz2aPV3KcfEaPSnWSmcpflfAD9LY"
+    "It5bKqykVFMuzXSkf51w3o+Z6a6i2opRtcCNAsO7u7aOx9wM0eBFQ9QF6DG0adYsxmofHMH0"
+    "d0+pvqSy77VvWlE0vVSMC8F16l81s7FEISObvIRUWTVEZMQvoiOoSpGPERYik1apTOGDXM5i"
+    "tpDOX4AN4vT7fmjy4H7BtBkg+sjLOV2Y7/x/lAi86GFPJjV9xAp3vSxmjMk6maToQSkLKTIe"
+    "ljxu+1IkPrUsnnm913SdekPeCG98ZfdIbu4faB+6//O7sRrwXtdQz4DFZVTrQZm5KIDg4ITI"
+    "08q0dJwAKX8C8+fdE44PF/6QY3pkZJCt5C/aGjFPH644AUbSYa8R3zCPrdhThtXQdUSLfPlc"
+    "UIgnjaK/unlZlYn1iE2R/Jeuo0c4ehFyqmzFytYXdfvoK2d83Zj16HLLsygQPKifQur3e0Jk"
+    "hI40H/rIvKHWtXLF2IsImr79XGsZfPI8G0ns4n9Lpn57Px/0w81w5csh3xRi7cJb4Y0eATnJ"
+    "nzt+tImQ7ubNW9uztUZalmJd4flNUR7Jcxc0MNibAgeOM8tkfpwLIRmcH+PhQ1I764kSkRJj"
+    "B6xbSJP+Mqvgsyq1c+bMhxNRovG7WRDfn0cDC2knFEuXzc/MXhTFwlemzjOtqvxXwj9u1lnh"
+    "oFgEj0IGAFV5ujyo7JV8rZnTgEiK+9BE6u1/0iULFyLVHO4KC59hLd7HPur6uQNYtiT+q4k8"
+    "TsconSM5SkM+dwMld08S7/IUZTmdalVme4fYnOf4XMsZYBqddP53bcc/49TEjFAlMWtlyQ/i"
+    "SxUo5P6itJSdxkSPSxCstp7IHaN6BaO6ljakB52dn83zCas454b6F79dWxO7zRZYyrw1yv4V"
+    "RcbPMYp+rUITk1i551g0l4QDwprltrdFx92sZmkCILKRCzUZNM7VptzREdOlurGO02FX+BEK"
+    "v8yu0LfLfi0oP9QrIi9GX8XZdR4iNkXnWad5Zlg+NxB1CIpv/9CWPMvkCZei+8pDTua6g63k"
+    "7PsC5LWGaUAmimc2acuXbhMcWL/psv48m4zC3djLN4YZbituHwB+DRVvqa55nxHowkJ9WiCe"
+    "htR2vcDTymh72uS69FNV7tqOttKohPp4VNfSYrU3z4dvIVUHz1RHv8irLxKKrfVnQ/4aLftk"
+    "E/KuNAuBqcrdR5dl28rM231UzzKnr7yf/PuPmnQm5zLPZozEdXT98aXOmOkrDKFP4SJqU9zL"
+    "+n0dUAvaVa1+QgIoT+DCoIaiJ5XUz65fvoHb018IR9j3Nvl0Go6ZphpXtBovksr0a6ranklb"
+    "vhzKy2kK84MX7MB4QzcOVi5UiNIMtZTZtft5aZcM3rBPZ2mRQ+iDKkvnFlZvMvRNJ6TSIaPO"
+    "7m9H/PJyRyBPhSGNqWdxO11bZRpUpmxDKh0c1sAVAgaBEDNBj9xOUHyEPbmeVYAFIkJtw+tc"
+    "q+PdUCdR9sRSxFDvyueZmUgIBS5be5AajN/oH7ilbXsIrm74pviu53rrkaS+0uIDdq99iyls"
+    "gtzXz4PpyR7S4ulBeRPBnjwG9x3eoBNardsdRfpCKjz6AHBa5/xnRtKQ0FMt2t2Ni57LpEBc"
+    "vdnhPH28jD7nEpjYt9cRx3pUf2AMKLIzoWmKHEelzmzA7plA3+yy3O7vnZj5PqM+1q2tgQ+Z"
+    "c8xVZWMqqu1tfLjJuEkdlhitBK2Qprny1wGGyDfA78p5MaeM6WliUI4rOlUtUzkb8jAATFh6"
+    "9Ej0lSoxZ85N6U0OWqLGYvb2P7e7VafHqoFvFo4kZaVvVbBKzO3z94Uoqe+q5oqug31r2fgV"
+    "KvOzq40t84YXm+Dm7uyz58o29clMwudbgmEfmTLAzQco74heib29TPaDGqOEjbLeFhoNtNKP"
+    "NuV/qtUiruYtrO55pFcyU1DJnUWsZLKINGfCQnmPZPIa0tEh62KgCawXQwUvmIzsutwvssRS"
+    "QjzlVNE7vKAU1LrMkeoj/sFzOrFieXZxL/nYh2e7AdbrY5/wj5QtfgNbO7h8eQPXceoT65ja"
+    "d1n861ECUxNKJsd4aE/Ea/hkx1HOj2sz8CIPRO4n3p69BxybHLoS6ONNE3pp2oJnhhSkSgEb"
+    "tINzsFAqcu5b03nxwZXY7ZDXC7ry9yNvgECEBLBhRQJihO3O9P/L/dwr5yERKt+oGCohw+5h"
+    "LjcsL4tdmtrUzfEg9nKJw5suS/Z/auUiyjt/SYNtilv6+1B6n5BwVpqT/+AtzT77HY5M7Sm1"
+    "6sY+rAtMtSxZzhOJ9usakQS6rwt75S8bJi5+AugEpOzDRInHCO5W+5rexscxe3h7oB1ore42"
+    "Aauhj/iLsHzszwagOlpsBY2dbtxpOGV8vkqqnai8mB7Pq+qWzDuagY0CCqer+F53Z7jMKx/o"
+    "aHOsUl5WBF3dfo+2twwgLtaGrt23SzX+w1CtScdy43IB93U15+c7yCKsb2+IbItFZL4Hnm0W"
+    "ZRd7UYuGA7vUmPahJHSyU5iNn8UCO9/p7ZjuhOD3kKzyjubOXNf3w8e7QvcbM5rovNMSiWku"
+    "mulG3SV9SYHojVaELU4qWDTlmNJ/eb16bOofD4nTK402cFIQp63PPabUErB6KIgyUS0+ghzP"
+    "WDGMz3sFwmDzHIltqdAnrCUBpwsroOdYe/rO5jZ+lzK026rqX3Z6JUdCizmMyuvs0sxEjUjs"
+    "P3wLinYs3SQoI9M/j9RPUUymeu4nkZSVSFnLGgCSpJzXjW4NHKLOsM4Gx543hZp6puc6U4RV"
+    "20+dCvwztnPSQ9EKfSNAb8/j27GKAXdLfLUhpUCUjCgTTqXoQffFo8ixYt8tDg6fVtEmZjxT"
+    "9G4rhF5bWKIOCv5EXqeC3yQd3BFcqOkito95Nnvxr9/4cVE0TeT2AXrTdf+nHFRUBkMIUt9e"
+    "et9K6s5tmkAKAikcyg38O3y7HUffCb3MT7kdan5G51E8Hu4C7oMHFJSD7qS0EKCVcmb9xY2H"
+    "/jvBM4rElCMWu0zWzRG9OfxJ61D6wRq0EnejEZrM5gmlo7YnPiP24U6AoLNBhWJ8P9RUWfg3"
+    "MpztkZjHdfquge1MTHPtOmqUnATQzvVg9IxorDTOW6mf1rMJ/sf+qHJMYFIITnwQbXQJK41/"
+    "OUNi9SuLczD+2rxg92Dpxg3EWR9HZrT6Y0akDRqQP6KZrB1Q7ihRUtZCKmgbDzhjt03rWd+o"
+    "TMb5yxwNS4CbkfStN/BSVtx/HpF1/MVPfPdrD/A2ycJnPM9NEqaHZdHxOiAYwm2xzj+kQlSy"
+    "ioLbCjPevP08gN+3mmfSi6ilzsGfDofioqPOh/u7rul5lOpDh/ye4QVtm21/Pe0t9vbvXenU"
+    "eSz7f/wapg+4CkkjPZfvih90Ghj7b1Nk4IgB60+FZ/x5H3y/77LZYe5YvDWnu9/TnvR85sa3"
+    "ZVYxw/ZbSuenOSxUr+tfI/t/AL+6BTgdkzCcv8kV131VwSNA/gz3BKkY5/Z9Mz5dZj+wH3G7"
+    "8b+nyncrr5FhB/Y2hm+fE51TlC4a3T7oOactIPTyIOVYhLtgak9HVRmQkRhnXRblOJb9ebqg"
+    "tUqyxR0FOwiOW6LqtpAaSeYq3oLlIoQfRzXaBVo/A/JXLxhH/WV/s/iaR3ohgJDYp8z5Vv42"
+    "ky6+oHGntTIhVlcysi/5xompuYt6rfenkmzmX7OQ328rbLncCXfcZRhTxdIh/8wISiTqx5e4"
+    "++AdCRazTMjHewFu9uWrI9O38QDXM1iHXq3lo/GLKgFUlTQFlx+OeKmNfVxfbDP5YYFWpgMZ"
+    "yd7Djsm/rw2pCT1qq0uUMYFTQWtweVGnfs06OEfryWOI3K7bpw5ZKU6GxEqkdHxBM978nq7L"
+    "4c0wuGq3+XJ1IUvZUrlVWIyvxrdjzbCHW0nGs/AZr0Yl3zhoUsg1Ga8B6RFRh1963StMVKlD"
+    "uqPaXO74Ud/wiXW4VPniuyp7GXbgR7LL7P6q5oUyiqqKEfbFR2n6KXHBsmYnLHfhGy2mILBr"
+    "94dxEXeb+OB1zDgr7LFdF+LCvyywlfqPmsbn0ymYQ3Kqe9VTaQlHjqVIQ0zLa3d/jByLP8zu"
+    "tExtEXdbEp+tUKNEpgbqAoQaeC5IXHJseDgqdC9EorCPnmwnosdABNewUtjdN5AeqUJITHwK"
+    "oSm8efTG9rLgtKhBWxUL6LG/DkkPtfNAVJOb2Te6b6uTaRiqs4hkJK28WTnfl1BzVzivglbA"
+    "PTnTTbQ6FcN0qX7BZ9asZ97iDkihPsPE/ptq7hBeoT4eGDPrwG+tvwKxbL94YYkhxnHQaazA"
+    "Tx7yDYvLfmhnQk75ptzyGMJjniDSS4vvZQMm8Acbl14+XK+iNQTeph66UG5T2okvgD+zp29g"
+    "tw5Gb8onRAIGW1AeB3yuqwt6fnLvlS93ySxFqM7E7ba5aP+uE3ISC8QKuZp82BtctTJubE45"
+    "EtEtDT8yPj6XqLnzRGLGHHT0LYIZmmXj7VVz9HqJqFSsxmGP6pqtczqsA58oeKp6/tQFzUoq"
+    "5i3WHjpytCmxYHY+Hp1fk1czJUGFdAENyYviGx4nnDqJSVXK2Bi6NUJ9VSBz5ijvnb/o/F3L"
+    "Gf25/qAA+ZfipRU5AGB8J3Sc9N5TIBbaWcYuelXhfs4sns9D8TxthDMDGwaaCN6+yiHEsfBf"
+    "UIZNsMeN+/W6ANJ01hearroE4Zl2Ro3AYoO2B+V6cxTUaG5o7pns8tJxsU1eW6lI1ZU+YYwp"
+    "8r8Vm9Ob3fxXWpKSJLzS9wP4WvxJHXC7pkADcVpmi3cACG5kYEW+SIYoL2hopdpCiVzhbCGU"
+    "0jbEmz08QevxUJTKRCtWNyic9U4fN6pym3eDUQyTrq2657n99cHnwC7xyqu7obuhQY2vPPGh"
+    "i8GbUmKrRy3Up8WBUOoT1+Nni7eGJsdjTPYV5lLE7tdmWQlyzA+dXgI79+bZ/davRipg6m0c"
+    "7LT9tx2/Y+bMTF7880/E71o64hUdaZ3aF0hqgW3BaIbl3p8RI4RhWWwnyxg7YIONbnyfqUpq"
+    "bcjTOVaxgS+p0nTbZZ6c9P6TGLGfd2eQQxtMzDRcTffuOUkAnYXZUXoNuwNDB9+qTgxFCkIs"
+    "LTK80PMagJZpvhgTpM8k8asy4wvi2mZul4p42xC+1ufJENfwTgvAYcfH1dz7td8r6qnPYG5G"
+    "7W5lXbP4W/Wb5YR1o+4oJM2R0ryGvQdczWsJpH6Rao3R+VMl6WbWtnY2ROsRu7GchPJTUKhE"
+    "3lmDm6lNvw3kjTTCiD4jdDG1xz/u5rs79KDfpfZsE70xoRtJaAgGjYwv6FOnd2JYxZs72gQT"
+    "k+gSjCU66ZfUKNN0s8COAnTAfSFzMvlKoZ+UY5oSQtUpCCbnGCAUunMdN/9TKEXRxsQ78SBc"
+    "lwFMLmgbhu9A2W7e979xYgheyxDVSjpwqACl4B9FaN8PXgweOo9MvLML5uw1Jh3xZyRIAICh"
+    "jo8wHYGglWAKwXHGkNtWtvv3XJE+Ie6YL8vwN1vw4XYR97Pr1ca6gOCxsMDPeHXbAq3IsTTf"
+    "C53p+sF2tR+9tyXweTROpDnPwfhDl5KQojHg8FcvE/9hHGvkLl403R2yBR8Opm9wZxfMysFn"
+    "Jn+IBWBOU/nNIKtmjDRHMwW+eVOXMElF/Dgq8BWY4JQapLg6sgiao7dtshVxrFBrQrz5mz/h"
+    "H1GYpADA4iihF1rOnumf+JA/ve2GXJC7aRLc80eKX6LylkCQX/aoy+7Metzt2XI2bkvVkSuO"
+    "hdnp0T5RNmzbfdcAIrkrv9OhlItrvhqfpWbcOX02KeCxTLF9FdPJ9Q8lTeVcim1980otrMby"
+    "mW2Sb/cvq9ZUtVZvLUeztDzrMXH/vJKlf97DVLk4N79Z+c5KwqAav38hIEbKnJ1rb1Yf8i6E"
+    "mFGrnFwV7DHEbi0Rcg4lzzv86IRGLPx8lMDIuQTI0ZhIuYgPut/rqBqklOTmoVrB+hj5nkrh"
+    "LV62aWl7DGH8TsTm8jKax1TzsJZTYwm4jMXLZyUiJmYCLllX9HnGjs2F6lliLcXx6mgyvuRa"
+    "Ps13BtbGZe2ar7aGjAYnt9KfVQfCPonTl53GcQuW8O17wZ3P44fE8S/czSOAr+Wgc9SVRFZJ"
+    "YG0ZdvYbtVQOo3b+S0AYZ7BapZ52UHxkHynPi/ZGLKy1HjxXo3zXM9/3Xd34LwOMRsOzcnJn"
+    "PXjq4+neKy0+wq2gofFC0y7ffFbcR1wCfzYhJu3xwU7+GLAt/deKjcKsdPARh9EGj8TC0WPa"
+    "+xN4YvYxwcG/oTf23xc6zu93kgZjVw7iSs1Lmqf32MBEgtfRymS77JKFBA4TjZ3mtPpN7wli"
+    "NNMlxPoI6HrCL/1NK97F0s1JL5tSascuGrD7m/Y3VmD2ahjG1KWuPeidtPHs6voFmdOS4GkN"
+    "ZaaN+wv6S/SQSBrbRtRh7JtNQ+CWqljTXwtnmwDhxd2ip1iC4fsF0ZCHismSLdQ/bQSmBlYE"
+    "xDaLL2zgWHDn7jMk4+ps2s3bugcCrN1bpvKGA3m4NVv5VHsRO2JFaQhI4urDhFe3Kfnv8/66"
+    "HXvwsbebD47NrI5OHQmib8nrG5vsyvNKZ2FhGdfKAF/77Q0feKMzfjJFK2lXvZamndpsnf6Y"
+    "HoxMl0/Z87w1Akub1/pr2bzNmyQWBr/MHNPQYWOfN83pAeitOn74mF4tOFOkPZsFYzVwb3kf"
+    "I58hv0fTVp4/r2bfpK4ocm2ibEwGKLksdHDVydz274YHlOxzAF0vDZ9WydzbOhJNEonGpE4J"
+    "7BqGuCODydmdmIHbdJhCD0nQ3ZS8YrmkV+2tRxUQ7GgigPTk9wVBiYDEnx++HOhGvhOk4Qqy"
+    "YxINpXJq0xeT9gMLeLCRYQ5D2Ppkjul3wPP+JmgbgxMvi6z2veWnCi3s7K19AbsxJy/kVDZ1"
+    "JCKCHQaNr+stsgbZHOaC3nuCUHkZPmDtv0LX1HIKKd6+XzzSr++xYfgxf4PWZ/Nwba0YldBc"
+    "Sm2L3MnTVaKEIJEs9ViizEXtlg/5s9IqVSGlDNxt9/r2pw42tLNoV9KSzbmH/OGENDLi3cKN"
+    "zkn5kpk+1AxJnTbkxQWAxBhnejBV1dia+j0ycU/CRyASwZ9u/LSJvG+xr978lRFwncH2+cLq"
+    "7Xa1Hw8PhpjyqBad+I6Tks3V4z2tEVZPYZ5pckR1cNFiRMhgBIxUSE3AXSJHsv7Cjq2yfs0E"
+    "yKf9Yd7rm2xsvQ9F/QdzVwnqxw53fJ67DLBimnN9zptxHBcrY+4y4voB4twnvfEHWutROS47"
+    "qPwhX9le0O+Z5XYsNmEtICb8+LV0NGXgMnhWTmcty1M+RILlu5BJs7GD+JHJ7FeyUHEI5ObS"
+    "mG+AyqBtXvoe9xdsyvEcBUN/Tz4r/65yqnhToVs2aBgmoEBqPLzxQY7HCdXmUt6v/y4snbaP"
+    "83FajKAZMi/tNvuwi4MmSWwtr9bnmtald8bnASfazXEtNp8qj3ovfdglm7CHgWcMLciygvVM"
+    "/w+QgjI5OM0HJkupJs5B6rCibAyWYLml+oa3lo56hV3FEYybHvt9w173Kyb4xHJrSCJ0S8tq"
+    "+4ZXmgEQXgxapj+bMmXB0HqxMgLnwb/pLVf7k8S3uNDQTInDsx57GXs7U8blN8bk5ZPPbwa2"
+    "RbsC6M+j4PritNh/2g7VLDBw4Z8zxWdKzqRaxs2frF3okJG6dfXR2/9SOqs+xmZbPdCdvaly"
+    "cY7guv9frcHLAIW33iZztA1cRWvv84Nnr7txB24P1JRD3A4dYQO15bmton/jFXvdCG+uvY2O"
+    "iuvSiUj88F/qBftvY+87S5iVEfYdNUuXO0YFzLysrT/kPxK992JGyIWz3MDEffE3OAlXjipK"
+    "tN9wz9p5+MZ9D0H4qQiKxhlnFj/EtyqrZZ1+FRjhPmw+uaJsNEEymwG5ir1ufBptoWU0tG/M"
+    "OZshtfF5P1y0gSPo8PkZ3hssCrGvP95Li7XwLHkuzpt4+b0WSp1z9/wZljPxT34rpnCkPM95"
+    "ekvh92WZS7zgIQv0Bzrzq7TxcFel/x7HfP0O28IqAlJmqOfsldn7fF1zqF5uY4+Y5/fi3JOl"
+    "LmvVjz7Oddx2rgHlEnqnfTDhoUZeGIlcInmH+u5l9qAuE8xJk/dwRcR4BU8G94S+RvQhMb/+"
+    "+2YWbSa0uv4qKFoECJoqxStFHQY+vcX1V+3Zldf5d+4XfapR19R8+tTg0dM7nlsDX96k/Lh4"
+    "7uzda1GX+vq7anxN73k/Mct4iwyceDnh0tu8U5eA2Hq2KNgrMNPaiqBzacBr4de5vxV+OQDi"
+    "QhdGo2rLlaX1OIUO46wik0Yyrt5aTM53kwILfTs2S1J3BnfjePWNgxsJpbG2Z2shZc9EvZjT"
+    "jNcNvuLHku55dISKqJPq1sVYmZvjqkl1I284nz8cd6n+NaW9q90wQv/XrKmyY76JaHCXRfz/"
+    "wRG/65n3BuWxz+sXDVlbJCYF5iEqDPEEa731/Oe2z56IXr2wSriZ4pcX/fzW6ysp+f4DMzd/"
+    "ipQrw8t9ZzQa4l8/+clrlIgeb65AwSAEepM+bP/jVTpsxDPAdtenhiu3rsReFFLA9yjs+T3R"
+    "ywP2tQ5vDFmuhl1hvfBQSqlzhS/jvDXbC47dPzKrE0MJ8rzy0X4L1FtBauOtHqO04A3kp8A7"
+    "m2CXBW8jaLLM5FpaQtK2h/rYZkeFCGKu2Pfqv5XirSF4wshS1eUR2k04c0NJy5+x6mFmBNIy"
+    "35IgdSCpeCH8zIjOH1fskWHKVLHrVngKUa6Yo24PnpjWM4XRRpVHdYEQ8h1dWoyLuOgi848H"
+    "+zxCDKaDR+XUQy2ydpF1KeLCMgZJMbvvNl85Z27C8FngjCZPHcYxnjRt7uVuy30EWdvwFj/x"
+    "3/AIdSRdP4FN+1V//wxoCI8JaR0RqRY93oLaafMtNG0K+42dilYggFd/blOcI9j2+g80B5Q3"
+    "MvbNtEk/zRSonX+J8SqOMa+a3mvq4rQdTp5pW7/bawRUPNME4UJ+3yV+Gj67yC4Gj9rOMsXK"
+    "Fhg/4HPuM2HcHICL/D3t/Gx3Rnq+8grjYeIhuYeA4AHNy8O6F1Z7cTYnvJ3vU4ureY3wQtTN"
+    "6V4YTb17cq3AVlkQXlb84zQqsBkaM9+dVBhQUgyEnqhMWiaW25DvEkSXSRdyFvqbiHWMZWYp"
+    "9UIPQmjlmTmOzRsEQG+I+rE8YXdl5jKvXaCzNW1I6Iee8Xpy/SdWhH6uu4eZ0Eb1k9xM4oh0"
+    "aq4zwPIIVLTFQdpxow6cx+8FeW/hszz8ypzxBl0xFVHKPMzFiOjb4w67behEB5/mw+oxVGN9"
+    "85f6AGjU7nZPxV/XpVyx9SIJu8BMaDm6D9j5yeUjqLufBwLnZQJJd1StifUvFpx1JZs/+o4d"
+    "9PUOyVb809mXPKlg7Wy9hBLxU506npMQ/gLKvVHOmDu8PlYxEKSl7RCsxh5ddpP8p7iWrl8U"
+    "y68vPXKa1XKfqUXQeBvgBJZy/GE3NW1p07Ua3vMi4UYludC1gZeRUZrqizWiz7NT1Rzw3t94"
+    "NFKlYvdGooYRta7a04oejnyCV0DRK1qWQp6X+fpKzbqHyUKnKak34d6DPuVaBC6UY5yQVPQ1"
+    "sEewMLBTdHLnv+3zRT57N0ObjZAhmG98k7CYmYMDwuPwvKkev2tH77wT2WdAr66PBmMyomRG"
+    "49CiolpDR6Lg5g8H7Ex6hkiF119tZiP629WDX6lX8G0yK1anKojcZhzkMs/RJsW/FsYDnNY7"
+    "VzATDFgfq2+9DRsDkEtOlu+e3A5a5N2bFo/9Fv2zoufn9wAvTmJOdzg41AMmEhKxsxdnXTTe"
+    "vfWSrAp8wFA/KrsUUSYmsJbx/3DoTx0P7KzolW0p9hzrkIlrmUZxnu//78bQS3jeD93GWXan"
+    "LPEaKpSlpX16Eqbhh+iDHkhenKGFXh6RFwLQbQ3mN10qD3/Mjr6XozDF0Xl+GPLJ7qpCFGCt"
+    "zWro9yfcHg+fsLHSL1KmVTj++s5IyzWueNTFmdy5KzuYdeHjH4cmEfUKarjynKau4+23dXIq"
+    "a9EnHSS3JKEiT83f37IfyfN6PHaDE8aHYbOLKsEqV3sMcC2JwK9c4/+oescZ5UKvyK99Pipw"
+    "ZfKgjQ8m0OVIwyEbKoMEFGsctIfwXx5ESWEJWpXfbf5oqO7OPW0dEupb+ObI/tzYdijeID26"
+    "lh7wKQIwTeSEQVkUAvsenRSADaUfxTArYahFIdT7Hov9YyCiWMEfU1vcI2aTcRoovq3koz8z"
+    "wawEJIkt/9QIa6lkUxce57sUdGeD5xaZDlqpyGG469xBBuHi1UrnuTkwxYSgNep60PwZVoE4"
+    "tfvzGHsrlEvOqd/Br7Tfs79OfGwabem/AikOHfjQVvO4OWlOpxNeN4+bUhq6MTaKodM+8YDD"
+    "jqOHSzpdHL8dE7XjBRL0vR4RvoX0QeVVjL8J9f6U4hLKk0152hZ/aGeevfdFQ4ynx8HsY/x8"
+    "ccJNNYNNgZdA30eWprR/6FFV1wDzrrmuHtwN1r6YnpFVWu8iPyJXrCUeuLMQp/n2oQBA0U0R"
+    "s0ZIssXb/IwLwMT5W/M0YQeMsuU7JCHsQjlBqGe1fBeLnbR1FvIosZwmTySCKadEFoHn90y7"
+    "uDhKzLWKV63/6TYB0jUCXBuM0ByFPq8qr5YBfXjiSXe5nbomN8tZNW+AhIp7ENwvgaKIlNeA"
+    "1D/SVyoPbu++wQ10LEl89xiKavffS7eVq/YcrIT9e99Xexb13LcqH7qUnpFwr2Sb1TFv+fDy"
+    "TXRxAmwXbe5NCaod6g/wpIvJMRmCNJmth38DRuRulRxc17yrliyW8wV+64kBt6pond5+WXWB"
+    "X13VtTxEAokKuErfLzVBiIBZK4BeMiUx5yaSJU7tC7Wtv9ZpGz/PpNtU0S+fCFvsOy9xqhzO"
+    "qKE5ZhcxGIXAMOyspLxVtG8CvnVmFeTq4uteDZYOek2hvq8sJk317VXrCX4PEWxA7XBqccp3"
+    "H7/+cDauJ+iv4qdD1kaJCBGUKdeYRVyUksfDQTWp9ZRSAUrozLLL2GaG43F7Qe7qMQJA2INh"
+    "7Ba7QXEhBczadRayzL3vNKSJBU2JU/mo/UrAwHbVf1pYxU9sVFbZrlXBPeFF6x2J/2AUjyyb"
+    "7IdFlf0FQGjKwUA0QC6BMgDtVqCkt77tkrb1qv+FNaO9e8UJGze10QRWHbrxGgXkuGbIPl/9"
+    "Fn+EP/D204PVj5f7VQBxhaoN4+nbA4XGZaS+IXyy+KrNGQ0gJVeOxAALOn2x8qZqrDORvnMC"
+    "Yz2g++fm800qXqzm5Rh7VvVKhMp7JYFxVZ0aLoiDiA2QdwjCqmzfi8LHSCNGkuNbFR2T+rJX"
+    "Hw66fHI8V3+v+fwMoLGAFo7cp2mESceMta/aiV9pbfwVR2elgy/fmIIEW55UvCfTXXDX4VNn"
+    "KiQ1IlvK9uKfUg25lEpNhImLg7rRC38lN81Ctnj9ue+Jtg+x7IneD1/uYbHa6U5OJ27GuRa2"
+    "9oXHRpIMZMvNDk1/xWuUxUhYHS9PnpQn7cS4klpTRtc+i/HEeAv3ppfxjAkEizfeELDL8Txd"
+    "V8UkUehfXTY9F+13UbWFGKW1gwasZ3/RMOKlug1FVhvy4HP+rwCcTqveZdlGed1zysV6jWHE"
+    "7rypizcaOMsVFLPsSvR0JS+jVxgl8pBZsXZ+rhWU8dIMg3Kyu6BTwj7s7PUr1kVWyJ5Yzwfl"
+    "0iogffBkE5DZ8FYbkUc6HXWqwe5KNH4C8EQqTYXZdDMClR5Ybe9TIwXgv0CL1JV+U9zImNIj"
+    "pGEoDXzX2B4YdE3gedmjydCYnPnjwjSdMVaQ7FnEL9MalZUpniwi+XF6MLFWltFdNF0QZHyi"
+    "7AhxvL7KX0nTfeYPY0X9yNubD5kJvXZ0ph5XIJG4yQKQDOVZXgiUOWhjNO/ZtYckEveMecIl"
+    "bjUv92QzxnYTc9ftgOqNqx79/2CglNqFq19Iej9jRQ6QJUe+Xjx7S3dMutZzGVapsmFzRhVF"
+    "Mj+yI7g5B+NPWjo4T2VIsiG7GWEkA1HIz81jEvHipA54cw7OJ5/lr5BUI9MiVpzDQvaMBRw+"
+    "DbSZJbbtTqK03l5cvK7ice3UqRprh2rvuV6Xjg2aVzwWKXjXJ/nugYclIs6/kqimcWs2LuX8"
+    "kB5fHkI1ozJB/2Y/M35RZe+itimHpbe/W89C87tIlsgK2/d721aktJVit3/5RMl1laZ/Q2s9"
+    "qiwM1sXJ9LavakoSh38ty9KfSKm04v6zOCtK++cwQPhb+HwtsfnWaTsmYLRiLWk/Os9adC7P"
+    "b7zCNyGxSzJETaKnBZfo7hgiFyRG8SQTwmivgq/mJPAduCd8EM8y22pNA9wNFbFCbYGPprW0"
+    "jKS+YHtEnzoYTO/ORtECbcBrBbT440s3ZToo3kofV4XO92Zu3qD0ryFffLb2Y6nv/zFM/s78"
+    "5oN5dSoZ4mDYJOqbiopxV3nBHBLSKJDhuv65a0v/SHtALxxdZuD2LLQJ5K8v2nUlo5fXrFF2"
+    "UAmce/TwWJ+Z7Zm9+3DMZdJv+9ZImbVytSa3lqX/heF3gFnS1+IDKPWiIP2kdj9A3BCjlccl"
+    "dXYVe6Dx88fc79csWp4pZZj6sDVjhG1VHL8KUcnoq/YabEk2QTqwJ/LJPWErSeUXYVp2JPKW"
+    "UEuFnd8hemYX7Xhq0OfyRMAUOat1p+9xhfZ4DbF+eIrCCYqdkv1jcq7y63Oik5S4FeIu4fZx"
+    "odk6+jPiO/0qZL7gi2jGSTGyGMfvUBvNGOSJF34VpAXwchzs/Vs/JCGXrvwcsfMbaeonf1ZA"
+    "3adIfl6raykaX3dqDGDmgakcW6FhWw0tgfc6buP+tS0CP/rA7smu5m8FPKHl8vDgJUMsiWc2"
+    "FWKy1uJKQlEKxQRJfhs+68881FYtG1QNd4wSvqNN35UTb+EN9HN/M2QKHMT77XvMO5uHiLxP"
+    "9NXhJWLFBvyXA/czbF9Ak1vtQpH10+1gf7zNnkaVpdqo+ivoTcwD0DwCoyBW9W7HMlOuMChd"
+    "9K34n7t6jlHke1O3n5XR++5kx0lTuio3BVUiHiv/S2HU2QmbWnjIZAvJbld2ZhrdAypp/wMd"
+    "GMpkcAWHrGZRQ0uqIdS44zCtjQBopn9N1o9sDmBPFTUB9tSdkxn1JfxMq7Eb5jXl9xlqOV01"
+    "iZhIyrW23kAd/6zNQC3lOq4uwPUny4wZ51pt28l8sIXvgItVCzJCtWLZaCitsf1MGnOVGHO8"
+    "7B6ixXpC2To+07Dfu3MqnZ7i80BuMzxDe9mzdhNYp8OALNUF+LXRXG0x8WUaduAU0ExLXLFJ"
+    "6s9N6JNJU8nKSsmFkZI1wdAcn1Wngh5Wj9Wnv3bzgTqnF1YVXD9u6v78+HihCnv5g36bg4V6"
+    "jcSs0ewQM404VBVvuZSDo6fmvLBscpfhkpcZWdrWO0zxRSW/S3KBij2vhiXaMmOigDoPvlbd"
+    "9l7Ds/FtxQJ7v1UCl9OtAZE8IblmpwuYZmhxhxg7qVulGkoxptyzDohYOxeziYdza7VLFqAq"
+    "PXhWAEtN7QHf9ie1ltrCMZesHrddPQpksRIDkH6/Nf5IwbG9NGdnih68/Gr+oHefhwvml9uq"
+    "ECpeWdEiwp+m/Uxj1XHRj1qd7BUbAvudLu78WYb5OtW4vjBy8FhjOW1+PS3XPjewJD/lnn+y"
+    "0uEUf2D8oQkgqTmfv+DgWZHKA/m1cuBW31v+8cohaZAiIWI7fGzqisZu/0jWwkmvGLIWW9mD"
+    "bVrdG9tD9crWnPnZjuFoZibKZ+WS88Z8qwv73KwgiiSdlwBadEle7Owc8rylQc0W+AAyRpZp"
+    "v0S6idAcFkEML0yo/Gm1XHy0XRe8DP1MTndRgAqvF0metiCOnV1xKTxXz/901Hhfarcb8xZ/"
+    "tCWOvXmvWUM+X8Foo4wX9V9c1ugueZU+WLUlZQRSkW9Xa3N3MC518GFYqOuiadBaUwnfiWdJ"
+    "zl6EKzFRRlenTQvY6zpPRU5KH8xnUkxniA8FVb0o5EEY7l2jn7OcG89sCWzy4E9NavQKdjV8"
+    "+1wvoJm7fCZCYLgBaI2excPb1Q5ENhLJj9BFEEl566SYrJfFE7VwprnN7yW5jJH/4jFGUtrM"
+    "zJpQ68TkKscljMJJgHvmoc8HFneDUhakvGr+L9x/ngwgOlqwR2ma8ChpImFnAa+w6RnGfkHQ"
+    "yTS+8caHU0wFOOTLDNhw8Dy/k/ILvEXEWaO3VpvtLtD4tkqdsNynkqN3rvY5MnhAsYkFuSOr"
+    "8/R3HPPz6ZxdecUKe0tWq08ztAobwmsmOoxdExTaKn1M1V7P5K6B1lyQqvg8Ouedvur63nde"
+    "XUdPTsOMSx6yBJK2dyWhLGsikDNe/MPiPd22jzauRTBFY+ARtLMnIwI80kzu0cSo2uZ35zty"
+    "w2kbIlqPpUkdJK9jd2OOPzbTi790cfn4yy2ESEnu90P9fCShOTlx3mc/OPt1jQYvKW/EYDvO"
+    "YyewWB2JWIbZJC2BxovENlU3ac5p/KBIyLAq9wUX7v4dl9tF/TpGs4IC1J+gNscfd8xIPWvs"
+    "iSkojYyDn7H9vt70YfWvlakb/lUHjSR51AhqWy6GbsQxU2TA/+VlJYlCDqSlu0i6X1vh0pXS"
+    "O0B+DjeQNmppDDDZufqmQq15EriKWUJ9fL2xt1JDE8ptPeLrkajkzVOQ8849ZJ+TTGdfq08i"
+    "jQeK3TvLkBaF7dDvlS65P9nRs3lhtGztGKw7ijcl8+sm6W0jvoIelGh8QO4MNl0ushYLnOe0"
+    "0DZ+7/7Hb035Cm0GfOC7DGkBR2CshrBxH9VGJ2CNISIcMU59SZ3f+iG/RupuQFmmxY6TqEfe"
+    "+6jX36FCFdacW44xDvLL4NZmj9+5Qo0ekRZHVZKB6AUrxq0o2qr/8YOc4ECHtSg+CWiRhi+g"
+    "eX3RTyB42/mJjzfqcL/TRwmISPwgZzFO9XHR07ZSsAVO3tHp8g5Woscdcg/WIWbRH8UDEH+G"
+    "IUAspGAEIdc20HlPUulr67M97cWCnesKyR/lPrZdhCXw/U7w+hk1Lc+qZduI4qRtij3qcv0F"
+    "6gr/ZTZ9R7N7HsC5NzI+/vU3Yp4faCx/BHRJuO+2fF8f6k31PasjdVIo+3Pef1EwNpz/Scjk"
+    "81qBgOZvRlb3jWsM86Xmm6MZmcsSNJVFqq+9+dEufrDo6zRyPYCWvR8z1YFZAIE7P0I7lSnc"
+    "k3MpIHllWardkiyT/WGUSEqt8bq/+PfBYf+P/TgH10UN1VsT/60wIsEV5P1z14Ht7cZg/Lpb"
+    "Fwx/vLsWuIKPpsAkrbLevTdp/EGJIbF6qtcaS1xo5MonfHlzev3r5oU4BVjiil0e+7JfmwAy"
+    "94Hcb8GEJSJEsjVvj/WA7JQX7sn2//acuiq7JvY3oNmBzIyp5Yfo2EGVdjhHb2aIcXx6g2fO"
+    "+xxPv75sbf+Tfmgqj3ZUBrHL01ID3IbRwSowKtC3V/oO55arKz52wswnMEc+YvxLhVngY58p"
+    "WHQ4LTZU1mJKsNdQTJU4cFBAENxw46zTWLWDR9TpGW+Za/evya0qU6xJhItDNyDuSyHt+yQJ"
+    "630zNMmT/nHOd9E+WFf8zeSntPsmtR+9Ggu58h+DF0fp/FrbIUx76Ld0+nSpSXka+s1khJIb"
+    "HeY4P5apWDOtBsjlxOh93u5OP24QxY8J+tgybQvkc5nJ96sZS9Moq3jFdeP1S5kQQG+bmL/K"
+    "Ud4i6GhddCOVSUssbUmjxHnJeJlOkFjxMcU6+NeYCaz6VcK+4KnmvEoBpCN1tOz0U/hkhwvl"
+    "if4xrSMUQAXV7xgFv1aFR8v3kpBjRZdjcGnZ3dacmuFM7YKaoatWGc1UwCLn4jWVYgMMNfu5"
+    "+AH+NrCz8opN//6rCyT/Lrfo9JcP263W5lS1dpce7yL2nfU9ZIQd4kN4/YVQmx0hX6ZwVbBa"
+    "2cGx77WU4k3EZNjJzRJLxUAXYKZDgz26Uhr4W8qcKAMKcNfFlemiroX0JI4HpgV08S0jppNY"
+    "xN5TSxW5rRqH3p72CL7+bowEw8KU7s20k5+Cbi8SDYK9YBw92MxT5JLSiwbNnHwc8utEBkeo"
+    "csfn/46VB5BfiP99qDz/xqdUzV86BvzIiVksqu272MC7O4DmgcqijWwdYZ947pkK98Z0+Z5X"
+    "9fnNDFrghbbKd8t2DH29eu9Qqdu72vOfzO9cma0yeEZAiXurt4qUvtleo0bDZgW2sQJX8wue"
+    "2dTTIR9SKX356NvbkeaNSqVeN1+dQdq2p0nUFtXi+VaapIjbU2cwt8b8L6lWzQFrlf3onmdd"
+    "PVt6OkdS35joEME0DXio0lOk1JZNJ/3BaJMcFCIXOC9fBRY+WFEZO4d3OUmPGvNcFuLm0Oyc"
+    "uXQ0tmzSKxO6ggkfaLmp065RL9vFyQxfPDt7gxqt9NElzkqLPfutBM5bt/ScPTy/++L9XHDn"
+    "ts6E8SUGUvzYcBZf4ztRi8lcWDdXRr86dcAGP76vF1DLdZgocUavXb8nErduhPSZLPZJOkXf"
+    "F0/DK1Qy0ypKXtSuso98AThlqyrHsLzyCL4T86ftnrbn5wYRMZL8va847Cu52m8ic4GGVmwe"
+    "syvn7LTaKsAvEeciMpGtN2tvd1LHH2w9B7rX+c0SnSqb29ZnKhIKFqPnEJDSviuRR06IMnNp"
+    "nS4Ee+ZxPVuK0UdTpSQc6k/TGIfX3+Py+f3JJtn1O/asPMO7VgfLLPPT3oNdyfMd0CVTdvnI"
+    "4619xsU9ReA3Sv5Eg3gUfRBPYHS1cxjI9LZ4pjuwggadmojliYCck/aF3hrBM9fbymBfFvT+"
+    "ap9io+FBWNPDi3gFeNVFYNgyko+JSn54KHPfW5R2LAE9Dj66j5U+ew9y9gW3Mk8uY2Foi+Rz"
+    "3ZNd6zEYQBJlPcQzFc4Q3JRmbqyN3Dn4yxcn8eYfTcaGHLmc1TTfRWrdXhubSC9r3nWeMVRq"
+    "2h5TgNnFiNJ+z+0KBlYvQdY2dBfH/LZMd+SD/TBRQeLnhOryeMvklwZUWcvux8NmPmCnP4dd"
+    "C9w2bjJxFgIbmq+6GBuLhK4zyrCHtoYbP77VkooKWa9uTnD+OYCxbD8A6llVrvQu0YP6bo9o"
+    "A1PKXRz6QCXLAjQTciI+W7chFzovGRhyghc7OWT/maPGgUjXYuojnre+3X/qNnJwVeuRWhyD"
+    "QX9k7gYQBtjVomVl9UCGLZE7/on1H+76P2qyxN1clRG0RK44wt+x7tLsbLZfiNr5BkfXOH1u"
+    "lExscdwrWFaRiamQNbyKuaT9MEMY7+w5s927PTUMD3Gel8D2VWVdW0d437Y1zEt94AvKmZho"
+    "+Lst7dvgc34R4jF4v/YdpqTH/kETKQEpsPEwfgjkeoqVcnSrIZ1rvAOT/pGY5IY93kIaKDaY"
+    "fp9QSyFINJ5jxMl9Qp49w9jFNhrUGaib3boTWI33MAWcLK7fgp8hy8TZUTxX7xkncNuKpKua"
+    "7PII8qo+1fTx+MFcGqNRvJ33XmcrWjLFFwSitSliZm1E4PIq62TB9OcpL2TLmNwbo66YGWTZ"
+    "gUtxmU2S48Wch1iljZuBDyzOoaosNzLMtWzOl3FtmFbXyjOo3Y4X/DWrM+TD5Ka+mHetftKQ"
+    "4PdUeQXE6YWRWCANKz0ZIqIyQWPGbnW2NKWPkCoX9GE/eoLZy1x1RLV9Vf6EEHdQ2QDTz6jO"
+    "mxVYYi/WJQX0LK/h/8MBMdWNMliBpr66mDw9wUGHDCRy9ozogtolxa/pBGSvOCc2U8U6t6fe"
+    "8RF+X6DwGvy+/826fdxJqT79j0ebBKpeZQhJyJo+4Esfb4vlmeHi/MEz2vf+Nrzl5vzbbs1T"
+    "j8MGs4SsIEp9cS4Dzav9j/rsXIvAacHlmLxV8QcjvhNT1kcHSXuRskNRu6cme3bidn+cLowq"
+    "gm/jl5MiMRdeoNqIROe1W5upJn26POt57S5E1VDvO6ddudznwY/2XsO/N3OCa/WUR6CVrI9U"
+    "f35Og7xDMLqOGst2lf6sJ/YszFhH6IOZwhometKRhFnUqFHX79IjTj7VrP1zf9JAAR6Rm8ru"
+    "3KzJZhgKdoHOwxNfeTo9eW1kwD1w1O4mXaSemaYOLhDv5p+FHDKW6R8or9VYwWQnbTaxPuNn"
+    "dlW1oKCkoiTTvOKkLq3G09PmaIWT/zuSNjSkWWn+p4e39Ypeap63jeUUlKHakOcsrpk3UOGO"
+    "tE5h5WzLVcB/FfhPKp33pSqqMePk7kyexIhfaBRBT0DCMe0dNRyt4H9eSbXIvZ08c8zJPgr3"
+    "vxizda3jomqXYhBU2hD6fcOf279b2FzkIns/68pZEorlf+2aZVBcQbvnBwgBggcPLglug+tA"
+    "CBBCggbL4DC4OwwwuAQPCQ5DQrAkQBJcB3d3h8HdbbDZvO+trdp798Otrbr3rd3a/L50n+4+"
+    "3XVOn/8jXae+0akHdUUcOBlZU70ZXLguElZIttvn6P81sJcf23DxZ9yaykEba1mg/J7vNNO3"
+    "hshIsqGGFNnaqvifQ+v0989nqzinZXHaGHkV9InVeejlbdAwJd2fD5tvmxfCk6daQa5rSwlv"
+    "1FUyBKpwF6uDSuE5TcLK5pcLaZipiu0zFjiLjPsulfRNS/q0B/6lob899DoR6ffsd0wyB5uX"
+    "lEgqeFZTbPmxIfu14dImGarF1cpq6M7iEK/7Lvo7FeKLfA/a980jPBLaTpOSi7ZBTwva8+XP"
+    "3D6oTJzzNYKMVwOunKt9kCoUYnlTZElj6sKbfVm75aAjJETpNQYd9s9aDj3+uuZH1Nd0UOt9"
+    "7/NRo0DbLzefy83dQmpo0F4C9Adp9v1S4i2I7lhcPiOyzJolJbog55n0myXDgDD/fuqH72+n"
+    "G25K7S07nFHuj7ihuaoIAMNlXhJb6oVFH8ZWK7vR2dZ308iF0cCz/k8XgMsrPFInoDExo+kp"
+    "2ZOVQgS7hENNolcbhYQYHSletvuiapnKtdnAWEfLZSu6PkKH/ifwzFIDqyUz7x///u+LDPQb"
+    "W+mFEeHegX/f1m+5Rui94v4155w61Xb+09UiCzRftyuSauQKA6fdqV5H1qect92gBiAviKyW"
+    "PsE+ebwhR5qtsYbdHm+AUTjF1+IOPxGl13XC+298BeqQ/t9nQFPT6HmrM88FsdYycdYHMJ3l"
+    "oV7YlIi6wT50p25ZohbJqIxnB2HU4VUeOCDn15ssvKwuqktyYzPfGnGMXt7Q8zdGMKob4vFF"
+    "fD9JXNcaSz3avHzhw3zyBQdpdM/Z8HJxsr9UXdj+UvqlLf9gHA2ob29bAn3+1vvegzH3T3jP"
+    "V15Ut4dx2Pr4qFS7sO4ZKHun2P0isQRKC0bLzc3sx+VsoQsRtTXb9vtr6UPT7YcWvuSUI31S"
+    "mvUWX9/holpRU5FL/bzx+PxUdl8Wfs16OxjJMtscCSpTQwuQG37VDOWf5nVcE7wKO0JEHhyT"
+    "XkVexi/Z916slIDwrGdNe+czM+uIocMbwy3268kLgUs+FcP5bhQKQ6s3PW8Xs/1b0rHixFbC"
+    "47VGWr7Ep1wRVXWWZS8rVMYcnMBN87KGHi8Qx3vmyF4YMNTH0/uKrozKo732NCA+n33cL8py"
+    "drHac5IPJEct2NZtPe/e2jX6iGos/h6XKdC3uMaTPnbx1iUx3tra3hRp9Mo6Xo/2iv3N74bj"
+    "iPC717xV2OrW2xd8islYEUO+YYPIhWEUbqheH79dEFMPP5Qm7EDgZDgeydvcuCePXzYr+j96"
+    "FY01u1qwkE5owg89G4xzEnowKhj1omywPGQ+VbxVfX+sNj1jAp/xF91eMs4dlsFpSyU0roqx"
+    "n8HvGTJteFxRtgvN1LKTUByXsBDvxzDuSVfbeRq25WS11yUxBQUq8x86qDMyBy4PNUjL8rQB"
+    "y67nn1p/a/RH5VxGeiyGzmYdqJiG4bR0trBP2143zw/NNqiiUDjORpkx7lDu+ri+i/Q494tj"
+    "dMoJ1jFtaUyErfJNi9Rhr3yNI9rLAp4DIbjnvX98fXYK2hVqzqTibC80E2fxmsLoer2TkNyU"
+    "Qu9ojx+bMlVzxud1AcWVxM2XV7W9WVSdJ3QIArU/Kb84vLK88XQ+5v+JgFQbSyxdeiI+1+de"
+    "Dr9pCtr8aMTYOAYsY/C5LrU4v1j44KY3TmWLO86OGZi6Lrt2cfo59Mx3/Vyn9IVfi/M3MhcM"
+    "jzr8HSyqkyMloX7/zjzY6/RheGycUuMBI5tQsj0W46PnOMLuQbwkr9vAyHgbPB9a1CLTgZ2H"
+    "Y6HSdjkFCWwnbcznQePjJwH38SvsU6flugFJoMHb5QDk0vI0fm+z1fkDoWscDh7+q+N66/u0"
+    "p4Gcg5nSPLrZKiqM6t4tS0WRjOMTA0uxSO8ecU1K5GWgU6Cp1cVDQ2mduaT4zP1CR1snskw1"
+    "xVIzQRbiQ1X4EMlt8F5tr3DqWZYL6EdHfl/0Z4pb5o3c6fCUFZKl8XtmdkHbraKtimph7l9A"
+    "dwU6vGyOslDv+TshNtTx3fPvCcbz5Z3GFr9c4Cst51j4d9Vi45zE49Mlbm8DbXfTfbv73agb"
+    "CnUqSmobrE+4F63ple2uQn+aiGWjml7Ifhs4ZcXJoB3w6HabZbio3yPdhqj7X5P1qz9bMF3A"
+    "dCsnL6v63NyPsNtT2+i5C5BcDLRgrRZsef1bUtYKVfL5O97US5Nwh5mfN+xnSeVkcwSIDqpS"
+    "IuuVi3fZPznBuyWMRyi6rHuCPvwFWOCZT+dk+lnc2RhMVZQhj/9Sz6Beh1GStjt4j77Snb3o"
+    "2MO5vi3y/MWpuc+V9u24f3tJV76acXdZO9E4YSAlkap479hwnO/+lJUmda9WLMxssLrDVwWu"
+    "40DkJEcqK7BB60yBTuPc+OCCyIQ1NnJ7fb3tOZf91FeM/pzXZaTlVFG2WpW+pe0u1sg6y7t2"
+    "YiDURevHQ9PU+quPbm56XTt+wbE7/NNLIxOmqdREz0gyONbuBF2qQNGYqUFiRnv+ZrXhkp0H"
+    "iNSwC+3f2chxOwr5nmh6hGtQVpHuQiVVIysNoiWZatdJYL4t4O1zjT+AGQw0bFh8qxKs74vu"
+    "kG0N+Ba15fn+TrpBZt6k9sCUXPcYPyfrGd3XrdU3juFn8z0mTH1WSeet2c/b9Af2WOys3lA7"
+    "xruNOmb44zgWvtml9kuETmclpEl/0x34HZQeA18O2dlCNjCbbxY2QAhkBbPwTLeyaHJCrgcm"
+    "7uCQr3sMmEvihWBsxWGOQMCcKXu5H1ad9YHZ7+ierFlZ4Ns1qs+MP2NDcoFty7Ad1uV658fX"
+    "5cjTlSsemV6COv1kaFcLiJVURU8Kzi7NmLgrNA3bQmSClBjrBQEIIP498nmTPUNVT3/9iet9"
+    "VFs2OC7HixFprUV8j58BOhDEmfpxIEXICBmcWxFq9YvjQbpfdF9X04FM252z6n5aeqChk/vn"
+    "73rIXLykZangu0F6qw4FDU030pums9MPfYytiruVbnMjvG5VCaKtn7Oe2hVA0AwjF3mMAMSG"
+    "0xJ39ULUbv0t/84PBrn9XQlgA3voAobXXJSZH6/Vr7o+zzaTsHsP6KlYC3zH4dCeRGiz94f8"
+    "hsCli6t4W3wsePpSlvmkWIqB2JeK/0FrjPFrWV+tusto27e16nkxzEcPAwumZtXfTAR3as9a"
+    "Icnic5BJnTUKAa0LV95OSnOWjVWliOBG/SruezsEbzsboS4xjPfay2u+F8P4WnTCUsQMwp6t"
+    "1Y8pNXRoukiSscKQi+Pw5AyK2MjQZiO7/LVB0uEUT3bKtPSygDBzdeuogpO+k1ec+NLsnfW1"
+    "amNuw9e8y+Xs8PM7rksjNLCTUfzjpQZb01X3Z/vvt3rJv9omeUYnveHUY1sYojRSehpLLOlP"
+    "Tvd8g6tmfBjpnsnfFwUcqFySxb1xt9eNN6mQeI86boYwmrDSJZwM3I2gxHMjIwbQD+a8vV27"
+    "UNsViFq5Vb22yIGhwCCGwgrtQP2LzgJ9hVdEo0skjfc7JReEwKsGqaf2aL/gc28PlXO6vTbw"
+    "5Yy39uCv8ruWHDZi5U2zpY8WrSbQBCXeocWPt5zJQ/KF0n4lJ/mLivEh3sUn70VesgYU05v2"
+    "3wfi+UvG5onRvjgWhNKP73b65DluYHiuNsbIqp/CHsUKA4zKXhRkiQwH/oCg5xvJiCIWx6NM"
+    "sALv7r/ZpW4iHR66I/taOuC5/Jt2lHonvjvLqsOBlt8W8gTaJp12zxdo7MUxaDgdgER3JCup"
+    "FNYBhL7NvSIHGtcsSwO68au0LofE+a8jM1MWqVeiksrAXm0qyKVhlFOcucr3kqqIMphYVUHT"
+    "2kacLGrDrftuMW6zljUS7T3sXQHfUCu4NzvcSNvPzfrhORRCu1Cy15YIUvSeXMI71A2MP60I"
+    "yMoEUtU8REvMfXvnRbEoJ74tyxexQ7K2i59M3PephVNCmj5U5uzRCY0dPVz9kfcvSK+1crJ5"
+    "OiIi5aBb59SjuXTzTdVs2FpXk608WUPywlJSXLiZ9bQPbnn0NaPJcrWzU3g/MvuDiB38S8y7"
+    "BUSyKy7Xs9ubtNTArgBqpDDooNinD/8raad1GWMXEo5pzCPl/J2IsO/Gn56WQywN+610+Ptr"
+    "HpNi+6I9+EpQlsMKAT3fjP4trDZqchn1nFUiuLa6JmCob6ZRVrRWdrOsfOug8e0JdOOhht/X"
+    "s/Vua1zj+YO5pOvqHTWLja4CMYHs/XcIl+VD/72Pl7WMYlCz8gvBK+nyAjsq7q0h0PrCWU83"
+    "LYIKXmbY0+H7WblEwUOGoSHo6lWpNUz2/EPXjcyvkHtdLAbgO6yeLg3Q2B6SPNoETUDEhgR3"
+    "7n+S3Jy5z/cX4tgrV7wH7uesfp9tesxItE0M9hgiehG7fve04DYc+d1EZaG3Zsujo3C7ZJ+1"
+    "TDITMUrtOcksfTAgTx+pGohM7dqdy/IkPwO0Ksws8/J9iKgh8OEz8iEofZVQXO7rjHTfl9C1"
+    "uPp4WymwsE1IieNmReftdEIpjOfQ5fLle2zCjY2MBwwibdoITVizY54E3bsfR0x8bAJfl915"
+    "Ut/nLOyeMu05+Et33gpcKMIXL3+2nWFIrYKla2EHRM8iTayjty7m0uE8xzk1S00ounsDBGx2"
+    "C53xfhfSW7J6sHBF5yF8u0qO3utus9VWXQF8aIquSBV0bM1tmG1hQ6qGLnY2USwaLGcXs2x2"
+    "EfYLtzFB409CUVy0Jcb1DIRFerhv+LR4RjMj9g4nSAqza3CerTrrflBpajkFRyxv6k255mgc"
+    "WqvtWzW73fnKCN3NX87xPJk5K0flp5cnrujsReeZNEcGDFMz9oiF3IKbh30Cb7G5HfOgLKOD"
+    "xbyuIxVSG6uHoM5jJcmi4Bx37Aal06YmPvqoPcEta7ceK2j5UcfKQNexVPZF417Hcr3LcPUy"
+    "Twe5L04TR8NnGGzIWkTfAT/70wHSQG6m53Z94+4ltNA10FF4LJYY4lt0d5q9It7r6E8GUw13"
+    "KPnWOGkn2gdHFvgkw5yONrGq0YRvL3O9Ho2UdU40PnS2HygvdHB6FBh6/PDcvG9eAA3odAGD"
+    "qeNpN+qmVpms6fcHg7iRR3BGdSclWA10kbVgEX+hlamzovdD5mD1YYCMRrU5OTLpif1xHh0o"
+    "1AjVDaOF8dLfyuxKOc09VJs5avrE0OG9G1uNAE9ebav76TYq1y+d0wbYOs9dyaGD3041OO9x"
+    "nq+gAsDyQ/yyyFPFobGR1gbRHkBjtR+XJPqd8Z7P0MID4O2EkrNOwxjnR/ddDV6u28y5dpPW"
+    "aedPTjfilWawb2qXI/ZgXXSdypQF6eWJiNoc9F75U2Fs8YDabyTV0tZK8Il2TL30zg6RjIlN"
+    "36G3r7SrBKOt0J+Y/Quc8yem/TfSANEk1S9wp3efrug169ciX80IgDPEeHHOjbTAtXfINkHJ"
+    "fa+uegp9NztynLZrdLcfnxu3AoJnkdVY/fnro2usx7CWPix24+NHFc6kCz+W49xrq42m2hOd"
+    "b/uekGsX8t4wo82v/c6xZmQuhTGH9zhM4KaSw8Z5PQtZNYernhtf8Fb3MWa7Vbt3pHfmohdH"
+    "rtmuKvuvYz5S3JfY3CTMzCmh8/e8jRXWdt3xUAcJ+psfkjDNG4N8jLJCatpYr+BwJcmdzKoO"
+    "/GOncPgn9Wk7hpOsL/fYarYbj8QEu168wziNMVE/oycKJpo9YT1oSU57lnmyRMymgFpNXso7"
+    "DMuCM0TfzaAaJcC/E8ygQfLRGG/3/YQDOsegfKA0oub0DPVhYmp6pYT2dZBhwrOcQbrA7Vpr"
+    "SQaTlsol6wy/vi6xlva7GijAECTjPnjomelsD6iivp9EZ0ssIf2wcqYW6o6XypI/bwTUlEnv"
+    "BUNpnQzGG9clpBrtp9A8W6jzGBQXXwfckELORjWRNkTtVSB025h50cqDXZvPrrpP1dnAkMpP"
+    "JiwN+g1Hk+9FB9Uv6guP4RzsRsbcG1/u/og2iZjGgIfVnhXeBS2egegmrDW1GqoGmXicF1JE"
+    "3uDXjDA/lObZKtsIZVAg2ocoiGw4oWcI0ICFGYgXhDNYqfZN3dZudghbrUncvaYlKehQDuIW"
+    "Deo78uwyvVcWaWzS9HjYehfiGERlfXpomvCMvcIRyykOQp0JOPNx8B1ppHJtWa0ef4XqsUvn"
+    "uJUA35r5zAbU+9Ud69IJnk8ndQUQDC3r8xm134i5hSA6G0lIa+RrhrNgkRVwkzHrgdenXIfH"
+    "QntLHYcpl88YQQRR6EF6AiLzmT6Bcm1wHc43tcOgJgZwu4Lrbq0ReR5796q9JOTaVKKePEFT"
+    "Ze2wIbUfaQeSCTwEEZo+zo9WET3MWRBi/yUR9klPH0zR5sKl66q7zib4FUK3T5FS0Gd7jpdy"
+    "IPUDJXnn4kdhK2g4ZJ1xO4HeR0dycb0jHpxehmywrCVwOG89CYl3/nZIH57AaKc+unGgV9Tw"
+    "PsM7Edjf5dwYd/x4d/gpH3iMUc+tfav5cyrw0boGDkNYbgnNTpPAOGVurY6zUVn9+ZQ8FZGn"
+    "t3GR/bXGZtuQJUZvRMhqoX6tpOa0ux2rsWmj8c52luerVN2xYggykbZLLTFUrV4skWY0iZn9"
+    "cjDDaiw6Eia+zjPuRUu8VRXnNm/z9ddOkKI0DtzS9CtSgjopyvGS6kl8pcwVtJSmrkDtoH6E"
+    "MVbJo83e0F6gDX2kSHuJSoYXlJpsnDryyOAOnaHPWGeGDCYJaWj9dx7EhTkvHeKsZqafqqX6"
+    "Gmy0oRb1JiTgB7Li5MhLrGcmnE9GYuZKj9PsH10HwnTeTXEXmUoNrLG0uH3BUlRmojxcVA30"
+    "e4AEYYkHXTDtqTLGUhb6tKM01WKQVQxJgfcpl65x0Mn7BI88KLCiOkcqTCINoVmvg25MtRYn"
+    "ryexUD7abG0VWa1oClX7EacksDfZJ65cc/xD4vxYCC5DY8imarNQaSTrzgK9mIxA7SoALWJC"
+    "VZKp2m5MphzndsPnrMgJP5Rc/ThJ6MAb8neaNBQtfJNwftsGyItcNHRFNPXb1+Yl+p39aron"
+    "0xjrO6TzYsjJvneveCObt1cXTstfxW3IJKZvTzRuVLo+NgJYHTW4ulq5e1yMM32B9PzofWNe"
+    "4/hMHk21/tz4ue8obEf2qZgTi1ECo+nddgNM5qBstU6MVdfliW5Ty6SFs2jftUt6wJasj/yu"
+    "mOeCdVfIvWSgqKfj+teApq0AyTfKvxF+aM5T6fX+0okjZTCHs/uKz2/9JYvroeO5PsULMdnS"
+    "z24NjsYXznjV2mXlJmHswUgwqRQQZwbsK9LTJnaxeq36zMdqW9dnVDAnxjjFyD9/wXZvNu9s"
+    "lh1LM1/5Mn4pOZvSDT5gZkgK7co/VcpbGXy0SK5XgIA7vSy/uTSQckMd9/psgTXZj8qCnCe+"
+    "Lvle596pDzHUKvp6JJsZMsSUpbY0ux1lmnbJ8HxpC48i2P2ITstSvmXaftK2OA1Sp3s1pEHk"
+    "JCbgpieRmjS3aby9n84QO7x6s1OcNeXObrd9AEbhlJYon0UzspScW+bf8H0UEnu+Lx0zMIdL"
+    "sDa3NwNJO53rFEtvX83u8ZUpR5VmZSj5KD8FzkYTXYbmuDqI0sVH+Ys7+J3QdYmsGwR2Lyz8"
+    "WkDcD0lAA3BgUsQlv/iWD7OQsB0vb7ZzLEMpP+nTOUjg3hiowda5y3mg6jvh1STbRWVy207N"
+    "dByIhNVlbztoXLD1THU9yBFyw+W51EklnnGwb70jFE8kfRKR2otJU59wAN8asYnxqA15vYCi"
+    "8tsiLnCaG7OltWTkzWmUOzxdYWz1Q/OP9aWUHQpkmcjREYQi9p6dRUkeMla/TGyzFaILvDfp"
+    "n714mYVzBpz0v9fJAt15zAz8BiJe/X5Oe6aY21GYmfzl8TYbfJ7hvkPYX0YaH5YgTXA/ND7P"
+    "/gItwjskVhMGqvow/wht+Ybv4OswFruzvXmVsc/ocZPXQ8a9/fo1LMcB8eA5OnoReJ0zRQfB"
+    "HNNiAhbg38DgqOS/M8XByaYFWPHXKbrYjGCxuITR64DfJWGpAFSbdGxYrPa0cJNey7en5nqc"
+    "HuN39aq6qrfyipCSvKbFy9Ai+T50UT3vmtKy4kx6Nd56M3v/jDMNkAOoB6wMB/l8fUb0Jupl"
+    "CPxi/9Zsciz/ZmZJTPWq6yQ1ozGBF00Hq86CGcsOjPJA4MQZfA080G+POS/QeoMVhdZFRSkX"
+    "P8QBugDdB7SPKaIwTBVWMNM52mOscB/RUVv/pmH/UsmTYL3hJXl66rMXfU81ULm/e+JUTxVg"
+    "Qn+9M3tqVQXzdofFnPTPo9Htn6WzL5vW951e8m1WycZLexd0O0hISHwq+hUcFiTCqplF8+E3"
+    "DYnr8Epe4qn8S41Y83m/7AsQzdVzVFFtMr3CoSeqHuiSAiJsa62ZQpBcaGsI7EGlZlxl8xd3"
+    "QVshXlIzfWrQGRw0AQVWgPstTLY6WXDQOBI9Hik1Y+RXsNN4cH0dY5wafHq7vkw87aWF/f7L"
+    "1rkBF6VS5R02VW13dDsL+wseQVW6zij/aDUCfWxzmzS8rx323I32Slx2hnKNz17ES5J7/CxC"
+    "8FzZYLJfJfphA0eZA1p1dj9zuUJeaWs2FsRGgqkfwUb56p+nsd6/Pa0VxHrfRTeh89vrge0r"
+    "2q8BHtK2P4v1+cDe/LbBwp7sBzp12bXJE74Q0mNFDlv6nq9mKw8v8lWzpNRuE5ezujnDklhd"
+    "lUR9cpErNua4VOm7XUWWxZ1rzfEvMTvDv/NiKjDjZWRpcPtqdZvm5r/F0mDhUHGwKQzfe9by"
+    "Ri/rVJMwNZRu87t6z4YYwtE7ElzpOn9Up/3r67feQwIx365xUJWf3kybZwe9fKNW8HzFRMqs"
+    "2EBpXej2p5JS1h0+aIfWhKNqme7so5WNb+Syg8PZFTit/PWs7pxpBRxvpl9GaQ1xhu4mfWQv"
+    "3ngCVMFQeKq2Tt4ihDQOUUUEAr/L6iyP92HxO/9Y5sl/p0cu0FHHN24in0WNTBE9z2H98YNX"
+    "pCVjkFpc3fqMpAgLyCSH+Zwa752v/YMH96NkQ0wcBQ+6KDfEuiM0qqVRrhhxFKFKSQwxOvSU"
+    "tHKwlVi+90KiDM25R89twzEk6SkFgiS7kLm/RFrhS6z3Lz9iezE8Yaac0X9wXzVNcu1uGDQS"
+    "BYhQFNKWI2ioesRRtthIGpc+zWPD1sqnEYuiAZ5C8vV1dgzonr+PfLgJsuoA/OVfjLOFpbkH"
+    "n4ubswXE3d1EgN+SX0jUykrIShwoYWllYSEiZAUREjSXkIAIiIqLCEhImFv8n68h8AdRYeF/"
+    "ln/4j6UIUFT0f9b/rV1QRFRABMAk8K94AZ7uHmZuf5b//3T//+HyALgO0oBHQUwMwkzzyURt"
+    "0a8HKhEEWP3yVCqP60RgYu715A+7qAxb205O377/xP7pCPDBIbDWwa+jhTzGFrd2DGMMYwJj"
+    "nbW9Qm/2+fHLECO1T+t7EB+OL+WAhz59rE/88Sd3Jey3XESVqthDmZmDVcD7xLbvxq3HD86s"
+    "KRL2U9PrsaPibhPje7LdlBHYtpEBNRwdmmnrB0KfNOo5Ywe1SUamf2a9B3eJdh5gZmw99xbP"
+    "SqF4Twlu8vv4I3Uj+Ftty6tycY2dXUEYT9UWFQN0VCWmVLEO9Wr+B33+RKw6hsFOD2n87Esv"
+    "x2TelsEfNTLS3R90hbiSUK9/E9wo3Bh/+vEe9PzxzNtQxXyoOs8tuNickmXMT40ViV9lJPOZ"
+    "4sMFZyKchm3jR1yBX+R+AV2LFIwjaXtvNmpX1EhGSpUnmPGx070hORwd7NIKKX67L1G072iP"
+    "rHqYh1Szlb93f3WBDT7JOVLtA2UdWffRAonGs2kpPEdm2CRUQAERiwMXu58MX8IVl36wOoii"
+    "LA1+wFxKHGgVwAniE9vqUr+JK61X03MgvSJiMHBU8gyvBYX6DaHgJ/fxoobY6aypn3VnsnmP"
+    "5nW1CKYSWNlvN4gcaS/iZoKINS6tgjV4n5lP6Ac29JfqmPJiL7s7H43MlScm3DUyr2P59BiC"
+    "wGsX6sMjqlJAEQJ61cCsIgUlkY88oY0zTXyWjFTmH0io6s1ZiFaiC3PwuQf4nYLFczPH8TmQ"
+    "37437/gwJfMnPKX5Xh4o7NOaufQpRSJwh8k2VC8MpPW69fXyAM70rt71Is5rMFlUkXRzxejY"
+    "t36J4GeJxjbPz+CtV0dcIFFi/9E6OlEogM+QPjrZtUBRdSXNwi++uXkPN/f1SFKw1qDIzDXO"
+    "CbARMykx06XvKCzf2jA4ShtHSHwxxZxAWOft4oEgD/Qp3n1DpNEulCZvM4sZ0JMLDoMW9fd6"
+    "rawUVwYLDx3qbl98/rLJ+J5TBieR8+aU2zaPU+t6OR4ciRkg8x7volH+VUJIgP8Iry68Xb8g"
+    "jwc3A+a1JVuY3vWGam1Pnphx6QEFk1P0+obiJJN3NOMi8Q/MMUO+2QvT2DmqkDxSB7MeMhht"
+    "xYqlXuWhr34RM2TCUM31rI8aWPtBAJ5QRe8o/1Of/be9chOXJK0epR/qibo/kOrLkPu3PswM"
+    "ulq53O5zzso6VJnSuLcT5tEYzc9A97wJPAOy2n5DQpeW17RCxLw4foXyCbylEtdMUjld2IRz"
+    "lhxBjOWTmwnL4r70XcqgHw1HWjml88RYY8ZrJBvcZSkbYqJ0iHLyVTEFB0Q1WefqgayYRjb1"
+    "ZvvKungSp/GbV2N9C0/9kqZjJF0I9qykoccf3r2nDVmdyyMyvl/XIyirn5tIeuKRyll9O03C"
+    "vsyZR1aewisnmvN4nTWcVDwnZOIkmF+9PnHrvVRS+5g6F5Y0ZeWLEmERJbrtoEWl7y4SZcVy"
+    "cyq/W/2BmOmNWFbfwRjRe3Q8rasCpTIMVcuKtV2nI4wWhfdaDqcujrGnxlRFhTF+d+8KKqsd"
+    "kgzZhC+E+BC3isFPUoEU0PdAxXrcOfqriLBsNO5p00D6AEyVO6AcTx10cT6Rd5osdnWM/GTJ"
+    "dPKMNL9t+tFTqk4D1FQOdPrH+N1E3AmCRdcf40eJmswa1+rHjdpquZnwDw/qcIfl6EXMvVYX"
+    "NAdDvYhuOx9vLemHXdOTfmUImToO1fAcyYhe3MRaYAV1194e0oyWLT9DZlYU9Ne/salOYU3w"
+    "ei5z/djdmlhOboF25Jljoev8YTMQRoUj88ZuZj3d/5stNZI0QZFjPSYaCu7/OkAqc96sWqH9"
+    "5Agr0ZUMk/uMRIqukRm0B+bmdM/6wGEUKtRMVvK+ibtoI5+c+qoYKAA3fZEh1k2zLEYXONlf"
+    "f2dUNq8ncpOpoy2YfditYT1TfFT3jgHmxmz1XXTQ9KHsZ5OXMeXecVuBm1FqcemVedC0pNvK"
+    "EWYMS3rAC/fSlSwQs9GKiJrtE4yM5qEzZs8FvZyOlBSptz3rk/tCbtQWXFQjuBuCCpr0sWsq"
+    "79+nr9vLDtV0LhEOUUB0yzMkh83MuQ7WX80r3cwGCLrwXLF35A4pvM5wD8+m1Ca6InbMkG1z"
+    "tX02ZCZxwK0v9HxE0vTJiPoJi78cw+97io4Aenqj1W6u/AALleIDQa0JSKuNWnv/XkpfJfdc"
+    "Tct+JY3PDT5n1u4LmtPflrKGVPbQXeoJ74iSq+a8vv2oF32VAjUHFb/5799lriGaEiCHWATX"
+    "la+83e1qT6BF24Rt8eCRt5i1L7ExAzfCUGztRoF5xVsy+jo+vFyPHdvtPvp/Cx/E70YGcq2n"
+    "iJVajegY+4ruUFMqZ9z66WQyMnhlthS2n0m/1himwZioIlzUU51tbbK1e7LJalaFDvtYlS4o"
+    "Dztiu42CJPpxBUUsdBA4OI12rtXfNxh/eBmS/pyNaumxHOqDvWRpWsiWxDqmGF3NuOLEY0/r"
+    "+JZLO6OrY6csImBX3h31FWrPZqHNuI7RytNPJ81ZW765QrP75cnMCL7TZ9vz4Drc28lg4Xet"
+    "JDhdJKFD3NStjREGzGiRkKIBm9sAB92EUKqsaQseoLKkwsrLwMQHAAwA4B+ZKf2/z0x9HxJS"
+    "AyrYARgsgP88TCMiBeBg42A+JsQhA2BgU2MQYeFhUGEQkWER4mOYm3lY2Jj8CXw83PkcIWZO"
+    "/Hx+Zm5uZr4CLma2bnwCfAKCbmaO7nyWECd3CJ+5rZm7PcTNCeIAcTSHWPJ5mJk7QP6Mcbcw"
+    "84C4CBRg6BVh0H/FIC7CSCf+iVGE8QujBOMLBumfZ4CyWNh4Otm7s0iChYSMeFgsnB1d3P6E"
+    "mc5uLJJQFltLFkkWP3cPSxYeFgeIF8SBRVIwgIfF0tbxz7K2zk4m7hAXMzczDxa+PwMsPXxd"
+    "IH/GS9sK/7mysnVwMPEyc/D80+Tk6eDgAXH7M6kl5M+8LAp/+t1tzEysnN0c/9wsCQz4Z4gD"
+    "8MQEjCqT0jTbE82BeXBKWHmUwnR1dHQmprwOl9efArG9D4oeFN4W4yKkR2lghsedQjraFDlF"
+    "BBO5z/01MQ7otOhlizFT59364XqYGICFxHAOYR4Rf0/BzwCA5uXPw62BIaz10sUpTHmph0Pq"
+    "PTei5oJ/dk1EEChtJSwoKsAjxmMlLo8NMPdrVjSOvQA9AWlnxv/qQPCOO6HcI88RxgDeEa7m"
+    "ZdAV+wjw1QwSQabd2KXrd4qY/w16mXd9A1KlcChLEUMjrGPZ96PfIBGPAPRGHPQtoImb3uvZ"
+    "kDEEwemc8eb4HsJlaeJXCe8ZYq3Pc0zYBY14vvxAi6prFCS7mb4xyDwIcui4SMd2RIOEv7c8"
+    "O/qyDXJqGq7RKppHSB1LJQvP7CKqn66WVWsPg0R4xM2tHJzNPARFpW3lAQARuvklzD/foeC/"
+    "5Yp0Mo8fPBA9arcPx6yibt0DjAB2UthBfHm/zHM5Rs1+/W5bwSpSzxrJE+/rZCV4xP9RlyZ3"
+    "zqwF48ydjugJLeuWNpM5cbSB6eZnzXYWqpigJconzwPi8X2EWYJ+svWTY2KVlWD2fvd2fgFe"
+    "dUsG/lSZ91eIeU0TrPfJj5Lq1fGXWTEAyd+87b8v/xM1F4aYiYhZWAoCIeYWYuZWFiJmluIS"
+    "olaCIiJAoLDIf3n+JyAiKvK/5X9CwL/537+Cf7gZT4x/52Z2Hgw8AlCSSvFoRGdiyaHTBIW0"
+    "4wIibOyH/G7Q8J53oymZxRwvopgZRqpxstqLaocZjrl/YQgC+AFcAGlOPT+LtRp2hanx0Uik"
+    "jeHu7498nU/7Ib2eC7Mkit9oKTgIKHEe4D/YwOUAYGZhdOEdCsieqn13KqDUUXEmJMJpg+pt"
+    "KCbluE5jJZvSiraIEoQ46od1eOZb0Th6JrK+h0z5b6qWYn8AqjnD2nuWZureXnld1nnwOtno"
+    "/mLXJm2yzfHuoUxxjqwUJBY8GS9ZI1d58gIoEt4ZJZ1gO+rDpLlWS8e0/9m2YSrfRkRedbua"
+    "/zYb+FVHu1TrISeTKSaNUIu71mpwi6++yJOflExRwXW9PcSS3ykpO+SQ7dvC/zj3ask9ejXy"
+    "PhxbYHizhtxDjfCxVctgG/lHPTA4KNwtXlue9Sldangr6VG5zteGHSgrnz2QRr89eM6gh+Cx"
+    "Pvyt0oMHwZ+hjmLM/1frX8JKFGImbGYhZgmRgFgBgRDRP5oUFrMA/oksxMxExf7r9S8mCvyP"
+    "+hcREP6r/3+V/k/+vf6VsCuJAJ2UBgoCzplYLRlTkSIfQzPUrdU5YJ7jPUBTSYDiPZoRzNLD"
+    "5ziqy/+K5fHHUhCSuHi/ZHlmdrbbgXKAQtveAzVo37/MqvVQHiAHeAFgaRrKQVanWb+CxkJv"
+    "FgIeX7zXTKif4uhHlYiPl9y7yt0aE38Wl4TFt84INSkZePEArOQKmp+yEnbbtLz+VFTbTl1e"
+    "PBh4B/X3NO5YcNfZVdEaqTLxmyuvjFXIqNIFh12cC9zfuBpPjoV0ncrTJku6fKx8+ZHpazTB"
+    "UzyaXhLgWSIGRwpEs/vI9JnAr/4ECprR6LiHrSpZzdTWLh+nmbaHBweNnOv9w6BVoQUBJvUM"
+    "TfASbKlZ4nf8RpOTJdawb0W2aJwPlUQibyGXexGerzW6RKleqxVdO3xRw259TiGOmQEnJKR9"
+    "90LC1+elq4FL2itqpkQXJkUlatsjDEW56eDmB32hLErYBJlkSXiAp0AlmzBOKi56bH7DZo5i"
+    "XK5/2h353T92x5VBVxGrABvXIrfU7SR08BF+jOCwlGsKZYcBbYKphk++zafwDuqtzZq3HmpP"
+    "2KxasiI5o/QYMoMYYohyZbqwyeNwXdKIhBTNl62/v/SduFQynDSNqozCqi7/QMP2U7Y4NooU"
+    "UwFjHaNR+T/Tv5mohYiomIUFRMAcKCEoZgaECFiZi5kL/amImJlZAf/r9Q/8Y1T+g/7FhP+e"
+    "//7L9F8N+F/1z9Sx/gAQ8oqFJahwAENI4JIfvTDJlpSf7yMD7n4fJ6jNdP2ecjrjmsnXDhyN"
+    "4c8OLmQKqD0aIow3ebPrUzll/sQ4/RPhO1VOELsGdteukMc16nhwoDA2Q3v+Y/FZMkkzv6PH"
+    "nbQIY7z6Du6tpNVCl+FJaBATjo+uTf8HOk1q/Ij5gTbSYa2ZluwBGxVJMkDsF1xsACt+bmvi"
+    "0+Ruu8XUES2rSZNa17+B+3+T/3c0c7K1grh78P2z479mjf9M/8LCgv9B/0IiIqJ/9f+v0b8k"
+    "F/O/9/8CAF5cgFWilKCLo+StxZWaABGKYflLhQzVL2iH5g/s3ork4sn0OqYvaV9fu/VVXHT6"
+    "yVMQ2+YuvnCiEQSwA54BNL97d+3foV9ILB54xb8vTmFTeYxpEasz+Q7/vQAzPR2+tS31Wx5L"
+    "B2A2DrEyspk5hHnMMF4HBH9c55/NFVkG/7D7obaxZj99fS2wblOWe1J8IWt34/rrAOiwMjvM"
+    "rWoqguy7wyHRJUp0PoK/VPLrO/ubb6co7q0354drysVNVLsnIw5ARtIPxMS4EYoKLxL6lMt7"
+    "hGPZXtCSYWNhUnLIYeYqcJo9I1H2cH0uh6GpX8FFGi5Pkb2AgQuQe1hjls+piZlYG9vx8lFa"
+    "GHYvt8TCh78m4i9/+ctf/vKXv/zlL3/5y1/+8pe//OUv/w/zPwCIQ1qX")
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 ``Checkpointer`` writes reference-layout ``ckpt.pth.tar`` and
 ``model_best.pth.tar`` files and restores them into a ``TrainState``.
 ``import_torch_checkpoint`` reads evaluation weights (a reference
-``.pth.tar`` or a ``Checkpointer`` directory) and ``load_model_weights``
-loads them into a port model, strictly.
+``.pth.tar``, a ``Checkpointer`` directory, or the JAX package's orbax
+output, through ``orbax_variables``) and ``load_model_weights`` loads them
+into a port model, strictly.
 
 ``from_flax_variables`` takes the ``{"params", "batch_stats"}`` tree of the
 JAX package's Flax models as nested dicts of numpy arrays and returns a
@@ -81,12 +82,14 @@ def _leaves(tree, prefix=()):
 
 
 def from_flax_variables(variables):
-    """JAX-package ``{"params", "batch_stats"}`` tree (numpy leaves) ->
-    state dict of f32 CPU tensors in the reference layout."""
+    """JAX-package ``{"params", "batch_stats"}`` tree (numpy leaves, or
+    tensors) -> state dict of f32 CPU tensors in the reference layout."""
     out = {}
     for col in ("params", "batch_stats"):
         for path, value in _leaves(dict(variables.get(col, {}))):
             key = _flax_path_to_torch_key(col, path)
+            if isinstance(value, torch.Tensor):
+                value = value.float().numpy()
             arr = np.asarray(value, dtype=np.float32)
             if path[-1] == "kernel":
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
@@ -168,18 +171,50 @@ class Checkpointer:
 _DEAD_KEY = re.compile(r"^block\d\.\d+\.upsample_\.")
 
 
+def orbax_payload(path, subtrees):
+    """The top-level ``subtrees`` of the JAX package's orbax checkpoint at
+    ``path``, as numpy trees: a ``Checkpointer`` directory (``model_best/``
+    preferred over ``ckpt/``) or a bare payload directory. Read by the
+    port's own OCDBT / zarr v2 / zstd readers (``orbax_read``); nothing
+    else in the payload (``opt_state``) is decoded."""
+    from rcvpose_tpu_torch import orbax_read
+
+    path = os.path.abspath(path)
+    for name in ("model_best", "ckpt"):
+        sub = os.path.join(path, name)
+        if os.path.isdir(sub):
+            path = sub
+            break
+    return orbax_read.read_tree(path, subtrees)
+
+
+def orbax_variables(path):
+    """``{"params", "batch_stats"}`` of a JAX orbax checkpoint (the
+    counterpart of the JAX package's ``eval._orbax_variables``);
+    ``from_flax_variables`` turns it into a reference-layout state dict."""
+    return orbax_payload(path, ("params", "batch_stats"))
+
+
+def is_orbax_dir(path):
+    """Whether ``path`` is a JAX orbax payload or ``Checkpointer``
+    directory."""
+    return any(os.path.isfile(os.path.join(path, name, "_METADATA"))
+               for name in ("model_best", "ckpt", ""))
+
+
 def import_torch_checkpoint(path):
     """Evaluation weights as a reference-layout state dict of CPU tensors.
 
     ``path`` is a reference ``.pth.tar`` (a payload with
     ``model_state_dict``, or a bare state dict; ``module.`` prefixes of
-    DataParallel are dropped), or a directory written by ``Checkpointer``,
-    whose ``model_best.pth.tar`` is preferred over ``ckpt.pth.tar``: the
-    counterpart of the JAX package's ``import_torch_checkpoint`` and, for
-    the port's own training output, of its orbax reader. Orbax directories
-    are not read. As in the JAX package the file is unpickled in full
-    (reference checkpoints may hold more than tensors): load only files
-    you trust.
+    DataParallel are dropped) or a directory: the port's own
+    ``Checkpointer`` directory (``model_best.pth.tar`` preferred over
+    ``ckpt.pth.tar``), else the JAX package's orbax output (a
+    ``Checkpointer`` directory with ``model_best/`` or ``ckpt/``, or a bare
+    payload), read by ``orbax_variables``. A directory that holds neither
+    raises ``ValueError`` naming both formats. As in the JAX package a
+    ``.pth.tar`` is unpickled in full (reference checkpoints may hold more
+    than tensors): load only files you trust.
     """
     if os.path.isdir(path):
         for name in (Checkpointer.BEST, Checkpointer.CKPT):
@@ -187,12 +222,13 @@ def import_torch_checkpoint(path):
                 path = os.path.join(path, name)
                 break
         else:
+            if is_orbax_dir(path):
+                return from_flax_variables(orbax_variables(path))
             raise ValueError(
-                f"{path} holds neither {Checkpointer.BEST} nor "
-                f"{Checkpointer.CKPT}: the port reads reference .pth.tar "
-                "files and its own Checkpointer directories; orbax "
-                "checkpoint directories (the JAX package's --mode train "
-                "output) are not read")
+                f"{path} holds neither the port's {Checkpointer.BEST} / "
+                f"{Checkpointer.CKPT} nor an orbax checkpoint (model_best/, "
+                "ckpt/ or a payload with _METADATA, the JAX package's "
+                "--mode train output)")
     payload = torch.load(path, map_location="cpu", weights_only=False)
     sd = (payload.get("model_state_dict", payload)
           if isinstance(payload, dict) else payload)

@@ -389,25 +389,38 @@ def run_export_torch(cfg):
     """Export a training run's weights as a reference-format ``.pth.tar``.
 
     ``--model_dir`` points at a ``Checkpointer`` directory (the ``ckpts/``
-    under a train run's log dir); ``model_best`` is preferred over
-    ``ckpt``, the reference's eval-from-best convention (train.py:46).
-    The port's checkpoints are reference-layout already, so this copies
-    ``model_state_dict``, ``epoch`` and ``iteration`` (with ``arch``) and
-    leaves the optimizer state behind: reference code can ``torch.load``
-    the result and ``load_state_dict`` it onto DenseFCNResNet152."""
+    under a train run's log dir) of either package; ``model_best`` is
+    preferred over ``ckpt``, the reference's eval-from-best convention
+    (train.py:46). The port's checkpoints are reference-layout already, so
+    this copies ``model_state_dict``, ``epoch`` and ``iteration`` (with
+    ``arch``) and leaves the optimizer state behind. A JAX orbax directory
+    is read without JAX (``checkpoint.orbax_payload``) and written as the
+    JAX CLI's export writes it: the same keys, in the same order, and the
+    same tensors. Reference code can ``torch.load`` the result and
+    ``load_state_dict`` it onto DenseFCNResNet152."""
     import torch
 
-    from rcvpose_tpu_torch.checkpoint import Checkpointer
+    from rcvpose_tpu_torch import checkpoint
 
-    best = os.path.isfile(os.path.join(cfg.model_dir, Checkpointer.BEST))
-    src = os.path.join(cfg.model_dir,
-                       Checkpointer.BEST if best else Checkpointer.CKPT)
-    payload = torch.load(src, map_location="cpu", weights_only=True)
     out = cfg.export_path or os.path.join(cfg.model_dir, "exported.pth.tar")
-    torch.save({"model_state_dict": payload["model_state_dict"],
+    port_best = os.path.join(cfg.model_dir, checkpoint.Checkpointer.BEST)
+    port_ckpt = os.path.join(cfg.model_dir, checkpoint.Checkpointer.CKPT)
+    if os.path.isfile(port_best) or os.path.isfile(port_ckpt):
+        best = os.path.isfile(port_best)
+        payload = torch.load(port_best if best else port_ckpt,
+                             map_location="cpu", weights_only=True)
+        sd = payload["model_state_dict"]
+        arch = payload.get("arch", "DenseFCNResNet152")
+    else:
+        best = os.path.isdir(os.path.join(cfg.model_dir, "model_best"))
+        payload = checkpoint.orbax_payload(
+            cfg.model_dir, ("params", "batch_stats", "epoch", "iteration"))
+        sd = checkpoint.from_flax_variables(payload)
+        arch = "DenseFCNResNet152"
+    torch.save({"model_state_dict": sd,
                 "epoch": int(payload["epoch"]),
                 "iteration": int(payload["iteration"]),
-                "arch": payload.get("arch", "DenseFCNResNet152")}, out)
+                "arch": arch}, out)
     print(f"exported {'model_best' if best else 'ckpt'} -> {out}")
     return out
 

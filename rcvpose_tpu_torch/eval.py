@@ -332,11 +332,13 @@ def _load_models(cfg, class_name, device):
 
     3-net reference mode (``cfg.kpt_heads == 1``): one model per keypoint,
     from ``<model_dir>/<class>_pt<k>.pth.tar`` (reference layout,
-    AccumulatorSpace.py:522) or from the port's own ``--mode train`` output,
-    a ``Checkpointer`` directory ``<model_dir>/<class>_pt<k>/``.
+    AccumulatorSpace.py:522), else the directory
+    ``<model_dir>/<class>_pt<k>/``: the port's own ``--mode train`` output
+    or the JAX package's orbax one.
     Fused mode (``cfg.kpt_heads > 1``): ONE multi-head checkpoint from the
-    ``Checkpointer`` directory ``<model_dir>/<class>/``, or ``model_dir``
-    itself. Orbax directories are not read (``checkpoint``).
+    directory ``<model_dir>/<class>/``, or ``model_dir`` itself, in either
+    format. The order is the JAX package's; ``checkpoint.
+    import_torch_checkpoint`` tells the formats apart.
     """
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
@@ -355,7 +357,8 @@ def _load_models(cfg, class_name, device):
         raise FileNotFoundError(
             f"fused-mode checkpoint not found: neither "
             f"{os.path.join(cfg.model_dir, class_name)} nor {cfg.model_dir} "
-            "is a checkpoint directory")
+            "is a checkpoint directory (the port's Checkpointer or an orbax "
+            "one)")
     models = []
     for i in range(1, 4):
         torch_path = os.path.join(cfg.model_dir, f"{class_name}_pt{i}.pth.tar")
@@ -368,7 +371,8 @@ def _load_models(cfg, class_name, device):
             raise FileNotFoundError(
                 f"neither {torch_path} (reference ckpt layout, "
                 f"AccumulatorSpace.py:522) nor checkpoint dir {dir_path} "
-                "(the port's --mode train output) exists")
+                "(the port's --mode train output, or an orbax dir from the "
+                "JAX package's) exists")
     return models
 
 

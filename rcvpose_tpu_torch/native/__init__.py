@@ -30,19 +30,25 @@ _tried = False
 _error = None
 
 
-def library_path():
-    """Where the library built from ``rcvpose_io.cpp`` lives."""
-    key = hashlib.sha256(_SRC.read_bytes()
+def library_path(src=_SRC):
+    """Where the library built from ``src`` (default ``rcvpose_io.cpp``)
+    lives: ``_build/lib<stem>_<hash of source and flags>.so``."""
+    key = hashlib.sha256(src.read_bytes()
                          + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librcvpose_io_{key}.so"
+    return BUILD_DIR / f"lib{src.stem}_{key}.so"
 
 
-def _build(out):
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)],
-                   check=True, capture_output=True)
-    os.replace(tmp, out)
+def build_library(src=_SRC):
+    """Build ``src`` with ``g++`` unless its library exists; returns the
+    library's path. Raises ``OSError`` or ``CalledProcessError``."""
+    out = library_path(src)
+    if not out.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp)],
+                       check=True, capture_output=True)
+        os.replace(tmp, out)
+    return out
 
 
 def _load():
@@ -52,10 +58,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            out = library_path()
-            if not out.exists():
-                _build(out)
-            lib = ctypes.CDLL(str(out))
+            lib = ctypes.CDLL(str(build_library()))
             lib.read_dpt.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint16),
                 ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32),

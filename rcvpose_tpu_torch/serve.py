@@ -477,7 +477,8 @@ class PoseClient:
 def build_lm_estimator(cfg, class_name, device=None):
     """``PoseEstimator`` from the LINEMOD eval-tree conventions: the
     class's networks as ``eval._load_models`` finds them (reference
-    ``.pth.tar`` files or the port's ``Checkpointer`` directories), the
+    ``.pth.tar`` files, the port's ``Checkpointer`` directories or the JAX
+    package's orbax ones), the
     meter-valued ``<class>.ply`` for the radius clips and the ICP CAD
     model, and ``Outside9.npy`` keypoints. ``device``: None is the card,
     ``"cpu"`` the CPU."""

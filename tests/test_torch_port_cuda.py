@@ -703,3 +703,41 @@ def test_keypoint_from_maps_no_depth_on_card(cuda):
     np.testing.assert_allclose(centers["cuda"], centers["cpu"], rtol=0,
                                atol=1e-2)
     assert np.linalg.norm(centers["cuda"] - kpt * 1000.0) < 10.0
+
+
+def test_carried_orbax_fixture_reads_through_the_built_decoder(cuda,
+                                                               tmp_path):
+    """The orbax directory chip_smoke.py carries (written by orbax) reads
+    on the card's machine, which has neither orbax nor tensorstore, bit
+    for bit through the decoder built there, reaching its Huffman and FSE
+    paths; a tiny net staged in the orbax layout evaluates on the card as
+    its .pth.tar twin does."""
+    import chip_smoke
+    from rcvpose_tpu_torch import checkpoint, orbax_read
+    from rcvpose_tpu_torch.models import fcnresnet
+    from rcvpose_tpu_torch.native import zstd
+
+    chip_smoke.unpack_dir(chip_smoke.ORBAX_DIR, str(tmp_path / "fixture"))
+    zstd.reset_stats()
+    chip_smoke.same_tree(orbax_read.read_tree(str(tmp_path / "fixture")),
+                         chip_smoke.orbax_fixture_arrays())
+    assert zstd.STATS["compressed_blocks"] and zstd.STATS["fse_tables"]
+    assert zstd.STATS["huffman_4_streams"]
+
+    cfg = config.Config(model_blocks="1,1,1,1", model_width=0.125,
+                        compute_dtype="float32")
+    net = fcnresnet.init_params(train.build_model(cfg),
+                                torch.Generator().manual_seed(5))
+    sd = net.state_dict()
+    chip_smoke.write_orbax(
+        str(tmp_path / "ckpts" / "model_best"),
+        chip_smoke.jax_payload(chip_smoke.flax_variables(checkpoint, sd), 1,
+                               2, adam=True))
+    loaded = train.build_model(cfg)
+    checkpoint.load_model_weights(loaded, checkpoint.import_torch_checkpoint(
+        str(tmp_path / "ckpts")))
+    x = torch.randn(1, 64, 64, 3, generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        outs = [m.to(cuda).eval()(x.to(cuda)) for m in (net, loaded)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

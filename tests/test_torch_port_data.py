@@ -342,7 +342,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """No module of ``rcvpose_tpu_torch`` imports jax or ``rcvpose_tpu``."""
     pkg = Path(__file__).resolve().parent.parent / "rcvpose_tpu_torch"
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|"
-                         r"rcvpose_tpu)(\.|\s|$)", re.M)
+                         r"tensorstore|zstandard|rcvpose_tpu)(\.|\s|$)",
+                         re.M)
     sources = sorted(pkg.rglob("*.py"))
     assert len(sources) > 30
     for src in sources:

@@ -317,7 +317,15 @@ def test_import_torch_checkpoint_layouts(tmp_path):
         port_checkpoint.load_model_weights(model, extra)
 
 
-def test_import_checkpointer_dir_prefers_best_and_refuses_orbax(tmp_path):
+def test_import_checkpoint_dir_reads_port_then_orbax_and_names_both(
+        tmp_path):
+    """The directory branch of ``import_torch_checkpoint``: a port
+    ``Checkpointer`` directory reads ``model_best.pth.tar`` before
+    ``ckpt.pth.tar``; an orbax ``Checkpointer`` directory's ``model_best/``
+    (written by orbax from the JAX package's import of the same weights) is
+    read without orbax; a directory with neither raises naming both."""
+    import orbax.checkpoint as ocp
+
     _, sd_ckpt = _tiny_state_dict(1)
     _, sd_best = _tiny_state_dict(2)
     ckdir = tmp_path / "cls_pt1"
@@ -328,10 +336,25 @@ def test_import_checkpointer_dir_prefers_best_and_refuses_orbax(tmp_path):
     torch.save({"model_state_dict": sd_best}, ckdir / "model_best.pth.tar")
     got = port_checkpoint.import_torch_checkpoint(str(ckdir))
     assert torch.equal(got["conv8.weight"], sd_best["conv8.weight"])
+
     orbax = tmp_path / "orbax_dir"
-    (orbax / "model_best").mkdir(parents=True)
-    with pytest.raises(ValueError, match="orbax"):
-        port_checkpoint.import_torch_checkpoint(str(orbax))
+    variables = jax_checkpoint.import_torch_state_dict(
+        {k: v.numpy() for k, v in sd_best.items()})
+    saver = ocp.StandardCheckpointer()
+    saver.save(str(orbax / "model_best"), variables)
+    saver.wait_until_finished()
+    got = port_checkpoint.import_torch_checkpoint(str(orbax))
+    want = {k: v for k, v in sd_best.items()
+            if not k.endswith("num_batches_tracked")}
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+    neither = tmp_path / "neither"
+    (neither / "model_best").mkdir(parents=True)
+    with pytest.raises(ValueError, match="orbax") as err:
+        port_checkpoint.import_torch_checkpoint(str(neither))
+    assert "model_best.pth.tar" in str(err.value)
 
 
 # ---------------------------------------------------------------------------

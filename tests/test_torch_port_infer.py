@@ -229,7 +229,8 @@ def test_config_fields_match_jax():
 # Isolation: the port never reaches JAX or the JAX package
 # ---------------------------------------------------------------------------
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rcvpose_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+              "zstandard", "rcvpose_tpu")
 
 
 def _port_files():

@@ -402,6 +402,20 @@ def tiny_state():
     return _port_state(_cfg(optim="sgd"))
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test held against the port alone. Beside
+    the suite's other workers torch's default (a thread a core)
+    oversubscribes the cores and the trainer's many small ops crawl (the
+    loop test took 196 s there against 1 s alone). Tests held against JAX
+    keep the default: their tolerances were set with its summation
+    order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fresh(tiny_state, cfg):
     state = _port_state(cfg)
     state.model.load_state_dict(tiny_state.model.state_dict())
@@ -419,6 +433,7 @@ class Writer:
         self.images.append((tag, img, step))
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_trainer_loop_checkpoints_and_restores(tiny_state, tmp_path):
     cfg = _cfg(optim="sgd", max_iterations=3)
     batch = synth_batch(2)
@@ -456,6 +471,7 @@ def test_trainer_loop_checkpoints_and_restores(tiny_state, tmp_path):
                                atol=0)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_trainer_loss_decreases_with_accumulation(tiny_state):
     cfg = _cfg(optim="sgd", accum_steps=2, max_iterations=3, log_interval=1)
     batch = synth_batch(3, b=4, kpt_heads=3)
@@ -472,6 +488,7 @@ def test_trainer_loss_decreases_with_accumulation(tiny_state):
     assert losses[-1] < losses[0]
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_nan_loss_raises(tiny_state):
     cfg = _cfg(optim="sgd")
     bad = synth_batch(4)
@@ -485,6 +502,7 @@ def test_nan_loss_raises(tiny_state):
         trainer.validate(0)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_resume_fast_forwards_mid_epoch(tiny_state):
     """Resume at iteration 6 with 4 steps/epoch lands in epoch 1 and skips
     its first 2 batches, consumed from the loader but not trained."""
@@ -510,6 +528,7 @@ def test_resume_fast_forwards_mid_epoch(tiny_state):
     assert trainer.iteration == 8
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_resume_index_level_skip_protocol(tiny_state):
     """A factory whose second parameter is ``start_batch`` gets the skip as
     a start index, and the Trainer discards nothing itself."""
@@ -530,6 +549,7 @@ def test_resume_index_level_skip_protocol(tiny_state):
     assert trainer.iteration == 8
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("interval,max_epochs,want", [(1, 3, 3), (2, 4, 2),
                                                       (3, 4, 2)])
 def test_val_interval_epochs(tiny_state, interval, max_epochs, want):
@@ -558,6 +578,7 @@ def test_create_state_without_device_raises_without_cuda():
                            blocks=TINY, width=WIDTH)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_remat_trains_and_serving_takes_it(tiny_state):
     """``Config.remat`` (the JAX package's ``nn.remat`` per Bottleneck)
     trains: ``create_state`` builds the model with its encoder blocks
