@@ -122,7 +122,19 @@ Phases, each printing its own line:
     fused route (``<class>/``) against its ``.pth.tar`` twin, and
     ``--mode export-torch`` of a ``ckpt/`` that also holds Adam's state
     (the bytes read against the bytes on disk), with K1's and K2's
-    launches on each path.
+    launches on each path;
+17. the bench family on the card, each through its ``main`` with the
+    counts set to 0 just before and read just after: ``rcvpose_tpu_torch.
+    bench`` at full width with its reps cut (``reps_scale``),
+    ``scripts.bench_train`` for 2 steps on the cuDNN and the K3/K4 route,
+    ``bench_serving_latency`` with 16 requests, ``bench_train_loop`` for 4
+    steps and ``bench_eval_prefetch`` on 4 frames: each last line one
+    JSON record whose times are finite and > 0, whose ``device`` names
+    the card and whose ``mfu_vs_bf16_peak`` is at most 1, and K1, K2, K2's
+    backward, K3 and K4 launched where each path runs them (the
+    ``kernels`` line gains ``bench_launches``); then a full-width training
+    state saved with ``Checkpointer(async_save=True)`` against
+    ``async_save=False``: equal after ``torch.load``.
 
 The vote kernels' bounds count instructions at the card's issue rate
 (``vote_cuda.ISSUE_RATE``), not FLOPs at the FP32 peak: none of their
@@ -181,36 +193,12 @@ def say(*parts):
 
 
 def profile_ms(fn, reps, warmup=1):
-    """Times of one call of ``fn``, from ``reps`` calls under torch.profiler.
+    """``scripts.profile_ms``: (wall ms with the profiler on, device ms
+    summed from the device's own events, device ms by kernel name) of one
+    call of ``fn`` over ``reps`` calls."""
+    from rcvpose_tpu_torch.scripts import profile_ms as prof
 
-    Returns (wall ms on the host clock, ending in a synchronize, with the
-    profiler on; device ms, the summed durations of the kernels and copies
-    the calls ran, without the idle gaps between them; device ms by kernel
-    name). Only the device's own events are summed: a CPU op's
-    ``self_device_time_total`` repeats the time of the kernels it launched,
-    and a user annotation on the device's timeline (the optimizer's
-    ``Optimizer.step#...`` span) covers kernels that are summed already.
-    """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / reps
-    by_kernel = {}
-    for e in prof.events():
-        if (e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
-                                 + e.device_time_total / 1e3 / reps)
-    return wall_ms, sum(by_kernel.values()), by_kernel
+    return prof(fn, reps, warmup)
 
 
 def event_ms(fn, reps, warmup=2, repeats=3):
@@ -3636,6 +3624,210 @@ def phase_orbax(config, cli, checkpoint, eval_mod, train_mod, fcn, root, lm,
     return paths
 
 
+# Phase 17: the bench family. Each entry point prints one JSON record
+# last; the keys each record must hold as times, finite and > 0.
+BENCH_TIMES = {
+    "bench": ("value", "batched_frames_per_sec",
+              "fused_multihead_frames_per_sec", "fused_frame_ms",
+              "fused_batched_frames_per_sec", "net_ms", "vote_ms_per_kpt",
+              "fit_ms", "frame_ms", "mvotes_per_sec",
+              "mvotes_ref_equiv_per_sec", "exact_vote_ms_per_kpt",
+              "exact_mvotes_per_sec"),
+    "bench_train": ("value", "imgs_per_sec", "tflops_per_step",
+                    "mfu_vs_bf16_peak"),
+    "bench_serving_latency": ("value", "capacity_rps", "achieved_rps",
+                              "p50_ms", "p99_ms", "max_ms",
+                              "dispatch_floor_ms"),
+    "bench_train_loop": ("ms_per_step_fetch_every",
+                         "ms_per_step_fetch_interval10",
+                         "ckpt_save_return_ms_async",
+                         "ckpt_save_return_ms_sync",
+                         "ckpt_background_write_ms"),
+    "bench_eval_prefetch": ("value", "inline_decode_ms_per_frame",
+                            "stock_ms_per_frame",
+                            "decode_ms_per_frame_total"),
+}
+BENCH_REPS_SCALE = 0.03
+
+
+def bench_counters():
+    from rcvpose_tpu_torch.ops import heads, mmconv, vote_cuda
+
+    return {"vote_counts": vote_cuda.vote_counts_cuda,
+            "heads_channel_major": heads.heads_channel_major_cuda,
+            "heads_channel_major_bwd": heads.heads_channel_major_bwd_cuda,
+            "conv_same": mmconv.conv_same_cuda,
+            "conv_same_dk": mmconv.conv_same_dk_cuda}
+
+
+def run_entry(name, main, want):
+    """``main()`` with the launch counts set to 0 just before and read just
+    after, its standard output captured: its last line must be one JSON
+    object whose ``BENCH_TIMES[name]`` are finite and > 0, whose
+    ``device`` names the card, and whose ``mfu_vs_bf16_peak`` (if any) is
+    at most 1; ``want`` names the kernels the path must launch. Returns
+    (record, launches, seconds)."""
+    import io
+
+    counters = bench_counters()
+    synchronize()
+    for f in counters.values():
+        f.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main()
+    synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    lines = buf.getvalue().strip().splitlines()
+    record = json.loads(lines[-1])
+    if not isinstance(record, dict):
+        raise AssertionError(f"phase 17 {name}: last line {lines[-1]!r}")
+    times = {k: record.get(k) for k in BENCH_TIMES[name.split(" ")[0]]}
+    bad = {k: v for k, v in times.items()
+           if not isinstance(v, (int, float)) or not math.isfinite(v)
+           or v <= 0}
+    for key in ("runs_ms",):
+        runs = record.get(key) or {}
+        flat = runs if isinstance(runs, list) else [
+            t for ts in runs.values() for t in ts]
+        bad.update({f"{key}[{i}]": t for i, t in enumerate(flat)
+                    if not math.isfinite(t) or t <= 0})
+    for key, dev in (record.get("device_ms") or {}).items():
+        if not math.isfinite(dev["ms"]) or dev["ms"] <= 0:
+            bad[f"device_ms.{key}"] = dev
+    if bad:
+        raise AssertionError(f"phase 17 {name}: times {bad} in {record}")
+    if record.get("device") != card_line():
+        raise AssertionError(f"phase 17 {name}: device "
+                             f"{record.get('device')!r}")
+    if (record.get("mfu_vs_bf16_peak") or 0.0) > 1.0:
+        raise AssertionError(f"phase 17 {name}: mfu "
+                             f"{record['mfu_vs_bf16_peak']}")
+    check_launches(f"phase 17 {name}", {k: launches[k] for k in want})
+    say(f"phase 17 {name} in {secs:.1f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }: {lines[-1]}")
+    return record, launches, secs
+
+
+def same_payload(a, b, where="payload"):
+    """Raise unless two ``torch.load``ed payloads are equal: the same
+    keys, values, and tensors of one dtype, shape and bits."""
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b)):
+            raise AssertionError(f"{where} differs")
+    elif isinstance(a, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"{where}: keys differ")
+        for k in a:
+            same_payload(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_payload(x, y, f"{where}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+
+
+def check_async_save(config, train_mod, checkpoint, labels, geometry):
+    """A full-width training state after one step (Adam's moments exist),
+    saved with ``async_save=True`` and with ``async_save=False``: the two
+    files load equal, and the asynchronous save returned before its write
+    finished."""
+    import os
+
+    cfg = dataclasses.replace(config.Config(), batch_size=2)
+    state = train_mod.create_state(cfg, torch.Generator().manual_seed(0),
+                                   device=DEVICE)
+    batch = training_batches(labels, geometry, 1, seed=3)[0]
+    state, _ = train_mod.train_step(state, {k: v[:2]
+                                            for k, v in batch.items()})
+    ms, payloads = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in (True, False):
+            d = os.path.join(tmp, str(mode))
+            ck = checkpoint.Checkpointer(d, async_save=mode)
+            synchronize()
+            t0 = time.perf_counter()
+            ck.save(state, epoch=1, iteration=1, best_val=0.5)
+            ms[mode] = (time.perf_counter() - t0) * 1e3
+            pending = len(ck._pending)
+            ck.wait_until_finished()
+            if pending != int(mode):
+                raise AssertionError(f"phase 17: {pending} writes in flight "
+                                     f"after a save with async_save={mode}")
+            payloads[mode] = torch.load(os.path.join(d, ck.CKPT),
+                                        map_location="cpu", weights_only=True)
+    same_payload(payloads[True], payloads[False],
+                 "phase 17 async vs sync save")
+    n = sum(v.numel() for v in payloads[True]["model_state_dict"].values())
+    say(f"phase 17 async save: ckpt.pth.tar of the full-width state "
+        f"({n} model values, Adam's moments) equal to the synchronous "
+        f"save's after torch.load; save returned in {ms[True]:.1f} ms "
+        f"async against {ms[False]:.1f} ms sync")
+    del state, payloads
+    free_memory()
+
+
+def phase_bench_family(config, train_mod, checkpoint, labels, geometry):
+    """The bench family on the card with the reps cut: ``rcvpose_tpu_torch.
+    bench`` at full width, ``bench_train`` for 2 steps on each conv route,
+    ``bench_serving_latency`` with 16 requests, ``bench_train_loop`` for 4
+    steps (batch 4) and ``bench_eval_prefetch`` on 4 frames; then the
+    async save against the synchronous one. Returns {path: launches}."""
+    import os
+
+    from rcvpose_tpu_torch import bench
+    from rcvpose_tpu_torch.scripts import (bench_eval_prefetch,
+                                           bench_serving_latency,
+                                           bench_train, bench_train_loop)
+
+    k1k2 = ("vote_counts", "heads_channel_major")
+    train = ("heads_channel_major", "heads_channel_major_bwd")
+    paths = {}
+    _, paths["bench"], _ = run_entry(
+        "bench", lambda: bench.main([], device=DEVICE,
+                                    reps_scale=BENCH_REPS_SCALE), k1k2)
+    free_memory()
+    for route in ("cuDNN", "K3/K4"):
+        if route == "K3/K4":
+            os.environ["RCVPOSE_PALLAS_CONV"] = "on"
+        try:
+            rec, paths[f"bench_train {route}"], _ = run_entry(
+                f"bench_train {route}",
+                lambda: bench_train.main(["--steps", "2"], device=DEVICE),
+                train + (("conv_same", "conv_same_dk")
+                         if route == "K3/K4" else ()))
+        finally:
+            os.environ.pop("RCVPOSE_PALLAS_CONV", None)
+        if rec["conv_route"] != route:
+            raise AssertionError(f"phase 17 bench_train: {rec}")
+        if route == "cuDNN" and (paths["bench_train cuDNN"]["conv_same"]
+                                 or paths["bench_train cuDNN"][
+                                     "conv_same_dk"]):
+            raise AssertionError("phase 17: the cuDNN route ran K3/K4")
+        free_memory()
+    _, paths["bench_serving_latency"], _ = run_entry(
+        "bench_serving_latency",
+        lambda: bench_serving_latency.main(["--n", "16"], device=DEVICE),
+        k1k2)
+    free_memory()
+    _, paths["bench_train_loop"], _ = run_entry(
+        "bench_train_loop",
+        lambda: bench_train_loop.main(["4", "4"], device=DEVICE), train)
+    free_memory()
+    _, paths["bench_eval_prefetch"], _ = run_entry(
+        "bench_eval_prefetch",
+        lambda: bench_eval_prefetch.main(["--frames", "4", "--repeats", "1"],
+                                         device=DEVICE), k1k2)
+    free_memory()
+    check_async_save(config, train_mod, checkpoint, labels, geometry)
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs the card",
@@ -3693,11 +3885,14 @@ def main():
             train_mod, vote_cuda, k1_stages, root, lm, train_root)
         orbax_launches = run(16, phase_orbax, config, cli, checkpoint,
                              eval_mod, train_mod, fcn, root, lm, seq_network)
+    bench_launches = run(17, phase_bench_family, config, train_mod,
+                         checkpoint, labels, geometry)
     say(f"phase seconds {seconds}, total {sum(seconds.values()):.1f}")
     say(f"phase 13 launches by path: {eval_launches}")
     say(f"phase 14 launches by path: {cli_launches}")
     say(f"phase 15 launches by path: {dist_launches}")
     say(f"phase 16 launches by path: {orbax_launches}")
+    say(f"phase 17 launches by path: {bench_launches}")
 
     main_path = ("coarse", "refine")
     kernels = [
@@ -3746,6 +3941,10 @@ def main():
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+        if k["name"] in bench_counters():
+            k["bench_launches"] = {path: n[k["name"]]
+                                   for path, n in bench_launches.items()
+                                   if n[k["name"]]}
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import os
 import re
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -97,36 +99,110 @@ def from_flax_variables(variables):
     return out
 
 
+def _host_copy(tree, pinned):
+    """A copy of ``tree`` (nested dicts, lists and tuples) whose tensors
+    are detached CPU copies that share no memory with the originals;
+    ``pinned`` copies CUDA tensors into pinned host memory without waiting
+    (the caller synchronizes once). Other leaves are returned as they are
+    (ints, floats, strings: immutable)."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        if t.device.type == "cpu":
+            return t.clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pinned)
+        out.copy_(t, non_blocking=pinned)
+        return out
+    if isinstance(tree, dict):
+        return {k: _host_copy(v, pinned) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v, pinned) for v in tree)
+    return tree
+
+
+def _write(payload, path):
+    """``torch.save`` to a temporary file that then replaces ``path``."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _join(pending):
+    """Wait for every write thread of ``pending`` ([(thread, errors)]) and
+    empty it; returns the writes' exceptions and raises none (it is also
+    the finalizer of a collected ``Checkpointer``, which may run while
+    the interpreter shuts down)."""
+    errors = []
+    while pending:
+        thread, errs = pending.pop(0)
+        thread.join()
+        errors.extend(errs)
+    return errors
+
+
 class Checkpointer:
     """The JAX package's ``Checkpointer`` interface over reference-layout
     ``.pth.tar`` files (reference train.py:118-131): ``ckpt.pth.tar`` on
     every save, ``model_best.pth.tar`` on a best one. The payload holds the
     reference's ``model_state_dict``, ``epoch``, ``iteration`` and
-    ``arch``, plus ``optim_state_dict``, ``step`` and ``best_val``. Writes
-    are synchronous: each goes to a temporary file that then replaces the
-    target, so no reader ever sees half a file.
+    ``arch``, plus ``optim_state_dict``, ``step`` and ``best_val``. Each
+    write goes to a temporary file that then replaces the target, so no
+    reader ever sees half a file.
+
+    Saves are asynchronous by default, as the JAX package's are: ``save``
+    first waits out the previous save, then snapshots the payload (every
+    tensor of the model's and the optimizer's state dicts copied to host
+    memory: pinned, with one synchronize, from the card; cloned on the
+    CPU), and returns while a background thread writes ``ckpt.pth.tar``.
+    A best save writes ``model_best.pth.tar`` from the same snapshot on a
+    thread of its own, so it does not wait for the ckpt write. The copy is
+    what makes returning early safe: the next optimizer step changes the
+    parameters and Adam's moments in place. ``wait_until_finished`` blocks
+    until both writes are on disk (and raises a write's error),
+    ``restore`` waits first, ``Trainer.fit`` waits before it returns, and
+    a finalizer drains the writes when the wrapper is collected, so the
+    one-shot ``Checkpointer(d).save(...)`` idiom is safe. Another reader
+    of the directory (a fresh ``Checkpointer``, the evaluator) needs
+    ``wait_until_finished()`` first while this one is alive.
+    ``async_save=False`` writes in ``save``: the payload then holds the
+    optimizer's state dict as it is (tensors where they live).
 
     ``group``: under a process group of several ranks (data-parallel
     training, where every rank holds the same state) rank 0 writes and
-    every rank then passes a barrier, so no rank runs ahead of a save;
-    ``restore`` reads on every rank onto its own device."""
+    every rank passes a barrier after the write is dispatched, so no rank
+    runs ahead of a save; ``restore`` (a collective there) has rank 0
+    finish its writes and every rank pass a barrier before any rank reads,
+    each onto its own device."""
 
     CKPT = "ckpt.pth.tar"
     BEST = "model_best.pth.tar"
 
-    def __init__(self, directory, group=None):
+    def __init__(self, directory, async_save=True, group=None):
         self.directory = os.path.abspath(directory)
+        self.async_save = bool(async_save)
         self.group = group
         os.makedirs(self.directory, exist_ok=True)
+        # [(write thread, its exceptions)]; the finalizer holds the list,
+        # not self, so it cannot keep the wrapper alive
+        self._pending = []
+        weakref.finalize(self, _join, self._pending)
 
     def _writes(self):
         return self.group is None or dist.get_rank(self.group) == 0
 
-    def _write(self, payload, name):
-        path = os.path.join(self.directory, name)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+    def _dispatch(self, payload, name):
+        # the thread holds the path, not self: a one-shot wrapper is then
+        # collected (and its finalizer drains the write) at once
+        path, errors = os.path.join(self.directory, name), []
+
+        def run():
+            try:
+                _write(payload, path)
+            except BaseException as exc:  # raised by wait_until_finished
+                errors.append(exc)
+
+        thread = threading.Thread(target=run, name=f"checkpoint {name}")
+        thread.start()
+        self._pending.append((thread, errors))
 
     def save(self, state, epoch, iteration, best_val, is_best=False):
         if self._writes():
@@ -135,26 +211,45 @@ class Checkpointer:
             dist.barrier(group=self.group)
 
     def _save(self, state, epoch, iteration, best_val, is_best):
+        self.wait_until_finished()
+        model_sd = state.model.state_dict()
+        optim_sd = state.optimizer.state_dict()
+        if self.async_save:
+            on_card = any(v.is_cuda for v in model_sd.values())
+            model_sd, optim_sd = _host_copy((model_sd, optim_sd), on_card)
+            if on_card:
+                torch.cuda.synchronize(state.device)
+        else:
+            model_sd = {k: v.detach().cpu() for k, v in model_sd.items()}
         payload = {
-            "model_state_dict": {k: v.detach().cpu() for k, v in
-                                 state.model.state_dict().items()},
+            "model_state_dict": model_sd,
             "epoch": int(epoch),
             "iteration": int(iteration),
             "arch": type(state.model).__name__,
-            "optim_state_dict": state.optimizer.state_dict(),
+            "optim_state_dict": optim_sd,
             "step": int(state.step),
             "best_val": float(best_val),
         }
-        self._write(payload, self.CKPT)
-        if is_best:
-            self._write(payload, self.BEST)
+        names = (self.CKPT, self.BEST) if is_best else (self.CKPT,)
+        for name in names:
+            if self.async_save:
+                self._dispatch(payload, name)
+            else:
+                _write(payload, os.path.join(self.directory, name))
 
     def wait_until_finished(self):
-        """Nothing to wait for: writes are synchronous."""
+        """Block until every dispatched write (ckpt and model_best) is on
+        disk; raise the first write's exception, if one failed."""
+        errors = _join(self._pending)
+        if errors:
+            raise errors[0]
 
     def restore(self, state, best=False):
         """Load the checkpoint into ``state`` (model, optimizer, step);
         returns ``(state, epoch, iteration, best_val)``."""
+        self.wait_until_finished()
+        if self.group is not None:
+            dist.barrier(group=self.group)
         path = os.path.join(self.directory, self.BEST if best else self.CKPT)
         payload = torch.load(path, map_location=state.device,
                              weights_only=True)

@@ -18,10 +18,11 @@ frames in each process. NCCL on the card, gloo on the CPU;
 ``RCVPOSE_DIST_BACKEND`` names another (gloo for several ranks on one
 card, which NCCL refuses).
 
-What the port does not run raises and names its ROADMAP item:
-``--mode benchmark`` (A2; the JAX mode runs ``bench.py``, which imports
-JAX) and ``--compile_cache_dir`` (XLA's cache; the port's kernels build
-once into ``rcvpose_tpu_torch/_build/``). ``RCVPOSE_PALLAS_CONV=on``
+``--mode benchmark`` runs the port's own benchmark
+(``rcvpose_tpu_torch.bench``, the counterpart of the JAX mode's
+``bench.py``). What the port does not run raises:
+``--compile_cache_dir`` (XLA's cache; the port's kernels build once into
+``rcvpose_tpu_torch/_build/``). ``RCVPOSE_PALLAS_CONV=on``
 trains with the decoder convs on K3/K4 (``build_model(conv_kernel=True)``),
 as the same variable selects the JAX package's Pallas conv.
 """
@@ -254,10 +255,6 @@ def _refuse_unported(cfg):
             "--compile_cache_dir is XLA's persistent compilation cache, "
             "which the port has no use for: its CUDA kernels build once "
             "into rcvpose_tpu_torch/_build/")
-    if cfg.mode == "benchmark":
-        raise NotImplementedError(
-            "--mode benchmark runs the JAX package's bench.py; the port's "
-            "bench is not written yet (ROADMAP A2)")
 
 
 def _mesh_size_for_batch(batch_size, n_devices):
@@ -437,7 +434,8 @@ def main(argv=None, device=None):
 
 def main_dispatch(cfg, device=None):
     """Run ``cfg.mode``; returns the ``Trainer`` of a train run, the
-    results of a test run and the (shut down) server of a serve run. A
+    results of a test run, the (shut down) server of a serve run and the
+    record of a benchmark run. A
     process group that ``--distributed`` made here is left at the end."""
     _refuse_unported(cfg)
     made = (maybe_init_distributed(cfg, device)
@@ -474,6 +472,10 @@ def _dispatch(cfg, device):
         from rcvpose_tpu_torch import serve
 
         return serve.run_serve(cfg, device)
+    if cfg.mode == "benchmark":
+        from rcvpose_tpu_torch import bench
+
+        return bench.main([], device=device)
     if cfg.mode == "gen-labels":
         run_gen_labels(cfg, device)
     elif cfg.mode == "export-torch":

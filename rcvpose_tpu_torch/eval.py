@@ -516,7 +516,7 @@ def _finalize_class_results(res):
     return out
 
 
-def _prefetched_chunks(items, chunk_size, load_one, timers=None):
+def _prefetched_chunks(items, chunk_size, load_one, timers=None, stats=None):
     """Yield ``(n_real, padded_chunk, loaded)`` chunks with the NEXT
     chunk's host file IO running in a background thread while the caller
     computes on the current one. The last chunk is padded by repeating its
@@ -531,6 +531,13 @@ def _prefetched_chunks(items, chunk_size, load_one, timers=None):
     ``timers``: optional ``StageTimers``; decode wall time accrues under
     ``"decode"`` (producer-thread time that overlaps the compute, reported
     separately).
+
+    ``stats``: optional dict; the producer appends each chunk's decode
+    interval to ``stats["decode"]`` and the generator each consumer
+    processing interval (yield -> next get) to ``stats["consume"]``, both
+    as ``(t0, t1)`` ``time.perf_counter`` pairs. Their pairwise
+    intersection is the decode time that ran while the consumer computed
+    (``scripts.bench_eval_prefetch``).
     """
     q = queue.Queue(maxsize=1)
     cancelled = threading.Event()
@@ -550,11 +557,15 @@ def _prefetched_chunks(items, chunk_size, load_one, timers=None):
                     return
                 chunk = items[c0:c0 + chunk_size]
                 padded = chunk + [chunk[-1]] * (chunk_size - len(chunk))
+                t_dec = time.perf_counter()
                 if timers is not None:
                     with timers.time("decode"):
                         loaded = [load_one(it) for it in chunk]
                 else:
                     loaded = [load_one(it) for it in chunk]
+                if stats is not None:
+                    stats.setdefault("decode", []).append(
+                        (t_dec, time.perf_counter()))
                 loaded = loaded + [loaded[-1]] * (chunk_size - len(chunk))
                 put_or_cancel((len(chunk), padded, loaded))
         except BaseException as exc:  # surfaced in the consumer
@@ -570,7 +581,13 @@ def _prefetched_chunks(items, chunk_size, load_one, timers=None):
                 return
             if isinstance(got, BaseException):
                 raise got
-            yield got
+            if stats is None:
+                yield got
+            else:
+                t0 = time.perf_counter()
+                yield got
+                stats.setdefault("consume", []).append(
+                    (t0, time.perf_counter()))
     finally:
         cancelled.set()
         try:  # unblock a producer parked on q.put

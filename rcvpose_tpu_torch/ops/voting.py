@@ -92,6 +92,22 @@ def vote_counts_reference(voxels, points, radii, point_mask):
     return votes.sum(dim=1).to(torch.float32)
 
 
+def vote_grid_oracle(points, radii, point_mask, grid_l):
+    """Dense (L, L, L) vote grid, one point at a time by separable
+    broadcast (an oracle for small grids: O(N * L^3) work). points (N, 3)
+    in voxel coordinates, radii (N,) rounded voxels, point_mask (N,)."""
+    coords = torch.arange(grid_l, dtype=torch.float32, device=points.device)
+    acc = torch.zeros((grid_l,) * 3, dtype=torch.float32,
+                      device=points.device)
+    for p, r, m in zip(points.to(torch.float32), radii.to(torch.float32),
+                       point_mask):
+        d2 = ((coords - p[0])[:, None, None] ** 2
+              + (coords - p[1])[None, :, None] ** 2
+              + (coords - p[2])[None, None, :] ** 2)
+        acc += (band_votes(d2, r) & m).to(torch.float32)
+    return acc
+
+
 def vote_counts(voxels, points, lo, hi, mxu=False):
     """Dispatch: K1 for CUDA tensors, its plain version for CPU tensors.
 

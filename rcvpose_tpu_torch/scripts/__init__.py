@@ -7,7 +7,22 @@
     python -m rcvpose_tpu_torch.scripts.prof_conv [--old OLD.cu]
     python -m rcvpose_tpu_torch.scripts.prof_pipes
 
-Each needs the card and raises without one. ``device_ms``, ``card_line``,
+The bench family (the counterparts of the JAX package's ``bench.py`` and
+``scripts/bench_*.py``), each printing one JSON line last:
+
+    python -m rcvpose_tpu_torch.bench [--small]        (also ``cli --mode
+        benchmark``)
+    python -m rcvpose_tpu_torch.scripts.bench_train [batch] [height]
+        [width] [--remat] [--accum N] [--steps N]
+    python -m rcvpose_tpu_torch.scripts.bench_train_loop [batch] [steps]
+    python -m rcvpose_tpu_torch.scripts.bench_serving_latency [--fused]
+        [--daemon HOST:PORT | --cold_class | --scaling] [--n N]
+    python -m rcvpose_tpu_torch.scripts.bench_eval_prefetch [--frames N]
+
+They run on the card and raise without one; ``--device cpu`` (with
+``--small`` for the small net) runs them on the CPU.
+
+``device_ms``, ``stage_device_ms``, ``profile_ms``, ``card_line``,
 ``coarse_problem`` and ``hier_problem`` are shared by them.
 """
 
@@ -15,6 +30,7 @@ from __future__ import annotations
 
 import math
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -25,18 +41,14 @@ import torch
 _SPIN_CYCLES = 50_000_000
 
 
-def device_ms(fn, reps=20, repeats=5, warmup=1):
-    """Median over ``repeats`` of the device ms of one call of ``fn``.
-
-    After ``warmup`` calls, each repeat queues a spin kernel, then a start
-    event, ``reps`` calls and an end event; the host enqueues the calls
-    while the spin runs, so the events time the device's work back to back
-    rather than the host's launch rate.
-    """
+def _event_runs(fn, reps, repeats, warmup):
+    """``repeats`` runs of ``reps`` calls behind a spin kernel: (device ms
+    a call of each run, whether the device ran out of queued work in any
+    run: its start event had completed when the host finished queueing)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    times, drained = [], False
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -45,9 +57,73 @@ def device_ms(fn, reps=20, repeats=5, warmup=1):
         for _ in range(reps):
             fn()
         end.record()
+        drained = drained or start.query()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
+    return times, drained
+
+
+def device_ms(fn, reps=20, repeats=5, warmup=1):
+    """Median over ``repeats`` of the device ms of one call of ``fn``.
+
+    After ``warmup`` calls, each repeat queues a spin kernel, then a start
+    event, ``reps`` calls and an end event; the host enqueues the calls
+    while the spin runs, so the events time the device's work back to back
+    rather than the host's launch rate.
+    """
+    return float(np.median(_event_runs(fn, reps, repeats, warmup)[0]))
+
+
+def profile_ms(fn, reps, warmup=1):
+    """Times of one call of ``fn``, from ``reps`` calls under torch.profiler.
+
+    Returns (wall ms on the host clock, ending in a synchronize, with the
+    profiler on; device ms, the summed durations of the kernels and copies
+    the calls ran, without the idle gaps between them; device ms by kernel
+    name). Only the device's own events are summed: a CPU op's
+    ``self_device_time_total`` repeats the time of the kernels it launched,
+    and a user annotation on the device's timeline (the optimizer's
+    ``Optimizer.step#...`` span) covers kernels that are summed already.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    by_kernel = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                 + e.device_time_total / 1e3 / reps)
+    return wall_ms, sum(by_kernel.values()), by_kernel
+
+
+def stage_device_ms(fn, reps, repeats=3, warmup=1, profile_reps=4):
+    """Device ms of one call of ``fn`` and the method that measured it.
+
+    ``"events"``: ``device_ms``'s CUDA events, when the host queued every
+    run's ``reps`` calls while the spin kernel still ran (the events then
+    time the device's work back to back). Otherwise the device ran out of
+    queued work (a call that waits on the host, or one whose launches the
+    host queues slower than the device runs them, or more launches than
+    the queue holds), the events would time the host, and the result is
+    ``"profiler"``: the device's own kernel and copy events summed over
+    ``profile_reps`` calls (``profile_ms``), its busy time without the
+    idle gaps.
+    """
+    times, drained = _event_runs(fn, reps, repeats, warmup)
+    if not drained:
+        return float(np.median(times)), "events"
+    return profile_ms(fn, profile_reps, warmup=0)[1], "profiler"
 
 
 def card_line():

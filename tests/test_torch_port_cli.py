@@ -7,7 +7,8 @@ on disk, checkpoints and resumes; two steps through the port's
 the same tree from the same weights, within ``test_torch_port_train.py``'s
 update bounds (``UPDATE_REL`` of the largest update, ``UPDATE_REL_EACH``
 of a parameter's own); gen-labels takes both roots; export-torch writes a
-file ``import_torch_checkpoint`` reads; what the port does not run raises.
+file ``import_torch_checkpoint`` reads; ``--mode benchmark`` runs the
+port's bench; what the port does not run raises.
 """
 
 import dataclasses
@@ -207,8 +208,22 @@ def test_main_test_mode_writes_results_json_and_profile(tmp_path,
     assert len(traces) == 1 and traces[0].endswith(".json")
 
 
+def test_benchmark_mode_runs_the_port_bench(monkeypatch):
+    from rcvpose_tpu_torch import bench
+
+    seen = []
+
+    def fake_main(argv=None, device=None):
+        seen.append((argv, device))
+        return {"metric": "rgbd_frames_per_sec_per_chip"}
+
+    monkeypatch.setattr(bench, "main", fake_main)
+    out = cli.main(["--mode", "benchmark"], device="cpu")
+    assert seen == [([], "cpu")]
+    assert out == {"metric": "rgbd_frames_per_sec_per_chip"}
+
+
 @pytest.mark.parametrize("argv,env,exc,match", [
-    (["--mode", "benchmark"], {}, NotImplementedError, "A2"),
     (["--mode", "gen-labels", "--compile_cache_dir", "c"], {}, ValueError,
      "compile"),
     (["--mode", "train"], {"RCVPOSE_PALLAS_CONV": "interpret"}, ValueError,
