@@ -134,7 +134,19 @@ Phases, each printing its own line:
     backward, K3 and K4 launched where each path runs them (the
     ``kernels`` line gains ``bench_launches``); then a full-width training
     state saved with ``Checkpointer(async_save=True)`` against
-    ``async_save=False``: equal after ``torch.load``.
+    ``async_save=False``: equal after ``torch.load``;
+18. the learned end-to-end proofs (``rcvpose_tpu_torch.scripts.e2e_*``),
+    each through its ``main`` with the counts set to 0 just before and
+    read just after, under its own gate: the synthetic 3-net proof at its
+    defaults (render, labels, DenseFCNResNet152 trained 600 steps a net at
+    256x320, bf16 Adam, save and restore, serve and ICP; ADD pass rate >=
+    0.75), then with the steps cut (``E2E_STEPS``) ``--fused`` (>= 0.75),
+    the LMO evaluator from a learned fused net (pass fraction >= 0.85),
+    the YCB evaluator on 4 test frames (ADD AUC >= 0.85) and ``--fused``
+    on the K3/K4 route (>= 0.75); then the overflow retry (both
+    frames scored, one through the grid-256 retry); K1, K2, K2's backward,
+    K3 and K4 launched where each path runs them (the ``kernels`` line
+    gains ``e2e_launches``).
 
 The vote kernels' bounds count instructions at the card's issue rate
 (``vote_cuda.ISSUE_RATE``), not FLOPs at the FP32 peak: none of their
@@ -143,7 +155,7 @@ operations is an FMA.
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line; without a CUDA card it exits 1 at once. Weights are seeded random
-(no checkpoint ships with the repository).
+(no checkpoint ships with the repository); phase 18 trains its own.
 """
 
 from __future__ import annotations
@@ -3660,13 +3672,11 @@ def bench_counters():
             "conv_same_dk": mmconv.conv_same_dk_cuda}
 
 
-def run_entry(name, main, want):
-    """``main()`` with the launch counts set to 0 just before and read just
-    after, its standard output captured: its last line must be one JSON
-    object whose ``BENCH_TIMES[name]`` are finite and > 0, whose
-    ``device`` names the card, and whose ``mfu_vs_bf16_peak`` (if any) is
-    at most 1; ``want`` names the kernels the path must launch. Returns
-    (record, launches, seconds)."""
+def counted_main(main):
+    """``main()`` with the launch counts of ``bench_counters`` set to 0
+    just before and read just after, its standard output captured.
+    Returns (its return value, its last line, that line as JSON, launches,
+    seconds)."""
     import io
 
     counters = bench_counters()
@@ -3676,14 +3686,23 @@ def run_entry(name, main, want):
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        main()
+        out = main()
     synchronize()
     secs = time.perf_counter() - t0
     launches = {n: f.launches for n, f in counters.items()}
-    lines = buf.getvalue().strip().splitlines()
-    record = json.loads(lines[-1])
+    last = buf.getvalue().strip().splitlines()[-1]
+    return out, last, json.loads(last), launches, secs
+
+
+def run_entry(name, main, want):
+    """``counted_main(main)``: its last line must be one JSON object whose
+    ``BENCH_TIMES[name]`` are finite and > 0, whose ``device`` names the
+    card, and whose ``mfu_vs_bf16_peak`` (if any) is at most 1; ``want``
+    names the kernels the path must launch. Returns (record, launches,
+    seconds)."""
+    _, last, record, launches, secs = counted_main(main)
     if not isinstance(record, dict):
-        raise AssertionError(f"phase 17 {name}: last line {lines[-1]!r}")
+        raise AssertionError(f"phase 17 {name}: last line {last!r}")
     times = {k: record.get(k) for k in BENCH_TIMES[name.split(" ")[0]]}
     bad = {k: v for k, v in times.items()
            if not isinstance(v, (int, float)) or not math.isfinite(v)
@@ -3707,7 +3726,7 @@ def run_entry(name, main, want):
                              f"{record['mfu_vs_bf16_peak']}")
     check_launches(f"phase 17 {name}", {k: launches[k] for k in want})
     say(f"phase 17 {name} in {secs:.1f} s, launches "
-        f"{ {k: v for k, v in launches.items() if v} }: {lines[-1]}")
+        f"{ {k: v for k, v in launches.items() if v} }: {last}")
     return record, launches, secs
 
 
@@ -3828,6 +3847,94 @@ def phase_bench_family(config, train_mod, checkpoint, labels, geometry):
     return paths
 
 
+# Phase 18: the learned end-to-end proofs, each through its ``main`` with
+# the counts set to 0 just before and read just after. The synthetic 3-net
+# proof runs at its defaults (600 steps a net); the others with their
+# steps cut to E2E_STEPS, each under its own gate.
+E2E_STEPS = {"fused": 300, "lmo": 300, "ycb": 300, "fused K3/K4": 300}
+E2E_YCB_TEST_FRAMES = 4
+
+
+def run_proof(name, main, argv, want, gate):
+    """``counted_main`` of ``main(argv, device=DEVICE)``, a proof: it must
+    exit 0 (its own gate), its last line must be one JSON record whose
+    ``device`` names the card and for which ``gate`` holds, and ``want``
+    names the kernels the path must launch. Returns (record, launches,
+    seconds)."""
+    rc, last, record, launches, secs = counted_main(
+        lambda: main(argv, device=DEVICE))
+    if rc != 0 or not gate(record):
+        raise AssertionError(f"phase 18 {name}: exit {rc}, record {last}")
+    if record.get("device") != card_line():
+        raise AssertionError(f"phase 18 {name}: device "
+                             f"{record.get('device')!r}")
+    check_launches(f"phase 18 {name}", {k: launches[k] for k in want})
+    say(f"phase 18 {name} in {secs:.1f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }: {last}")
+    return record, launches, secs
+
+
+def phase_e2e_proofs():
+    """The learned proofs on the card: the synthetic 3-net proof at its
+    defaults (pass rate >= 0.75), then ``--fused``, LMO (ADD pass fraction
+    >= 0.85), YCB on 4 test frames (AUC >= 0.85) and ``--fused`` on the
+    K3/K4 route (>= 0.75) with their steps cut to ``E2E_STEPS``, and the
+    overflow retry (2 frames scored, 1 through the retry). Returns {path:
+    launches}."""
+    import os
+
+    from rcvpose_tpu_torch.scripts import (e2e_lmo, e2e_overflow_retry,
+                                           e2e_synthetic, e2e_ycb)
+
+    train = ("vote_counts", "heads_channel_major",
+             "heads_channel_major_bwd")
+    k34 = ("conv_same", "conv_same_dk")
+
+    def passes(gate, frames=None):
+        return lambda r: (r["value"] >= gate
+                          and (frames is None or r["frames"] == frames))
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = (
+            ("synthetic", e2e_synthetic.main, [], passes(0.75)),
+            ("fused", e2e_synthetic.main,
+             ["--fused", "--steps", str(E2E_STEPS["fused"])], passes(0.75)),
+            ("lmo", e2e_lmo.main, ["--steps", str(E2E_STEPS["lmo"])],
+             passes(0.85, 8)),
+            ("ycb", e2e_ycb.main,
+             ["--steps", str(E2E_STEPS["ycb"]), "--test_frames",
+              str(E2E_YCB_TEST_FRAMES)],
+             passes(0.85, E2E_YCB_TEST_FRAMES)),
+            ("fused K3/K4", e2e_synthetic.main,
+             ["--fused", "--steps", str(E2E_STEPS["fused K3/K4"])],
+             passes(0.75)))
+        for name, main, argv, gate in runs:
+            out = os.path.join(tmp, name.replace(" ", "_").replace("/", ""))
+            if name == "fused K3/K4":
+                os.environ["RCVPOSE_PALLAS_CONV"] = "on"
+            try:
+                rec, paths[name], _ = run_proof(
+                    name, main, argv + ["--out", out],
+                    train + (k34 if name == "fused K3/K4" else ()),
+                    gate)
+            finally:
+                os.environ.pop("RCVPOSE_PALLAS_CONV", None)
+            route = paths[name]["conv_same"] + paths[name]["conv_same_dk"]
+            if (name == "fused K3/K4") != bool(route) or (
+                    "conv_route" in rec and (rec["conv_route"] == "K3/K4")
+                    != (name == "fused K3/K4")):
+                raise AssertionError(f"phase 18 {name}: conv route "
+                                     f"{rec.get('conv_route')}, K3/K4 "
+                                     f"launches {route}")
+            free_memory()
+    _, paths["overflow retry"], _ = run_proof(
+        "overflow retry", e2e_overflow_retry.main, [], ("vote_counts",),
+        lambda r: r["frames"] == 2 and r["overflow_frames"] == 1)
+    free_memory()
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs the card",
@@ -3887,12 +3994,14 @@ def main():
                              eval_mod, train_mod, fcn, root, lm, seq_network)
     bench_launches = run(17, phase_bench_family, config, train_mod,
                          checkpoint, labels, geometry)
+    e2e_launches = run(18, phase_e2e_proofs)
     say(f"phase seconds {seconds}, total {sum(seconds.values()):.1f}")
     say(f"phase 13 launches by path: {eval_launches}")
     say(f"phase 14 launches by path: {cli_launches}")
     say(f"phase 15 launches by path: {dist_launches}")
     say(f"phase 16 launches by path: {orbax_launches}")
     say(f"phase 17 launches by path: {bench_launches}")
+    say(f"phase 18 launches by path: {e2e_launches}")
 
     main_path = ("coarse", "refine")
     kernels = [
@@ -3945,6 +4054,9 @@ def main():
             k["bench_launches"] = {path: n[k["name"]]
                                    for path, n in bench_launches.items()
                                    if n[k["name"]]}
+            k["e2e_launches"] = {path: n[k["name"]]
+                                 for path, n in e2e_launches.items()
+                                 if n[k["name"]]}
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

@@ -40,6 +40,8 @@ import time
 
 import numpy as np
 
+from rcvpose_tpu_torch.scripts import make_lm_eval_tree
+
 
 def synchronous_chunks(items, chunk_size, load_one, timers=None):
     """The no-overlap arm: ``eval._prefetched_chunks``'s chunking, padding
@@ -62,95 +64,6 @@ def interval_intersection(a_list, b_list):
         for b0, b1 in b_list:
             total += max(0.0, min(a1, b1) - max(a0, b0))
     return total
-
-
-def write_ascii_ply(path, pts):
-    with open(path, "w") as f:
-        f.write("ply\nformat ascii 1.0\n")
-        f.write(f"element vertex {len(pts)}\n")
-        f.write("property float x\nproperty float y\nproperty float z\n")
-        f.write("end_header\n")
-        for p in pts:
-            f.write(f"{p[0]} {p[1]} {p[2]}\n")
-
-
-def write_dpt(path, depth):
-    h, w = depth.shape
-    with open(path, "wb") as f:
-        f.write(np.asarray([h, w], np.uint32).tobytes())
-        f.write(depth.astype(np.uint16).tobytes())
-
-
-def make_lm_eval_tree(root, rng, h=120, w=160, n_frames=2):
-    """Synthetic 'ape' frames in the on-disk LINEMOD layout the evaluator
-    reads, drawn from ``rng`` in the order of the repo's test fixture
-    (``tests/test_eval_lm_format.py``): a 2-3 cm blob CAD in meters,
-    keypoints 6 cm out, a small rotation and the object at pixel ~(80, 60)
-    at 0.75 m + 5 cm a frame, depth as ``.dpt``, noise images as JPEG and
-    perfect radial maps (dm) from the quantized depth. Returns ``root``."""
-    import torch
-    from PIL import Image
-
-    from rcvpose_tpu_torch import geometry
-
-    k = np.asarray(geometry.LINEMOD_K)
-    pv = os.path.join(root, "LINEMOD", "ape")
-    orig = os.path.join(root, "LINEMOD_ORIG", "ape")
-    rmap = os.path.join(root, "LINEMOD_ORIG", "estRadialMap", "ape")
-    for d in ("JPEGImages", "pose", "Split"):
-        os.makedirs(os.path.join(pv, d))
-    os.makedirs(os.path.join(orig, "data"))
-    for kp in range(1, 4):
-        os.makedirs(os.path.join(rmap, f"Out_pt{kp}_dm"))
-
-    n_model = 3000
-    dirs = rng.normal(size=(n_model, 3))
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    model_m = dirs * rng.uniform(0.02, 0.03, size=(n_model, 1))
-    kpts9 = np.zeros((9, 3))
-    kpts9[1] = [0.06, 0.06, 0.06]
-    kpts9[2] = [-0.06, 0.06, -0.06]
-    kpts9[3] = [0.06, -0.06, -0.06]
-    write_ascii_ply(os.path.join(pv, "ape.ply"), model_m)
-    np.save(os.path.join(pv, "Outside9.npy"), kpts9)
-
-    ids = []
-    for i in range(n_frames):
-        angle = rng.uniform(-0.3, 0.3)
-        c, s = np.cos(angle), np.sin(angle)
-        rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
-        z = 0.75 + 0.05 * i
-        t = np.array([(80 - k[0, 2]) / k[0, 0] * z,
-                      (60 - k[1, 2]) / k[1, 1] * z, z])
-        np.save(os.path.join(pv, "pose", f"pose{i}.npy"),
-                np.concatenate([rot, t[:, None]], axis=1))
-        cam = model_m @ rot.T + t
-        uv = cam @ k.T
-        uv = uv[:, :2] / uv[:, 2:]
-        us = np.round(uv[:, 0]).astype(int)
-        vs = np.round(uv[:, 1]).astype(int)
-        ok = (us >= 0) & (us < w) & (vs >= 0) & (vs < h)
-        depth_mm = np.zeros((h, w), np.float32)
-        depth_mm[vs[ok], us[ok]] = cam[ok, 2] * 1000.0
-        depth_u16 = np.round(depth_mm).astype(np.uint16)
-        write_dpt(os.path.join(orig, "data", f"depth{i}.dpt"), depth_u16)
-        img = (rng.uniform(size=(h, w, 3)) * 255).astype(np.uint8)
-        frame_id = f"{i:06d}"
-        Image.fromarray(img).save(
-            os.path.join(pv, "JPEGImages", f"{frame_id}.jpg"))
-        xyz_map, valid = geometry.backproject_dense(
-            torch.as_tensor(depth_u16.astype(np.float32)),
-            torch.as_tensor(k, dtype=torch.float32))
-        xyz_m = xyz_map.numpy() / 1000.0
-        kpts_cam = kpts9[1:4] @ rot.T + t
-        for kp in range(1, 4):
-            r = np.linalg.norm(xyz_m - kpts_cam[kp - 1], axis=-1) * 10.0
-            np.save(os.path.join(rmap, f"Out_pt{kp}_dm", f"{frame_id}.npy"),
-                    np.where(valid.numpy(), r, 0.0).astype(np.float32))
-        ids.append(frame_id)
-    with open(os.path.join(pv, "Split", "val.txt"), "w") as f:
-        f.write("\n".join(ids) + "\n")
-    return root
 
 
 def eval_config(tree, model_dir, small, h, w):
