@@ -20,9 +20,10 @@ card, which NCCL refuses).
 
 ``--mode benchmark`` runs the port's own benchmark
 (``rcvpose_tpu_torch.bench``, the counterpart of the JAX mode's
-``bench.py``). What the port does not run raises:
-``--compile_cache_dir`` (XLA's cache; the port's kernels build once into
-``rcvpose_tpu_torch/_build/``). ``RCVPOSE_PALLAS_CONV=on``
+``bench.py``). ``--compile_cache_dir`` names the directory the port's
+kernel libraries build into and load from (``utils.enable_compile_cache``;
+default ``rcvpose_tpu_torch/_build/``), as it names the JAX package's XLA
+cache. ``RCVPOSE_PALLAS_CONV=on``
 trains with the decoder convs on K3/K4 (``build_model(conv_kernel=True)``),
 as the same variable selects the JAX package's Pallas conv.
 """
@@ -168,9 +169,9 @@ def build_parser():
                              "depthGeneration flag)")
     parser.add_argument("--compile_cache_dir",
                         default=defaults.compile_cache_dir,
-                        help="XLA's persistent compilation cache in the JAX "
-                             "package; the port refuses it (its kernels "
-                             "build once into rcvpose_tpu_torch/_build/)")
+                        help="directory the kernel libraries build into "
+                             "and load from, shared across processes and "
+                             "restarts (default rcvpose_tpu_torch/_build/)")
     parser.add_argument("--distributed", action="store_true",
                         help="multi-process train/test under torchrun "
                              "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
@@ -247,14 +248,6 @@ def conv_kernel_route():
     raise ValueError(f"RCVPOSE_PALLAS_CONV={env!r}: the port takes 'on' "
                      "(decoder convs on K3/K4) or 'off' (cuDNN); it has no "
                      "interpret mode and no 'auto' heuristic")
-
-
-def _refuse_unported(cfg):
-    if cfg.compile_cache_dir:
-        raise ValueError(
-            "--compile_cache_dir is XLA's persistent compilation cache, "
-            "which the port has no use for: its CUDA kernels build once "
-            "into rcvpose_tpu_torch/_build/")
 
 
 def _mesh_size_for_batch(batch_size, n_devices):
@@ -424,6 +417,10 @@ def run_export_torch(cfg):
 
 def main(argv=None, device=None):
     cfg = config_from_args(argv)
+    if cfg.compile_cache_dir:
+        from rcvpose_tpu_torch import utils
+
+        utils.enable_compile_cache(cfg.compile_cache_dir)
     if cfg.profile_dir and cfg.mode in ("train", "test"):
         from rcvpose_tpu_torch import profiling
 
@@ -437,7 +434,6 @@ def main_dispatch(cfg, device=None):
     results of a test run, the (shut down) server of a serve run and the
     record of a benchmark run. A
     process group that ``--distributed`` made here is left at the end."""
-    _refuse_unported(cfg)
     made = (maybe_init_distributed(cfg, device)
             if cfg.mode in ("train", "test") else False)
     try:

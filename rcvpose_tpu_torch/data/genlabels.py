@@ -82,21 +82,23 @@ def generate_ycb(root, class_name, class_id, kpt_indices=range(1, 4),
     ``ycb_clip``). ``write_split=True`` also records the generated frame
     ids in ``<root>/<class>/Split/val.txt`` (the dataset's layout) and
     ``<root>/Split/<class>/val.txt`` (the evaluator's) where missing;
-    existing split files are never touched. Writing needs h5py and
-    scipy (reading the result does not). ``batch_size`` is kept for the
-    JAX signature; frames are labelled one at a time, all keypoints in
+    existing split files are never touched. ``batch_size`` is kept for
+    the JAX signature; frames are labelled one at a time, all keypoints in
     one device call.
+
+    The file is written by the port's own ``hdf5_write.Hdf5Writer`` in
+    h5py's ``"a"`` mode, with h5py installed or not: an image that exists
+    is kept, a radial map that exists is replaced, and every other object
+    of an existing file is carried over with its stored chunks unchanged.
+    Reading the ``.mat`` metas needs ``scipy.io``.
     """
     try:
-        import h5py
         import scipy.io
     except ImportError as exc:
-        raise ImportError("generate_ycb writes the class HDF5 with h5py and "
-                          "reads the .mat metas with scipy, and one of them "
-                          "is not installed; YCB training reads the file "
-                          "without either") from exc
+        raise ImportError("generate_ycb reads the YCB-Video .mat metas with "
+                          "scipy.io, which is not installed") from exc
 
-    from rcvpose_tpu_torch.data import readers
+    from rcvpose_tpu_torch.data import hdf5_write, readers
 
     dev = resolve_device(device)
     keypoints = np.load(os.path.join(root, "models", class_name,
@@ -109,7 +111,7 @@ def generate_ycb(root, class_name, class_id, kpt_indices=range(1, 4),
     h5_path = os.path.join(root, f"{class_name}.hdf5")
     data_root = os.path.join(root, "data")
     frame_ids = []
-    with h5py.File(h5_path, "a") as h5f:
+    with hdf5_write.Hdf5Writer(h5_path, "a") as h5f:
         for cycle in sorted(os.listdir(data_root)):
             cdir = os.path.join(data_root, cycle)
             if not os.path.isdir(cdir):
@@ -139,9 +141,7 @@ def generate_ycb(root, class_name, class_id, kpt_indices=range(1, 4),
                 if img_key not in h5f:
                     image = readers.read_image(
                         os.path.join(cdir, f"{idx}-color.png"))
-                    h5f.create_dataset(img_key, data=image,
-                                       compression="gzip",
-                                       compression_opts=9)
+                    h5f.add(img_key, image, gzip=9)
                 radial, _ = labels.radial_labels(
                     torch.as_tensor(depth_mm[None], device=dev),
                     torch.as_tensor(mask[None], device=dev),
@@ -152,9 +152,7 @@ def generate_ycb(root, class_name, class_id, kpt_indices=range(1, 4),
                     key = f"3Dradius_pt{kpt_num}_dm/{frame_id}"
                     if key in h5f:
                         del h5f[key]
-                    h5f.create_dataset(key, data=radial[..., j],
-                                       compression="gzip",
-                                       compression_opts=9)
+                    h5f.add(key, radial[..., j], gzip=9)
                 frame_ids.append(frame_id)
                 progress(f"{class_name} {frame_id}")
 

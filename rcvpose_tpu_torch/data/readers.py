@@ -482,6 +482,39 @@ class _Hdf5Names:
         """The dataset at symbol-table entry ``entry`` as a numpy array."""
         import zlib
 
+        shape, dtype, filters, storage = self._storage(entry)
+        count = int(np.prod(shape, dtype=np.int64))
+        if storage[0] == "contiguous":
+            _, start, size = storage
+            raw = self.data[start:start + size]
+            return np.frombuffer(raw, dtype, count).reshape(shape).copy()
+        _, dims, records = storage
+        chunk = dims[:-1]
+        out = np.zeros(shape, dtype)
+        for child, size, mask, offset in records:
+            raw = bytes(self.data[child:child + size])
+            for i in reversed(range(len(filters))):
+                if not mask >> i & 1:
+                    raw = zlib.decompress(raw)
+            block = np.frombuffer(raw, dtype,
+                                  int(np.prod(chunk))).reshape(chunk)
+            dst = tuple(slice(o, min(o + c, n))
+                        for o, c, n in zip(offset, chunk, shape))
+            out[dst] = block[tuple(slice(0, s.stop - s.start)
+                                   for s in dst)]
+        return out
+
+    def stored(self, entry):
+        """How the dataset at ``entry`` is stored, for a copy that keeps
+        its bytes: ``("contiguous", address, size)`` or ``("chunked",
+        chunk dimensions with the element size last, [(address, size,
+        filter mask, offset)])``. It checks the dataspace, datatype,
+        filters and layout as ``dataset`` does, so what that refuses
+        stays refused."""
+        return self._storage(entry)[3]
+
+    def _storage(self, entry):
+        """(shape, dtype, filter ids, ``stored``'s tuple) of a dataset."""
         msgs = self._dataset_messages(entry)
         shape = self._dataspace(msgs[0x01])
         dtype = self._datatype(msgs[0x03])
@@ -490,26 +523,33 @@ class _Hdf5Names:
         if self.data[at] != 3:
             self._refuse(f"layout message version {self.data[at]}")
         layout = self.data[at + 1]
-        undefined = (1 << (8 * self.o)) - 1
-        count = int(np.prod(shape, dtype=np.int64))
         if layout == 1:                                  # contiguous
-            if self._uint(at + 2, self.o) == undefined:
+            size = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            if not size:         # HDF5 allocates nothing for no elements
+                return shape, dtype, filters, ("contiguous", 0, 0)
+            if self._uint(at + 2, self.o) == (1 << (8 * self.o)) - 1:
                 self._refuse("a dataset with no storage allocated")
-            start = self._addr(at + 2)
-            raw = self.data[start:start + count * dtype.itemsize]
-            return np.frombuffer(raw, dtype, count).reshape(shape).copy()
+            return shape, dtype, filters, ("contiguous", self._addr(at + 2),
+                                           size)
         if layout != 2:
             self._refuse(f"layout class {layout}")
-        rank = self.data[at + 2] - 1                     # chunked
-        if rank != len(shape):
+        dims = tuple(self._uint(at + 3 + self.o + 4 * i, 4)
+                     for i in range(self.data[at + 2]))
+        if len(dims) != len(shape) + 1:
             self._refuse("a chunk rank that is not the dataspace's")
-        chunk = tuple(self._uint(at + 3 + self.o + 4 * i, 4)
-                      for i in range(rank))
-        out = np.zeros(shape, dtype)
-        if self._uint(at + 3, self.o) == undefined:
-            return out                                   # never written
-        key_size = 8 + 8 * (rank + 1)
-        nodes = [self._addr(at + 3)]
+        return shape, dtype, filters, ("chunked", dims,
+                                       list(self._chunk_records(at)))
+
+    def _chunk_records(self, layout):
+        """(address, size, filter mask, offset) of every stored chunk of
+        the chunked layout message at ``layout``, walking its v1 chunk
+        B-tree; the offset has one entry a dimension plus the datatype's
+        (always 0). Nothing when no chunk was ever written."""
+        dims = self.data[layout + 2]
+        if self._uint(layout + 3, self.o) == (1 << (8 * self.o)) - 1:
+            return
+        key_size = 8 + 8 * dims
+        nodes = [self._addr(layout + 3)]
         while nodes:
             node = nodes.pop()
             if self.data[node:node + 4] != b"TREE" or self.data[node + 4] != 1:
@@ -519,20 +559,67 @@ class _Hdf5Names:
             for _ in range(used):
                 size, mask = self._uint(pos, 4), self._uint(pos + 4, 4)
                 offset = tuple(self._uint(pos + 8 + 8 * i, 8)
-                               for i in range(rank))
+                               for i in range(dims))
                 child = self._addr(pos + key_size)
                 pos += key_size + self.o
                 if level:
                     nodes.append(child)
-                    continue
-                raw = bytes(self.data[child:child + size])
-                for i in reversed(range(len(filters))):
-                    if not mask >> i & 1:
-                        raw = zlib.decompress(raw)
-                block = np.frombuffer(raw, dtype,
-                                      int(np.prod(chunk))).reshape(chunk)
-                dst = tuple(slice(o, min(o + c, n))
-                            for o, c, n in zip(offset, chunk, shape))
-                out[dst] = block[tuple(slice(0, s.stop - s.start)
-                                       for s in dst)]
+                else:
+                    yield child, size, mask, offset
+
+    # -- what a writer carries over as stored ---------------------------
+
+    # messages carried verbatim: dataspace, datatype, fill values (old and
+    # new), filter pipeline, attribute, comment, modification times (old
+    # and new); 0x00 (NIL) and 0x10 (continuation) are the header's own
+    _CARRIED = (0x01, 0x03, 0x04, 0x05, 0x0B, 0x0C, 0x0D, 0x0E, 0x12)
+
+    def walk(self, entry=None, prefix=""):
+        """(name, entry, is group) of every object under the group at
+        ``entry`` (the root when None), depth first in name order, names
+        ``/``-separated from that group."""
+        entry = self.root if entry is None else entry
+        for name, child in self.members(entry).items():
+            path = f"{prefix}{name}"
+            group = self._group_tables(child) is not None
+            yield path, child, group
+            if group:
+                yield from self.walk(child, path + "/")
+
+    def object_messages(self, entry):
+        """The messages of the object at ``entry`` that a copy keeps as
+        they are, [(type, flags, bytes)], in header order: everything but
+        the layout and symbol-table messages, which a writer makes anew.
+        A message this reader does not know, a shared one, or an attribute
+        whose datatype points outside its message (variable length,
+        reference, compound) raises naming it."""
+        out = []
+        for mtype, at, flags in self._messages(self._header(entry)):
+            if mtype in (0x00, 0x08, 0x11):
+                continue
+            if mtype not in self._CARRIED:
+                self._refuse(f"object header message type {mtype:#x}")
+            if flags & 0x02:
+                self._refuse(f"a shared message of type {mtype:#x}")
+            raw = bytes(self.data[at:at + self._uint(at - 6, 2)])
+            if mtype == 0x0C:
+                self._attribute_datatype(raw)
+            out.append((mtype, flags, raw))
         return out
+
+    def _attribute_datatype(self, raw):
+        """Refuse an attribute message (versions 1-3) whose datatype class
+        refers to data outside the message."""
+        version, name_size, type_size = raw[0], \
+            int.from_bytes(raw[2:4], "little"), \
+            int.from_bytes(raw[4:6], "little")
+        if version == 1:
+            at = 8 + (name_size + 7) // 8 * 8
+        elif version in (2, 3):
+            at = 8 + (version == 3) + name_size
+        else:
+            self._refuse(f"attribute message version {version}")
+        cls = raw[at] & 0x0F if type_size else -1
+        if cls in (6, 7, 9):
+            self._refuse(f"an attribute of datatype class {cls} (compound, "
+                         "reference or variable length)")

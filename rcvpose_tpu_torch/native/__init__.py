@@ -1,8 +1,9 @@
 """ctypes bindings for the native IO library (``rcvpose_io.cpp``), the
 port's own copy of ``rcvpose_tpu.native``.
 
-The library is compiled with ``g++`` at first use into the git-ignored
-``rcvpose_tpu_torch/_build/``, never next to the source: the file name
+The library is compiled with ``g++`` at first use into the library
+directory (the git-ignored ``rcvpose_tpu_torch/_build/`` unless
+``set_build_dir`` moves it), never next to the source: the file name
 carries a hash of the source and the flags, and each build writes a
 per-process temporary file that then replaces the target, so concurrent
 processes (test workers) never load half a library. Without a toolchain
@@ -25,6 +26,7 @@ _SRC = Path(__file__).resolve().parent / "rcvpose_io.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
+_loaded_from = {}   # library stem -> its directory
 _lib = None
 _tried = False
 _error = None
@@ -32,7 +34,8 @@ _error = None
 
 def library_path(src=_SRC):
     """Where the library built from ``src`` (default ``rcvpose_io.cpp``)
-    lives: ``_build/lib<stem>_<hash of source and flags>.so``."""
+    lives: ``<library directory>/lib<stem>_<hash of source and
+    flags>.so``."""
     key = hashlib.sha256(src.read_bytes()
                          + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{key}.so"
@@ -43,12 +46,35 @@ def build_library(src=_SRC):
     library's path. Raises ``OSError`` or ``CalledProcessError``."""
     out = library_path(src)
     if not out.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp)],
                        check=True, capture_output=True)
         os.replace(tmp, out)
     return out
+
+
+def load_library(src=_SRC):
+    """Build ``src`` unless built and load it (``ctypes.CDLL``)."""
+    lib = ctypes.CDLL(str(build_library(src)))
+    _loaded_from[src.stem] = BUILD_DIR.resolve()
+    return lib
+
+
+def loaded_elsewhere(path):
+    """Stems of the libraries loaded from a directory other than
+    ``path``."""
+    path = Path(path).resolve()
+    return sorted(n for n, d in _loaded_from.items() if d != path)
+
+
+def set_build_dir(path):
+    """Build and load the libraries in ``path`` from now on (made if
+    missing); ``utils.enable_compile_cache`` calls it."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR = path
 
 
 def _load():
@@ -58,7 +84,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            lib = ctypes.CDLL(str(build_library()))
+            lib = load_library()
             lib.read_dpt.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint16),
                 ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32),

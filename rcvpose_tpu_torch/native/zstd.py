@@ -1,8 +1,8 @@
 """ctypes binding of the port's Zstandard decoder and CRC-32C
 (``zstd.cpp``), which read the JAX package's orbax checkpoints.
 
-The library builds with ``g++`` at first use into the git-ignored
-``rcvpose_tpu_torch/_build/``, as ``rcvpose_io.cpp`` does. There is no
+The library builds with ``g++`` at first use into the library directory
+(``native.BUILD_DIR``), as ``rcvpose_io.cpp`` does. There is no
 fallback: without ``g++``, or when the build fails, every call raises a
 ``RuntimeError`` that names the decoder. Malformed input raises
 ``ValueError``.
@@ -44,7 +44,7 @@ def _load():
     with _lock:
         if _lib is None and _error is None:
             try:
-                lib = ctypes.CDLL(str(native.build_library(SRC)))
+                lib = native.load_library(SRC)
             except (OSError, subprocess.CalledProcessError) as exc:
                 detail = getattr(exc, "stderr", b"") or b""
                 _error = f"{exc} {detail.decode(errors='replace')[-2000:]}"

@@ -1,10 +1,14 @@
 """Builds the port's CUDA sources at first use and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-alone (no PyTorch headers) into ``rcvpose_tpu_torch/_build/``, a directory
-git ignores. The library's file name carries a hash of its source and the
-flags, so an edited source builds anew and an unchanged one is reused.
-Nothing is prebuilt and nothing is downloaded.
+alone (no PyTorch headers) into the library directory, by default
+``rcvpose_tpu_torch/_build/``, which git ignores; ``set_build_dir`` (through
+``utils.enable_compile_cache`` and ``--compile_cache_dir``) moves it before
+the first library loads. The library's file name carries a hash of its
+source and the flags, so an edited source builds anew and an unchanged one
+is reused, and each build writes a per-process temporary file that then
+replaces the target, so processes may share the directory. Nothing is
+prebuilt and nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ SOURCES = ("vote", "heads", "mmconv")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
+_loaded_from: dict[str, Path] = {}   # library name -> its directory
 _lock = threading.Lock()
 
 
@@ -53,7 +58,7 @@ def build(names=SOURCES):
     """Build every named source that is not built yet: one ``nvcc`` for
     each, all started together. Returns ``{name: compiler output}`` for the
     sources built now; raises with the compiler output if one fails."""
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
         out = library_path(name)
@@ -78,6 +83,41 @@ def build(names=SOURCES):
     return logs
 
 
+def loaded_elsewhere(path):
+    """Names of the libraries this process loaded from a directory other
+    than ``path``."""
+    path = Path(path).resolve()
+    return sorted(n for n, d in _loaded_from.items() if d != path)
+
+
+def set_build_dir(path):
+    """Build and load the libraries in ``path`` from now on (made if
+    missing). ``utils.enable_compile_cache`` calls it once it has checked
+    that no library is loaded from elsewhere."""
+    path = Path(path).resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    with _lock:
+        global BUILD_DIR
+        BUILD_DIR = path
+
+
+def load(name):
+    """The library built from ``csrc/<name>.cu``, built if missing and
+    loaded once a process."""
+    with _lock:
+        return _load(name)
+
+
+def _load(name):
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        _libs[name] = lib
+        _loaded_from[name] = BUILD_DIR.resolve()
+    return lib
+
+
 def function(name, symbol, argtypes):
     """The C entry ``symbol`` of ``csrc/<name>.cu``, typed with ``argtypes``
     and returning an int (a CUDA error code); the library is built and
@@ -85,12 +125,7 @@ def function(name, symbol, argtypes):
     with _lock:
         fn = _fns.get((name, symbol))
         if fn is None:
-            lib = _libs.get(name)
-            if lib is None:
-                build((name,))
-                lib = ctypes.CDLL(str(library_path(name)))
-                _libs[name] = lib
-            fn = getattr(lib, symbol)
+            fn = getattr(_load(name), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _fns[(name, symbol)] = fn
@@ -99,9 +134,9 @@ def function(name, symbol, argtypes):
 
 def load_other(source):
     """Build another ``.cu`` file (an earlier version of a source, for a
-    before-and-after timing) with the same flags into ``_build/other/`` and
-    load it; returns the ``ctypes.CDLL``. Rebuilt only when its content
-    changes."""
+    before-and-after timing) with the same flags into ``other/`` under the
+    library directory and load it; returns the ``ctypes.CDLL``. Rebuilt
+    only when its content changes."""
     source = Path(source)
     key = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -115,7 +150,10 @@ def load_other(source):
             raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}"
                                f"{proc.stderr}")
         os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+    lib = ctypes.CDLL(str(out))
+    with _lock:
+        _loaded_from[f"other/{source.stem}"] = BUILD_DIR.resolve()
+    return lib
 
 
 _count_lock = threading.Lock()

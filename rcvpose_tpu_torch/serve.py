@@ -504,7 +504,13 @@ def run_serve(cfg, device=None):
     class loads that class from the same tree on first use.
     ``--serve_classes a,b,c`` builds those before the socket opens, and
     ``--serve_devices N`` builds the default class's replicas on the
-    first N device slots (0: replicas appear lazily under load)."""
+    first N device slots (0: replicas appear lazily under load).
+    Deployments should also set ``--compile_cache_dir``: the first start
+    builds the kernel libraries there with nvcc and every restart then
+    loads them from disk (``utils.enable_compile_cache``; measured by
+    ``python -m rcvpose_tpu_torch.scripts.bench_compile_cache``). A
+    read-only install needs it, as the default directory lies inside the
+    package."""
     est = build_lm_estimator(cfg, cfg.class_name, device)
     warm = (cfg.image_height, cfg.image_width)
     server = PoseServer(

@@ -1,5 +1,5 @@
-"""Device selection, log directories and stage timers shared by the
-port's entry points."""
+"""Device selection, the kernel-library cache, log directories and stage
+timers shared by the port's entry points."""
 
 from __future__ import annotations
 
@@ -26,6 +26,39 @@ def resolve_device(device=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is absent")
     return device
+
+
+def enable_compile_cache(cache_dir):
+    """Build and load the port's compiled libraries in ``cache_dir`` (made
+    if missing): the CUDA kernels of ``csrc/`` (``ops._build``, with
+    ``other/`` beneath it for earlier sources) and the native readers
+    (``native``). The counterpart of the JAX package's persistent XLA
+    cache: the first process to start pays nvcc's and g++'s builds, and
+    every later one, across restarts, loads the libraries from disk. A
+    read-only install, or servers started side by side, name a directory
+    of their own here (``--compile_cache_dir``).
+
+    Safe to share between concurrent processes: a library's file name
+    hashes its source and flags, and each build writes a per-process
+    temporary file that then replaces the target. Call it before the
+    first kernel launches: it raises if a library is loaded from another
+    directory already, since it could not move that one. Returns the
+    directory."""
+    from pathlib import Path
+
+    from rcvpose_tpu_torch import native
+    from rcvpose_tpu_torch.ops import _build
+
+    path = Path(cache_dir).expanduser().resolve()
+    clash = _build.loaded_elsewhere(path) + native.loaded_elsewhere(path)
+    if clash:
+        raise RuntimeError(
+            f"enable_compile_cache({str(cache_dir)!r}): the libraries "
+            f"{clash} are loaded from another directory already; call it "
+            "before the first kernel launches")
+    _build.set_build_dir(path)
+    native.set_build_dir(path)
+    return str(path)
 
 
 def synchronize(device):

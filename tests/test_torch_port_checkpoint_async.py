@@ -23,6 +23,7 @@ import torch
 from rcvpose_tpu_torch import checkpoint, parallel, train
 from rcvpose_tpu_torch.checkpoint import Checkpointer
 from rcvpose_tpu_torch.config import Config
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 HW = 32
 

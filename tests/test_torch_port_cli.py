@@ -224,8 +224,8 @@ def test_benchmark_mode_runs_the_port_bench(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,env,exc,match", [
-    (["--mode", "gen-labels", "--compile_cache_dir", "c"], {}, ValueError,
-     "compile"),
+    (["--mode", "train"], {"RCVPOSE_PALLAS_CONV": "auto"}, ValueError,
+     "auto"),
     (["--mode", "train"], {"RCVPOSE_PALLAS_CONV": "interpret"}, ValueError,
      "interpret"),
 ])
@@ -235,6 +235,30 @@ def test_what_the_port_does_not_run_raises(monkeypatch, tmp_path, argv, env,
         monkeypatch.setenv(key, val)
     with pytest.raises(exc, match=match):
         cli.main(argv + ["--out_dir", str(tmp_path)], device="cpu")
+
+
+def test_compile_cache_dir_sets_the_kernel_library_directory(
+        monkeypatch, tmp_path):
+    """``--compile_cache_dir`` points ``_build``'s library directory (and
+    the native readers') at the named directory before the mode runs, as
+    the JAX CLI points XLA's cache."""
+    from rcvpose_tpu_torch import native
+    from rcvpose_tpu_torch.ops import _build
+
+    for mod in (_build, native):
+        monkeypatch.setattr(mod, "BUILD_DIR", mod.BUILD_DIR)
+        monkeypatch.setattr(mod, "_loaded_from", {})
+    seen = []
+    monkeypatch.setattr(cli, "_dispatch", lambda cfg, device: seen.append(
+        (cfg.mode, _build.BUILD_DIR)))
+    cache = tmp_path / "kernels" / "cache"
+    cli.main(["--mode", "gen-labels", "--compile_cache_dir", str(cache)],
+             device="cpu")
+    assert cache.is_dir()
+    assert seen == [("gen-labels", cache.resolve())]
+    assert native.BUILD_DIR == cache.resolve()
+    assert _build.library_path("vote").parent == cache.resolve()
+    assert native.library_path().parent == cache.resolve()
 
 
 def test_distributed_on_one_process_is_a_logged_noop(monkeypatch, capsys):

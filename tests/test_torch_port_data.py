@@ -356,20 +356,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_chip_smoke_ycb_training_file_reads_without_h5py(tmp_path,
                                                          monkeypatch):
-    """The YCB training HDF5 that ``chip_smoke.py`` carries (gzip-chunked
-    images and radial maps) trains through ``YcbDataset`` with the port's
-    own reader as it does through h5py."""
-    import base64
-    import zlib
-
+    """The YCB training HDF5 of ``chip_smoke.py``'s phase 14 (its raw
+    480x640 tree through ``generate_ycb`` with h5py hidden, as on the
+    card: gzip-chunked images and radial maps from the port's own writer)
+    trains through ``YcbDataset`` with the port's own reader as it does
+    through h5py."""
     import chip_smoke
+    from rcvpose_tpu_torch.data import genlabels
 
     name = "002_master_chef_can"
-    os.makedirs(tmp_path / name / "Split")
-    (tmp_path / f"{name}.hdf5").write_bytes(zlib.decompress(base64.b64decode(
-        chip_smoke.YCB_TRAIN_HDF5)))
-    ids = [f"0000_{i:06d}" for i in range(1, 5)]
-    (tmp_path / name / "Split" / "val.txt").write_text("\n".join(ids))
+    chip_smoke.write_ycb_raw_tree(str(tmp_path))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        ids = genlabels.generate_ycb(str(tmp_path), name, 1,
+                                     progress=lambda *_: None, device="cpu")
+    assert ids == [f"0000_{i:06d}" for i in range(1, 5)]
     ref = dataset.YcbDataset(str(tmp_path), name)
     want = [ref.raw(i) for i in range(4)]
     ref.close()
@@ -377,10 +378,10 @@ def test_chip_smoke_ycb_training_file_reads_without_h5py(tmp_path,
     port = dataset.YcbDataset(str(tmp_path), name)
     for i, w in enumerate(want):
         _same_sample(port.raw(i), w)
-        assert w["image"].shape == (64, 96, 3)
+        assert w["image"].shape == (480, 640, 3)
         assert 0 < w["radial_dm"].max() < 10.0
     assert isinstance(port._h5, readers.Hdf5File)
     batch = next(loader.BatchLoader(port, K, 2, shuffle=False, ycb_clip=True,
                                     device="cpu").batches(0))
-    assert batch["radial"].shape == (2, 64, 96)
+    assert batch["radial"].shape == (2, 480, 640)
     assert (batch["sem"] > 0).any()

@@ -26,6 +26,7 @@ from tests.test_geometry import random_pose
 from tests.test_torch_port_eval_lmo_ycb import (EVAL_KW, LMO_FRAMES,
                                                 LMO_UNPOSED, PortExactMaps,
                                                 make_lmo_tree)
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 K = np.array([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]])
 

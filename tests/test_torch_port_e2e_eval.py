@@ -16,6 +16,7 @@ from rcvpose_tpu_torch.scripts import (e2e_fused_train, e2e_lmo,
                                        e2e_ycb)
 from tests.test_torch_port_e2e import (  # noqa: F401
     _port_world, one_thread, run_main)
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 
 @pytest.mark.usefixtures("one_thread")

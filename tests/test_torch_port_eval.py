@@ -35,6 +35,7 @@ from rcvpose_tpu_torch.data import readers as port_readers
 from rcvpose_tpu_torch.models import fcnresnet as fcn
 from tests.test_data import write_ascii_ply, write_binary_ply, write_dpt
 from tests.test_eval_lm_format import make_lm_eval_tree
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 SCORE_ATOL_MM = 1e-2
 # Small grids keep the evaluator cheap on the CPU.

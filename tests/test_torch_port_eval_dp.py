@@ -28,6 +28,7 @@ from rcvpose_tpu_torch import eval as port_eval
 from rcvpose_tpu_torch import parallel as port_parallel
 from rcvpose_tpu_torch.config import Config
 from rcvpose_tpu_torch.parallel import mesh as port_mesh
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 CPU2 = (torch.device("cpu"),) * 2
 SCORE_ATOL_MM = 1e-2

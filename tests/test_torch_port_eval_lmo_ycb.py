@@ -38,6 +38,7 @@ from tests.test_eval_lmo_ycb_format import (KPTS9, YCB_FIXTURE_CLASS,
                                             _pose_at_pixel, _radials,
                                             _render, make_ycb_eval_tree)
 from tests.test_torch_port_eval import _jax_tiny_variables
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 SCORE_ATOL_MM = 1e-2
 EVAL_KW = dict(compute_dtype="float32", vote_grid_l=96, max_points=2048,

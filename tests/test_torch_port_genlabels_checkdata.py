@@ -72,36 +72,65 @@ def test_generate_lm_matches_jax(tmp_path, fake_depth):
                 assert (want > 0).any()
 
 
-def test_generate_ycb_matches_jax(tmp_path):
+def _ycb_contents(path):
+    """{name: array} of every dataset of an HDF5 file, read by h5py."""
     import h5py
 
+    out = {}
+    with h5py.File(path, "r") as f:
+        f.visititems(lambda name, obj: out.__setitem__(
+            name, np.array(obj)) if isinstance(obj, h5py.Dataset) else None)
+    return out
+
+
+def _same_ycb_files(got_path, want_path, n_datasets):
+    got, want = _ycb_contents(got_path), _ycb_contents(want_path)
+    assert sorted(got) == sorted(want) and len(want) == n_datasets
+    for key, arr in want.items():
+        assert got[key].dtype == arr.dtype and got[key].shape == arr.shape
+        if key.startswith("3Dradius"):
+            np.testing.assert_allclose(got[key], arr, rtol=0, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(got[key], arr)
+    return got
+
+
+def _ycb_roots(tmp_path, n_frames=2):
     roots = {}
     for name in ("jax", "port"):
         roots[name] = str(tmp_path / name)
         os.makedirs(roots[name])
-        _ycb_raw_tree(roots[name], np.random.default_rng(5), n_frames=2)
-    want_ids = jax_genlabels.generate_ycb(roots["jax"], YCB_CLASS, YCB_ID,
-                                          progress=lambda *_: None)
-    got_ids = genlabels.generate_ycb(roots["port"], YCB_CLASS, YCB_ID,
-                                     progress=lambda *_: None, device="cpu")
-    assert got_ids == want_ids and len(got_ids) == 2
+        _ycb_raw_tree(roots[name], np.random.default_rng(5),
+                      n_frames=n_frames)
+    return roots
 
-    def contents(root):
-        out = {}
-        with h5py.File(os.path.join(root, f"{YCB_CLASS}.hdf5"), "r") as f:
-            f.visititems(lambda name, obj: out.__setitem__(
-                name, np.array(obj)) if isinstance(obj, h5py.Dataset)
-                else None)
-        return out
 
-    want, got = contents(roots["jax"]), contents(roots["port"])
-    assert sorted(got) == sorted(want) and len(want) == 8
-    for key, arr in want.items():
-        assert got[key].dtype == arr.dtype and got[key].shape == arr.shape
-        if key.startswith("JPEGImages"):
-            np.testing.assert_array_equal(got[key], arr)
-        else:
-            np.testing.assert_allclose(got[key], arr, rtol=0, atol=ATOL)
+def _generate_both(roots):
+    want = jax_genlabels.generate_ycb(roots["jax"], YCB_CLASS, YCB_ID,
+                                      progress=lambda *_: None)
+    got = genlabels.generate_ycb(roots["port"], YCB_CLASS, YCB_ID,
+                                 progress=lambda *_: None, device="cpu")
+    assert got == want
+    return got
+
+
+def _stored_chunks(path, name):
+    """The stored bytes, filter masks and offsets of a dataset's chunks,
+    as the file holds them."""
+    with readers.Hdf5File(path) as f:
+        reader = f._reader
+        entry = f[name]._entry
+        kind, _, records = reader.stored(entry)
+        assert kind == "chunked"
+        return sorted((bytes(reader.data[at:at + size]), mask, offset)
+                      for at, size, mask, offset in records)
+
+
+def test_generate_ycb_matches_jax(tmp_path):
+    roots = _ycb_roots(tmp_path)
+    assert len(_generate_both(roots)) == 2
+    _same_ycb_files(os.path.join(roots["port"], f"{YCB_CLASS}.hdf5"),
+                    os.path.join(roots["jax"], f"{YCB_CLASS}.hdf5"), 8)
     for rel in (os.path.join(YCB_CLASS, "Split", "val.txt"),
                 os.path.join("Split", YCB_CLASS, "val.txt")):
         with open(os.path.join(roots["port"], rel)) as f, \
@@ -109,9 +138,82 @@ def test_generate_ycb_matches_jax(tmp_path):
             assert f.read() == g.read()
 
 
-def test_generate_ycb_without_h5py_names_it(tmp_path, monkeypatch):
-    monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
+def test_generate_ycb_twice_keeps_images_and_replaces_maps_as_jax(tmp_path):
+    """h5py's "a" mode: between the runs the colour and depth PNGs of a
+    frame change; the second run keeps the first run's image (its stored
+    chunk too) and writes the new depth's maps, in both packages."""
+    from PIL import Image
+
+    roots = _ycb_roots(tmp_path)
+    ids = _generate_both(roots)
+    port_h5 = os.path.join(roots["port"], f"{YCB_CLASS}.hdf5")
+    jax_h5 = os.path.join(roots["jax"], f"{YCB_CLASS}.hdf5")
+    first = _ycb_contents(port_h5)
+    image_chunks = _stored_chunks(port_h5, f"JPEGImages/{ids[0]}")
+    for root in roots.values():
+        cdir = os.path.join(root, "data", "0000")
+        color = os.path.join(cdir, "000001-color.png")
+        Image.fromarray(255 - np.asarray(Image.open(color))).save(color)
+        dpath = os.path.join(cdir, "000001-depth.png")
+        depth = np.asarray(Image.open(dpath)).astype(np.int32)
+        Image.fromarray(np.where(depth > 0, depth + 500, 0)).save(dpath)
+    assert _generate_both(roots) == ids
+    second = _same_ycb_files(port_h5, jax_h5, 8)
+    for key, arr in first.items():
+        if key.startswith("JPEGImages") or ids[1] in key:
+            np.testing.assert_array_equal(second[key], arr)
+        else:
+            assert not np.array_equal(second[key], arr), key
+    assert _stored_chunks(port_h5, f"JPEGImages/{ids[0]}") == image_chunks
+
+
+def test_generate_ycb_carries_what_h5py_wrote_as_stored(tmp_path):
+    """An extra keypoint's group, an attribute and an empty group that
+    h5py wrote stay in the port's file, their chunks byte for byte."""
+    import h5py
+
+    roots = _ycb_roots(tmp_path, n_frames=1)
+    extra = np.random.default_rng(1).uniform(size=(64, 64)).astype(
+        np.float32)
+    for root in roots.values():
+        with h5py.File(os.path.join(root, f"{YCB_CLASS}.hdf5"), "w") as f:
+            f.create_dataset("3Dradius_pt4_dm/0000_000001", data=extra,
+                             compression="gzip", compression_opts=9,
+                             chunks=(16, 32))
+            f["3Dradius_pt4_dm"].attrs["unit"] = np.float32(0.1)
+            f.create_group("notes")
+    port_h5 = os.path.join(roots["port"], f"{YCB_CLASS}.hdf5")
+    before = _stored_chunks(port_h5, "3Dradius_pt4_dm/0000_000001")
+    assert len(before) == 8
+    _generate_both(roots)
+    got = _same_ycb_files(port_h5, os.path.join(roots["jax"],
+                                                f"{YCB_CLASS}.hdf5"), 5)
+    np.testing.assert_array_equal(got["3Dradius_pt4_dm/0000_000001"], extra)
+    assert _stored_chunks(port_h5, "3Dradius_pt4_dm/0000_000001") == before
+    with h5py.File(port_h5, "r") as f:
+        assert f["3Dradius_pt4_dm"].attrs["unit"] == np.float32(0.1)
+        assert list(f["notes"].keys()) == []
+
+
+def test_generate_ycb_without_h5py_matches_jax(tmp_path, monkeypatch):
+    roots = _ycb_roots(tmp_path)
+    jax_genlabels.generate_ycb(roots["jax"], YCB_CLASS, YCB_ID,
+                               progress=lambda *_: None)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        genlabels.generate_ycb(roots["port"], YCB_CLASS, YCB_ID,
+                               progress=lambda *_: None, device="cpu")
+        with readers.Hdf5File(os.path.join(roots["port"],
+                                           f"{YCB_CLASS}.hdf5")) as f:
+            assert sorted(f["JPEGImages"].keys()) == ["0000_000001",
+                                                      "0000_000002"]
+    _same_ycb_files(os.path.join(roots["port"], f"{YCB_CLASS}.hdf5"),
+                    os.path.join(roots["jax"], f"{YCB_CLASS}.hdf5"), 8)
+
+
+def test_generate_ycb_without_scipy_names_it(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "scipy.io", None)
+    with pytest.raises(ImportError, match="scipy.io"):
         genlabels.generate_ycb(str(tmp_path), YCB_CLASS, YCB_ID,
                                device="cpu")
 

@@ -24,6 +24,7 @@ from rcvpose_tpu import train as jax_train
 from rcvpose_tpu.config import Config as JaxConfig
 from rcvpose_tpu_torch import infer as port_infer
 from rcvpose_tpu_torch.config import Config
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HW = 64

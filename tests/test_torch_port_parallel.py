@@ -24,6 +24,7 @@ import torch
 
 from rcvpose_tpu_torch import parallel
 from rcvpose_tpu_torch.ops import voting
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 CPU2 = [torch.device("cpu")] * 2
 RANK_TIMEOUT = 120.0

@@ -29,6 +29,7 @@ import torch
 from rcvpose_tpu_torch import infer, serve, train
 from rcvpose_tpu_torch.config import Config
 from rcvpose_tpu_torch.models.fcnresnet import init_params
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 H = W = 64
 CPU2 = [torch.device("cpu")] * 2

@@ -30,6 +30,7 @@ from rcvpose_tpu_torch.ops import voting as port_voting
 from rcvpose_tpu_torch.scripts import coarse_problem, hier_problem, prof_vote
 from rcvpose_tpu_torch.scripts import (prof_pipes, prof_vote_bf16,
                                        prof_vote_tiles)
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

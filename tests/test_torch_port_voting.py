@@ -25,6 +25,7 @@ from rcvpose_tpu_torch.ops import voting as port_voting
 from tests import oracles
 from tests.test_geometry import random_pose
 from tests.test_voting import synth_cloud
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 # The accumulator decodes centers as (voxel + shift + mean + 0.5) * 5 mm;
 # the f32 masked means may round differently between the frameworks.
