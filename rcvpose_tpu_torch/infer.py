@@ -20,7 +20,7 @@ import copy
 import numpy as np
 import torch
 
-from rcvpose_tpu_torch import fit, geometry, labels
+from rcvpose_tpu_torch import fit, geometry, labels, profiling
 from rcvpose_tpu_torch import train as train_mod
 from rcvpose_tpu_torch.checkpoint import from_flax_variables
 from rcvpose_tpu_torch.ops import voting
@@ -77,7 +77,10 @@ def _frame_pose(models, image_norm, depth_mm, k, max_radii_dm, gt_kpts_mm,
     normalized; depth_mm (H, W); k (3, 3); max_radii_dm (3,); gt_kpts_mm
     (3, 3) model-frame keypoints. Returns the ``_pose_from_maps`` dict.
     """
-    maps = [m(image_norm[None]) for m in models]
+    maps = []
+    for i, m in enumerate(models):
+        with profiling.span("rcvpose.net", net=i):
+            maps.append(m(image_norm[None]))
     sem_maps = torch.stack([seg[0, :, :, 0] for seg, _ in maps])
     radial_maps = torch.stack([rad[0, :, :, 0] for _, rad in maps])
     return _pose_from_maps(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
@@ -91,7 +94,8 @@ def _frame_pose_fused(model, image_norm, depth_mm, k, max_radii_dm,
                       cpt_stride=None, win=None, win_hw=None):
     """Fused multi-head frame: ONE forward (``kpt_heads`` output pairs)
     serves every keypoint; voting and fit as in ``_frame_pose``."""
-    seg, radial = model(image_norm[None])
+    with profiling.span("rcvpose.net", net=0):
+        seg, radial = model(image_norm[None])
     return _pose_from_maps(seg[0].permute(2, 0, 1),
                            radial[0].permute(2, 0, 1), depth_mm, k,
                            max_radii_dm, gt_kpts_mm, sem_threshold, n_points,
@@ -111,6 +115,38 @@ def _pose_from_maps(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
     (K,), budget_exceeded (), union_count (), escalate (3,) f32 =
     [any cropped, budget_exceeded, union_count]).
     """
+    with profiling.span("rcvpose.pose"):
+        with profiling.span("rcvpose.pack"):
+            pts, valid, rad, counts, total_valid, union_count = _pack(
+                sem_maps, radial_maps, depth_mm, k, max_radii_dm,
+                sem_threshold, n_points, full_frame, win_hw)
+        n_kpt = sem_maps.shape[0]
+        res = voting.accumulate_3d(pts.expand(n_kpt, -1, -1), rad, valid,
+                                   grid_l=grid_l, mode=mode, topk=topk,
+                                   cpt_stride=cpt_stride, win=win)
+        with profiling.span("rcvpose.fit"):
+            rt = fit.horn_fit(gt_kpts_mm, res.center_mm)
+        cropped = counts < total_valid  # the window truncated mask pixels
+        budget_exceeded = union_count > n_points
+        # One packed vector of the escalation signals: estimate() reads it
+        # on the host every frame, in one transfer.
+        escalate = torch.stack([cropped.any().to(torch.float32),
+                                budget_exceeded.to(torch.float32),
+                                union_count.to(torch.float32)])
+        return {"rt": rt, "centers": res.center_mm,
+                "overflow": res.overflow, "counts": counts,
+                "scene_pts": (pts * 1000.0).expand(n_kpt, -1, -1),
+                "scene_mask": valid, "cropped": cropped,
+                "budget_exceeded": budget_exceeded,
+                "union_count": union_count, "escalate": escalate}
+
+
+def _pack(sem_maps, radial_maps, depth_mm, k, max_radii_dm, sem_threshold,
+          n_points, full_frame, win_hw):
+    """The masks, the packing window and the points packed from it:
+    (points (n_points, 3) m, per-keypoint validity (K, n_points) and
+    radii (K, n_points) over them, per-keypoint mask pixels inside the
+    window (K,) and in the frame (K,), the union's pixel count ())."""
     device = depth_mm.device
     n_kpt = sem_maps.shape[0]
     h, w = depth_mm.shape
@@ -145,7 +181,6 @@ def _pose_from_maps(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
     # Budget check: a union larger than the point budget loses votes in
     # the compaction; surfaced so estimate() can grow n_points.
     union_count = flat_union.sum().to(torch.int32)
-    budget_exceeded = union_count > n_points
     order, umask = geometry.pack_valid_indices(flat_union, n_points)
     pts = torch.where(umask[:, None], flat_xyz[order], 0.0)
 
@@ -154,22 +189,7 @@ def _pose_from_maps(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
     valid = semw.reshape(n_kpt, -1)[:, order] & umask & flat_union[order]
     rad = torch.where(valid, crop(radial_maps).reshape(n_kpt, -1)[:, order],
                       0.0)
-    res = voting.accumulate_3d(pts.expand(n_kpt, -1, -1), rad, valid,
-                               grid_l=grid_l, mode=mode, topk=topk,
-                               cpt_stride=cpt_stride, win=win)
-    rt = fit.horn_fit(gt_kpts_mm, res.center_mm)
-    cropped = counts < total_valid  # the window truncated mask pixels
-    # One packed vector of the escalation signals: estimate() reads it on
-    # the host every frame, in one transfer.
-    escalate = torch.stack([cropped.any().to(torch.float32),
-                            budget_exceeded.to(torch.float32),
-                            union_count.to(torch.float32)])
-    return {"rt": rt, "centers": res.center_mm, "overflow": res.overflow,
-            "counts": counts,
-            "scene_pts": (pts * 1000.0).expand(n_kpt, -1, -1),
-            "scene_mask": valid, "cropped": cropped,
-            "budget_exceeded": budget_exceeded, "union_count": union_count,
-            "escalate": escalate}
+    return pts, valid, rad, counts, total_valid, union_count
 
 
 def _stack_frames(outs):
@@ -214,7 +234,8 @@ class PoseEstimator:
             if isinstance(variables_list, (tuple, list)):
                 variables_list = variables_list[0]
             variables_list = [variables_list]
-        self.models = tuple(self._load(v) for v in variables_list)
+        self.models = tuple(self._load(i, v)
+                            for i, v in enumerate(variables_list))
 
         def put(x):
             return torch.as_tensor(np.asarray(x, np.float32),
@@ -235,13 +256,14 @@ class PoseEstimator:
         else:
             self.win_hw = None
 
-    def _load(self, weights):
-        model = train_mod.build_model(self.cfg)
-        if "params" in weights:
-            weights = from_flax_variables(weights)
-        model.load_state_dict(weights)
-        return model.to(device=self.device, dtype=self.dtype,
-                        memory_format=torch.channels_last).eval()
+    def _load(self, index, weights):
+        with profiling.span("rcvpose.load", net=index):
+            model = train_mod.build_model(self.cfg)
+            if "params" in weights:
+                weights = from_flax_variables(weights)
+            model.load_state_dict(weights)
+            return model.to(device=self.device, dtype=self.dtype,
+                            memory_format=torch.channels_last).eval()
 
     def replicate_to(self, device):
         """A replica of this estimator whose weights and constants live on
@@ -272,19 +294,23 @@ class PoseEstimator:
         result = run(full, n_pts)
         while True:
             # the one host read per frame: packed [cropped, budget, union]
-            esc = np.asarray(result["escalate"].cpu()).reshape(-1, 3)
-            redo = False
+            with profiling.span("rcvpose.escalate.read"):
+                esc = np.asarray(result["escalate"].cpu()).reshape(-1, 3)
+            reason = None
             if not full and bool((esc[:, 0] > 0).any()):
                 full = True
-                redo = True
+                reason = "cropped"
             if bool((esc[:, 1] > 0).any()) and n_pts < image_pixels:
                 needed = min(int(esc[:, 2].max()), image_pixels)
                 while n_pts < needed:
                     n_pts *= 2
-                redo = True
-            if not redo:
+                reason = reason or "budget"
+            if reason is None:
                 return result
-            result = run(full, n_pts)
+            profiling.count(f"escalations.{reason}")
+            with profiling.span("rcvpose.escalate.rerun", reason=reason,
+                                n_points=n_pts):
+                result = run(full, n_pts)
 
     def _frame_kwargs(self, full_frame, n_points):
         cfg = self.cfg
@@ -305,11 +331,20 @@ class PoseEstimator:
         pixels re-runs with full-frame packing, and a union mask over the
         point budget re-runs with a doubled budget (``_escalate``).
         """
+        frame = profiling.count("frames")
+        try:
+            with profiling.span("rcvpose.estimate", frame=frame):
+                return self._estimate(image_u8, depth_mm)
+        finally:
+            profiling.end_startup()
+
+    def _estimate(self, image_u8, depth_mm):
         pose_fn = _frame_pose_fused if self.fused else _frame_pose
         with torch.inference_mode():
-            image_norm = labels.normalize_image(
-                self._put(image_u8, torch.uint8))
-            depth = self._put(depth_mm, torch.float32)
+            with profiling.span("rcvpose.inputs"):
+                image_norm = labels.normalize_image(
+                    self._put(image_u8, torch.uint8))
+                depth = self._put(depth_mm, torch.float32)
 
             def run(full_frame, n_points):
                 return pose_fn(self._net(), image_norm, depth, self.k,
@@ -328,27 +363,43 @@ class PoseEstimator:
         every frame's ``scene_pts``/``scene_mask`` are zero-padded to the
         largest budget (padded entries are masked out).
         """
+        frame = profiling.count("frames", len(images_u8))
+        try:
+            with profiling.span("rcvpose.estimate", frame=frame):
+                return self._estimate_batch(images_u8, depths_mm)
+        finally:
+            profiling.end_startup()
+
+    def _estimate_batch(self, images_u8, depths_mm):
         imgs_np = np.asarray(images_u8)
         deps_np = np.asarray(depths_mm, np.float32)
         batch_fn = frame_pose_fused_batch if self.fused else frame_pose_batch
         with torch.inference_mode():
-            imgs = labels.normalize_image(self._put(imgs_np, torch.uint8))
-            deps = self._put(deps_np, torch.float32)
+            with profiling.span("rcvpose.inputs"):
+                imgs = labels.normalize_image(
+                    self._put(imgs_np, torch.uint8))
+                deps = self._put(deps_np, torch.float32)
             result = batch_fn(self._net(), imgs, deps, self.k,
                               self.max_radii, self.gt_kpts_mm,
                               **self._frame_kwargs(False,
                                                    self.cfg.max_points))
 
         # one host read of the packed (B, 3) [cropped, budget, union] flags
-        esc = np.asarray(result["escalate"].cpu()).reshape(-1, 3)
+        with profiling.span("rcvpose.escalate.read"):
+            esc = np.asarray(result["escalate"].cpu()).reshape(-1, 3)
         pixels = int(np.prod(deps_np.shape[1:]))
         tripped = (esc[:, 0] > 0) | ((esc[:, 1] > 0)
                                      & (self.cfg.max_points < pixels))
         if not tripped.any():
             return result
 
-        singles = {int(i): self.estimate(imgs_np[i], deps_np[i])
-                   for i in np.nonzero(tripped)[0]}
+        singles = {}
+        for i in np.nonzero(tripped)[0]:
+            reason = "cropped" if esc[i, 0] > 0 else "budget"
+            profiling.count(f"escalations.{reason}")
+            with profiling.span("rcvpose.escalate.rerun", reason=reason,
+                                n_points=self.cfg.max_points):
+                singles[int(i)] = self._estimate(imgs_np[i], deps_np[i])
         n_max = max([result["scene_pts"].shape[2]]
                     + [s["scene_pts"].shape[1] for s in singles.values()])
 
@@ -376,10 +427,12 @@ class PoseEstimator:
         Returns the (4, 4) refined transform on the estimator's device."""
         if self.cad_mm is None:
             raise ValueError("PoseEstimator needs cad_mm for ICP refinement")
-        with torch.inference_mode():
+        iters = icp_iters or self.cfg.icp_iters
+        with torch.inference_mode(), profiling.span("rcvpose.refine",
+                                                    iterations=iters):
             return fit.icp_point_to_point(
                 self.cad_mm, self._put(result["scene_pts"],
                                        torch.float32).reshape(-1, 3),
                 self._put(result["scene_mask"], torch.bool).reshape(-1),
                 self._put(result["rt"], torch.float32), threshold_mm,
-                max_iters=icp_iters or self.cfg.icp_iters)
+                max_iters=iters)

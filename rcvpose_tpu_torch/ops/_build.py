@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from rcvpose_tpu_torch import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -111,11 +113,22 @@ def load(name):
 def _load(name):
     lib = _libs.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
+        path = library_path(name)
+        built = not path.exists()
+        with profiling.span("rcvpose.kernels.load", library=name,
+                            built=built):
+            build((name,))
+            lib = ctypes.CDLL(str(path))
+        _count_load(built)
         _libs[name] = lib
         _loaded_from[name] = BUILD_DIR.resolve()
     return lib
+
+
+def _count_load(built):
+    profiling.count("kernels.loaded")
+    if built:
+        profiling.count("kernels.built")
 
 
 def function(name, symbol, argtypes):
@@ -141,30 +154,30 @@ def load_other(source):
     key = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / "other" / f"lib{source.stem}_{key}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(source)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    built = not out.exists()
+    with profiling.span("rcvpose.kernels.load", library=source.name,
+                        built=built):
+        if built:
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                   str(source)], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+    _count_load(built)
     with _lock:
         _loaded_from[f"other/{source.stem}"] = BUILD_DIR.resolve()
     return lib
 
 
-_count_lock = threading.Lock()
-
-
 def count(fn, attr="launches", n=1):
-    """Add ``n`` to the launch counter ``fn.<attr>`` under a lock, so that
-    the counts stay right when threads (a server's, a mesh's slots)
-    launch concurrently."""
-    with _count_lock:
-        setattr(fn, attr, getattr(fn, attr) + int(n))
+    """Add ``n`` to the launch counter ``fn.<attr>`` under the counters'
+    lock (``profiling.count``)."""
+    profiling.count(attr, n, owner=fn)
 
 
 def check(err, what):

@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from rcvpose_tpu_torch import profiling
 from rcvpose_tpu_torch.ops import vote_cuda
 
 # Shell half-thickness: reference ``factor = sqrt(3)/4``.
@@ -205,25 +206,25 @@ def accumulate_3d(xyz_m, radial_dm, point_mask, grid_l=192, mode="hier",
     ``mode`` is 'exact', 'surface' or 'hier'; ``topk``/``cpt_stride``/
     ``win`` are the hier knobs (None = _TOPK/_CPT_STRIDE/_WIN).
     """
+    if mode not in ("exact", "surface", "hier"):
+        raise ValueError(f"unknown accumulator mode: {mode}")
     single = xyz_m.dim() == 2
     if single:
         xyz_m, radial_dm, point_mask = (xyz_m[None], radial_dm[None],
                                         point_mask[None])
-    pts, radii_round, means, shift, bound = _prepare(
-        xyz_m, radial_dm, point_mask)
-    if mode == "exact":
-        res = _accumulate_exact(pts, radii_round, point_mask, grid_l, means,
-                                shift, bound)
-    elif mode == "surface":
-        res = _accumulate_exact(pts, radii_round, point_mask, grid_l, means,
-                                shift, bound, band_fn=surface_band)
-    elif mode == "hier":
-        res = _accumulate_hier(pts, radii_round, point_mask, grid_l, means,
-                               shift, bound, topk=topk or _TOPK,
-                               cpt_stride=cpt_stride or _CPT_STRIDE,
-                               win=win or _WIN)
-    else:
-        raise ValueError(f"unknown accumulator mode: {mode}")
+    with profiling.span("rcvpose.vote", mode=mode):
+        with profiling.span("rcvpose.vote.prepare"):
+            pts, radii_round, means, shift, bound = _prepare(
+                xyz_m, radial_dm, point_mask)
+        if mode == "hier":
+            res = _accumulate_hier(pts, radii_round, point_mask, grid_l,
+                                   means, shift, bound, topk=topk or _TOPK,
+                                   cpt_stride=cpt_stride or _CPT_STRIDE,
+                                   win=win or _WIN)
+        else:
+            res = _accumulate_exact(
+                pts, radii_round, point_mask, grid_l, means, shift, bound,
+                band_fn=surface_band if mode == "surface" else exact_band)
     if single:
         res = AccumulatorResult(*(t[0] for t in res))
     return res
@@ -274,6 +275,17 @@ def _accumulate_hier(pts, radii_round, point_mask, grid_l, means, shift,
     ranks cells. The refine stage votes with every point in ``win^3``
     windows around the ``topk`` best cells.
     """
+    with profiling.span("rcvpose.vote.coarse"):
+        top_idx = _coarse_peaks(pts, radii_round, point_mask, grid_l, bound,
+                                topk, cpt_stride)
+    with profiling.span("rcvpose.vote.fine"):
+        return _fine_peak(pts, radii_round, point_mask, grid_l, means, shift,
+                          bound, top_idx, topk, win)
+
+
+def _coarse_peaks(pts, radii_round, point_mask, grid_l, bound, topk,
+                  cpt_stride):
+    """The hier coarse stage: the ``topk`` best coarse cells (B, topk)."""
     device = pts.device
     b = pts.shape[0]
     lc = grid_l // _COARSE
@@ -290,7 +302,16 @@ def _accumulate_hier(pts, radii_round, point_mask, grid_l, means, shift,
     cvalid = (cin[:, :, None, None] & cin[:, None, :, None]
               & cin[:, None, None, :]).reshape(b, -1)
     cvotes = torch.where(cvalid, cvotes, torch.full_like(cvotes, -1.0))
-    top_idx = _top_indices(cvotes, topk)                        # (B, topk)
+    return _top_indices(cvotes, topk)
+
+
+def _fine_peak(pts, radii_round, point_mask, grid_l, means, shift, bound,
+               top_idx, topk, win):
+    """The hier refine stage: every point votes in ``win^3`` windows
+    around the coarse cells ``top_idx``; the best window's peak decodes."""
+    device = pts.device
+    b = pts.shape[0]
+    lc = grid_l // _COARSE
 
     # Dense fine windows around each coarse peak, evaluated in one batch.
     base = _unravel3(top_idx, lc) * _COARSE - (win - _COARSE) // 2
