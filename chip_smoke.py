@@ -769,7 +769,8 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
     estf = infer.PoseEstimator(cfgf, weights(cfgf, 3), keypoints, max_radii)
     for est in (est3, estf):
         for net in est.models:
-            calibrate_head(net, frames[0], cfg3.sem_threshold, max_radii[0])
+            calibrate_head(net.net, frames[0], cfg3.sem_threshold,
+                           max_radii[0])
     say(f"phase 5 weights: seeded init, load and head calibration of 4 "
         f"full-width nets in {time.perf_counter() - t0:.1f} s")
 
@@ -807,7 +808,7 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
             f"{np.median(times[2:]):.3f})")
 
     # information only: bf16 serving forward against the f32 one (TF32 off)
-    net = est3.models[0]
+    net = est3.models[0].net
     f32 = train_mod.build_model(cfg3)
     f32.load_state_dict({k: v.float() for k, v in net.state_dict().items()})
     f32 = f32.to(device=DEVICE, memory_format=torch.channels_last).eval()
@@ -1230,7 +1231,7 @@ def serve_restored(config, train_mod, checkpoint, infer, ckpt, trainer, cfg):
     depth = np.zeros((H, W), np.float32)
     depth[200:280, 280:360] = rng.uniform(600.0, 900.0, size=(80, 80))
     for net in est.models:
-        calibrate_head(net, (img, depth), cfg3.sem_threshold, 2.0)
+        calibrate_head(net.net, (img, depth), cfg3.sem_threshold, 2.0)
     out = est.estimate(img, depth)
     for key in ("rt", "centers"):
         if not torch.isfinite(out[key]).all():
@@ -2480,7 +2481,8 @@ def phase_cli_train(config, cli, checkpoint, infer, labels, geometry,
         est = infer.PoseEstimator(cfg3, [weights] * 3, kpts9, maxr)
         img, depth0, _ = frames[0]
         for net, r in zip(est.models, maxr):
-            calibrate_head(net, (img, depth0), cfg3.sem_threshold, float(r))
+            calibrate_head(net.net, (img, depth0), cfg3.sem_threshold,
+                           float(r))
         serving = {"K1": vote_cuda.vote_counts_cuda,
                    "K2": heads.heads_channel_major_cuda}
         for f in serving.values():

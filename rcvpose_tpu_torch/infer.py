@@ -11,6 +11,8 @@ the packed ``escalate`` vector that ``PoseEstimator`` checks.
 ``PoseEstimator`` is the serving API: ``estimate(image, depth)`` per frame,
 ``estimate_batch`` for a batch (a loop over frames, escalated per frame)
 and ``refine`` for an optional ICP of a frame's pose against its own scene.
+Its ``models`` are ``models.graphs.GraphedNet``s: on the card each net's
+forward replays a CUDA graph of itself after the first frame.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from rcvpose_tpu_torch import fit, geometry, labels, profiling
 from rcvpose_tpu_torch import train as train_mod
 from rcvpose_tpu_torch.checkpoint import from_flax_variables
+from rcvpose_tpu_torch.models import graphs
 from rcvpose_tpu_torch.ops import voting
 from rcvpose_tpu_torch.utils import resolve_device
 
@@ -234,7 +237,8 @@ class PoseEstimator:
             if isinstance(variables_list, (tuple, list)):
                 variables_list = variables_list[0]
             variables_list = [variables_list]
-        self.models = tuple(self._load(i, v)
+        pool = graphs.GraphPool()
+        self.models = tuple(graphs.GraphedNet(self._load(i, v), pool)
                             for i, v in enumerate(variables_list))
 
         def put(x):
@@ -267,11 +271,12 @@ class PoseEstimator:
 
     def replicate_to(self, device):
         """A replica of this estimator whose weights and constants live on
-        ``device``; the config is shared."""
+        ``device``; the config is shared. Its nets share a graph pool of
+        their own and start with no graph."""
         new = copy.copy(self)
         new.device = resolve_device(device)
-        new.models = tuple(copy.deepcopy(m).to(new.device)
-                           for m in self.models)
+        new.models = tuple(m.to(new.device)
+                           for m in copy.deepcopy(self.models))
         for name in ("gt_kpts_mm", "max_radii", "k"):
             setattr(new, name, getattr(self, name).to(new.device))
         if self.cad_mm is not None:

@@ -19,9 +19,12 @@
   carry. It costs nothing once closed.
 * ``count(name, n=1)`` and ``counters()``: the process's counters, under
   one lock (``frames``, ``escalations.cropped``, ``escalations.budget``,
-  ``kernels.built``, ``kernels.loaded``). With ``owner=`` the count goes
+  ``kernels.built``, ``kernels.loaded``, ``graphs.captured``,
+  ``graphs.replayed``, ``graphs.eager``). With ``owner=`` the count goes
   to an attribute of that object instead: the kernel wrappers'
-  ``.launches``.
+  ``.launches``. Inside ``held_launches()`` (a CUDA graph's capture,
+  which launches nothing) a thread's ``owner=`` counts are held back, and
+  ``count_launches`` adds them at each replay of the graph.
 * ``trace(logdir)``: the exporter, a ``torch.profiler`` session around a
   block written as a Chrome/Perfetto trace file under ``logdir``
   (``cli --profile_dir``); the spans above appear in it.
@@ -44,7 +47,8 @@ STARTUP_LIMIT = 4096
 
 _profiler_enabled = torch.autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
-_thread = threading.local()       # .frame: the open frame id; .stack
+_thread = threading.local()       # .frame: the open frame id; .stack;
+                                  # .held: held_launches' list
 _lock = threading.Lock()
 _counters: dict[str, int] = {}
 
@@ -93,7 +97,13 @@ def count(name, n=1, owner=None):
     """Add ``n`` to the counter ``name`` and return its new value; with
     ``owner``, to the attribute ``owner.<name>`` (a kernel wrapper's
     ``launches``), so that counts stay right when threads (a server's, a
-    mesh's slots) count concurrently."""
+    mesh's slots) count concurrently. Inside ``held_launches`` an
+    ``owner`` count is held back instead (the owner's value returns)."""
+    if owner is not None:
+        held = getattr(_thread, "held", None)
+        if held is not None:
+            held.append((owner, name, int(n)))
+            return getattr(owner, name)
     with _lock:
         if owner is not None:
             value = getattr(owner, name) + int(n)
@@ -102,6 +112,24 @@ def count(name, n=1, owner=None):
             value = _counters.get(name, 0) + int(n)
             _counters[name] = value
         return value
+
+
+@contextlib.contextmanager
+def held_launches():
+    """Hold back the launch counts (``count`` with ``owner=``) this thread
+    makes inside the block; yields them as a list of (owner, name, n)."""
+    before = getattr(_thread, "held", None)
+    _thread.held = []
+    try:
+        yield _thread.held
+    finally:
+        _thread.held = before
+
+
+def count_launches(held):
+    """Add the launch counts ``held_launches`` held back."""
+    for owner, name, n in held:
+        count(name, n, owner)
 
 
 def counters():
