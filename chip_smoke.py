@@ -69,6 +69,17 @@ Phases, each printing its own line:
     ``.pth.tar`` checkpoints with calibrated heads (K2 and K1 counted) and
     the precomputed-map route, which must score ADD 1.0 before and after
     ICP; then the ICP's device time;
+    then the ICP kernels (``ops/icp_cuda.py``) at the refine cell's shapes
+    (phase 11's 3,000-point CAD against one 8,192-point scene cloud at
+    800 mm, and against its three copies with masks of their own):
+    ``nearest_cuda`` against ``fit._nn`` and ``update_pose_cuda`` against
+    ``fit._update_pose`` bit for bit over a few updates; their launch
+    counts, set to 0 just before, over three ``PoseEstimator.refine``
+    calls (eager and capture, then two replays of its graph) and one
+    ``eval.refine_and_add`` (eager, over the copies), whose poses all
+    equal the tensor ops' ICP over the copies bit for bit; and the
+    kernels' device times beside their plain versions and bounds, and a
+    refinement's;
 12. the device time of K5, K6 and K1 at the sweep's best tile at the
     phase-10 shapes, beside their plain versions and bounds, and of K6 in
     both compares at each of its split branches (CUDA events);
@@ -189,8 +200,9 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): dense bf16
-# tensor-core rate and HBM3 bandwidth.
+# tensor-core rate, FP32 rate off the tensor cores and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 GRID_L = 128
@@ -1760,6 +1772,170 @@ def icp_device_ms(eval_mod, cfg, root, frame, cad_m, kpts9, max_radii):
             rt, cad, scene, mask, rt_gt, False, score.clamp(min=1e-3),
             icp_iters=cfg.icp_iters), reps=3)
     return wall, dev_ms
+
+
+def icp_scene(rng, cad_mm, n_points, n_valid, k=3):
+    """A packed scene at LINEMOD's depth for ``cad_mm`` (S, 3): the first
+    ``n_valid`` of ``n_points`` points are the CAD placed at 800 mm (1 mm
+    noise) and clutter around it, the rest padding; each keypoint's mask a
+    random 80% of the valid points (every valid point in one at least);
+    and an initial pose a few degrees and millimetres off. Returns numpy
+    scene_pts (k, n_points, 3) (one cloud), scene_mask (k, n_points) and
+    rt (4, 4)."""
+    def rot(axis, angle):
+        axis = axis / np.linalg.norm(axis)
+        x = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]],
+                      [-axis[1], axis[0], 0.0]])
+        return np.eye(3) + np.sin(angle) * x + (1 - np.cos(angle)) * x @ x
+
+    r = rot(rng.normal(size=3), rng.uniform(0, np.pi))
+    t = np.array([rng.uniform(-80, 80), rng.uniform(-60, 60), 800.0])
+    n_obj = (2 * n_valid) // 3
+    obj = cad_mm[rng.integers(0, len(cad_mm), n_obj)] @ r.T + t
+    pts = np.zeros((n_points, 3))
+    pts[:n_valid] = np.concatenate([
+        obj + rng.normal(size=obj.shape),
+        t + rng.uniform(-150, 150, size=(n_valid - n_obj, 3))])
+    mask = np.zeros((k, n_points), bool)
+    mask[:, :n_valid] = rng.uniform(size=(k, n_valid)) < 0.8
+    mask[0, :n_valid] |= ~mask.any(axis=0)[:n_valid]
+    rt = np.eye(4)
+    rt[:3, :3] = rot(rng.normal(size=3), 0.06) @ r
+    rt[:3, 3] = t + rng.normal(size=3) * 4.0
+    return (np.broadcast_to(pts.astype(np.float32), (k, n_points, 3)),
+            mask, rt.astype(np.float32))
+
+
+def phase_icp_kernels(config, eval_mod, fit, infer, train_mod, geometry,
+                      profiling, lm):
+    """The ICP kernels at the refine cell's shapes (see the module
+    docstring, phase 11). Returns their rows of the ``kernels`` line:
+    {name: {launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}}."""
+    from rcvpose_tpu_torch.ops import icp_cuda
+
+    dev = torch.device(DEVICE)
+    cfg = config.Config(model_blocks="1,1,1,1", model_width=0.125)
+    threshold = 20.0
+    cad = (lm["cad_m"] * 1000.0).astype(np.float32)
+    scene, masks, rt = icp_scene(np.random.default_rng(111), cad, N_POINTS,
+                                 N_POINTS * 5 // 8)
+
+    def t(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    cad_t, rt_t = t(cad), t(rt)
+    clouds = {"one cloud": (t(scene[0]),
+                            torch.tensor(masks.any(axis=0), device=dev)),
+              "3 copies": (t(scene).reshape(-1, 3),
+                           torch.tensor(masks, device=dev).reshape(-1))}
+    with torch.inference_mode():
+        for name, (target, mask) in clouds.items():
+            t2 = (target * target).sum(dim=1)
+            keys = icp_cuda.new_keys(cad.shape[0], dev)
+            pose = rt_t
+            for step in range(4):
+                src = cad_t @ pose[:3, :3].T + pose[:3, 3]
+                idx, dist = icp_cuda.nearest_cuda(src, target, t2, mask,
+                                                  keys)
+                want_idx, want_dist = fit._nn(src, target, t2, mask)
+                if not (torch.equal(idx, want_idx)
+                        and torch.equal(dist, want_dist)):
+                    raise AssertionError(
+                        f"phase 11 icp {name}: nearest_cuda differs from "
+                        f"fit._nn at update {step}")
+                w = (dist <= threshold).to(torch.float32)
+                sums = (*fit._horn_sums(src, target[idx], w), w.sum(), pose)
+                pose = icp_cuda.update_pose_cuda(*sums)
+                if not torch.equal(pose, fit._update_pose(*sums)):
+                    raise AssertionError(
+                        f"phase 11 icp {name}: update_pose_cuda differs "
+                        f"from fit._update_pose at update {step}")
+        say(f"phase 11 icp kernels: nearest_cuda equals fit._nn and "
+            f"update_pose_cuda equals fit._update_pose bit for bit over 4 "
+            f"updates, {cad.shape[0]} CAD points against "
+            + " and ".join(f"{name} ({c[0].shape[0]} points, "
+                           f"{int(c[1].sum())} valid)"
+                           for name, c in clouds.items()))
+
+        # the refine path: the estimator's graph, then the evaluator's
+        # eager ICP over the copies, counted from 0
+        est = infer.PoseEstimator(
+            cfg, [train_mod.build_model(cfg).state_dict() for _ in range(3)],
+            np.zeros((9, 3)), [100.0] * 3, cad_mm=cad,
+            k=geometry.LINEMOD_K, device=dev)
+        result = {"scene_pts": t(scene),
+                  "scene_mask": torch.tensor(masks, device=dev),
+                  "rt": rt_t}
+        counts0 = profiling.counters()
+        torch.cuda.synchronize()
+        icp_cuda.nearest_cuda.launches = 0
+        icp_cuda.update_pose_cuda.launches = 0
+        poses = [est.refine(result, threshold) for _ in range(3)]
+        copies = clouds["3 copies"]
+        rt_eval, _ = eval_mod.refine_and_add(
+            rt_t, cad_t, *copies, rt_t, False, threshold,
+            icp_iters=cfg.icp_iters)
+        torch.cuda.synchronize()
+        launches = {"icp_nearest": icp_cuda.nearest_cuda.launches,
+                    "icp_pose_update": icp_cuda.update_pose_cuda.launches}
+        counts1 = profiling.counters()
+        counts = {k: counts1.get(k, 0) - counts0.get(k, 0)
+                  for k in ("icp.captured", "icp.replayed", "icp.eager")}
+        want = fit._icp(cad_t, *copies, rt_t, threshold, cfg.icp_iters,
+                        None, None, False, kernels=False)
+    n = cfg.icp_iters
+    if launches != {"icp_nearest": 4 * 2 * n, "icp_pose_update": 4 * n}:
+        raise AssertionError(f"phase 11 icp: launches {launches} over 3 "
+                             f"refinements and 1 refine_and_add of {n} "
+                             f"updates")
+    if counts != {"icp.captured": 1, "icp.replayed": 2, "icp.eager": 1}:
+        raise AssertionError(f"phase 11 icp: counters {counts}")
+    for i, pose in enumerate(poses + [rt_eval]):
+        if not torch.equal(pose, want):
+            raise AssertionError(
+                f"phase 11 icp: refinement {i} differs from the tensor "
+                f"ops' ICP over the copies by "
+                f"{float((pose - want).abs().max())}")
+    if torch.equal(want, rt_t):
+        raise AssertionError("phase 11 icp: the ICP left the pose as it was")
+    say(f"phase 11 icp refine path ({n} updates): launches {launches} over "
+        f"3 PoseEstimator.refine and 1 eval.refine_and_add; counters "
+        f"{counts}; every pose equals the tensor ops' ICP over the 3 "
+        f"copies with their own masks bit for bit")
+
+    target, mask = clouds["one cloud"]
+    t2 = (target * target).sum(dim=1)
+    keys = icp_cuda.new_keys(cad.shape[0], dev)
+    with torch.inference_mode():
+        src = cad_t @ rt_t[:3, :3].T + rt_t[:3, 3]
+        idx, dist = icp_cuda.nearest_cuda(src, target, t2, mask, keys)
+        w = (dist <= threshold).to(torch.float32)
+        sums = (*fit._horn_sums(src, target[idx], w), w.sum(), rt_t)
+        rows = {"icp_nearest": dict(
+            ms=event_ms(lambda: icp_cuda.nearest_cuda(src, target, t2, mask,
+                                                      keys), reps=50),
+            plain_ms=event_ms(lambda: fit._nn(src, target, t2, mask),
+                              reps=10),
+            # 9 FP32 operations a (source, valid target) pair
+            bound_ms=cad.shape[0] * int(mask.sum()) * 9
+            / PEAK_FP32_FLOPS * 1e3, bound_by="operations"),
+            "icp_pose_update": dict(
+            ms=event_ms(lambda: icp_cuda.update_pose_cuda(*sums), reps=50),
+            plain_ms=event_ms(lambda: fit._update_pose(*sums), reps=10),
+            # one warp's chain of dependent operations: an empty kernel's
+            # time is its floor
+            bound_ms=event_ms(lambda: torch.cuda._sleep(0), reps=100),
+            bound_by="launch")}
+        refine_ms = event_ms(lambda: est.refine(result, threshold), reps=5)
+    for name, row in rows.items():
+        row.update(launches=launches[name], max_abs_err=0.0, library_ms=None)
+        say(f"phase 11 icp {name}: device ms {row['ms']:.5f}, plain "
+            f"{row['plain_ms']:.5f}, bound {row['bound_ms']:.5f} by "
+            f"{row['bound_by']} ({100 * row['bound_ms'] / row['ms']:.1f}%)")
+    say(f"phase 11 icp: one refinement ({n} updates, a graph replay) "
+        f"{refine_ms:.4f} device ms")
+    return rows
 
 
 def phase_variant_times(stages, vote_cuda, best_tile):
@@ -4145,7 +4321,7 @@ def main():
               file=sys.stderr)
         return 1
     from rcvpose_tpu_torch import (checkpoint, cli, config, fit, geometry,
-                                   infer, labels, metrics, utils)
+                                   infer, labels, metrics, profiling, utils)
     from rcvpose_tpu_torch import eval as eval_mod
     from rcvpose_tpu_torch import train as train_mod
     from rcvpose_tpu_torch.models import fcnresnet as fcn
@@ -4190,6 +4366,8 @@ def main():
             tempfile.TemporaryDirectory() as train_root:
         lm = run(11, phase_lm_eval, config, eval_mod, train_mod, fcn,
                  geometry, vote_cuda, heads, root)
+        icp_rows = run("11 icp", phase_icp_kernels, config, eval_mod, fit,
+                       infer, train_mod, geometry, profiling, lm)
         var_times = run(12, phase_variant_times, stages, vote_cuda,
                         scripts["tiles"]["best"])
         eval_launches = run(13, phase_lmo_ycb, config, eval_mod, fit, infer,
@@ -4260,6 +4438,11 @@ def main():
                         "max_abs_err": var_errs[name],
                         "bound_by": "operations", "library_ms": None,
                         **var_times[name]})
+    for name, replaces in (("icp_nearest", "rcvpose_tpu/fit.py:147"),
+                           ("icp_pose_update", "rcvpose_tpu/fit.py:166")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "rcvpose_tpu_torch/csrc/icp.cu",
+                        "replaces": replaces, **icp_rows[name]})
     kernels[0]["agreement_launches"] = agree_launches
     for k in kernels:
         if k["launches"] == 0:

@@ -6,12 +6,16 @@ the JAX package does (no ``eigh``), so both packages take the same steps.
 
 ``icp_point_to_point`` is Open3D's point-to-point ICP as the JAX package
 writes it: brute-force nearest neighbours, a weighted Horn fit per
-iteration, a fixed iteration count or Open3D's convergence test.
+iteration, a fixed iteration count or Open3D's convergence test. On CUDA
+tensors its nearest neighbours and pose update run as the kernels of
+``ops.icp_cuda``, which build no distance matrix.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rcvpose_tpu_torch.ops import icp_cuda
 
 
 def _quat_to_rot(q):
@@ -58,14 +62,23 @@ def horn_fit(p1, p2, weights=None):
     if weights is None:
         weights = torch.ones(p1.shape[0], dtype=torch.float32,
                              device=p1.device)
-    w = weights.to(torch.float32)
+    return _horn_solve(*_horn_sums(p1, p2, weights.to(torch.float32)))
+
+
+def _horn_sums(p1, p2, w):
+    """Horn's weighted sums of f32 (N, 3) points and (N,) weights: the
+    cross-covariance S (3, 3) of the centred points and both centroids."""
     wsum = torch.clamp(w.sum(), min=1e-12)
     c1 = (p1 * w[:, None]).sum(dim=0) / wsum
     c2 = (p2 * w[:, None]).sum(dim=0) / wsum
     q1 = p1 - c1
     q2 = p2 - c2
     # S[a, b] = sum_i w_i * q1[i, a] * q2[i, b]
-    s = (q1 * w[:, None]).T @ q2
+    return (q1 * w[:, None]).T @ q2, c1, c2
+
+
+def _horn_solve(s, c1, c2):
+    """The (4, 4) transform of Horn's sums ``_horn_sums``."""
     sxx, sxy, sxz = s[0, 0], s[0, 1], s[0, 2]
     syx, syy, syz = s[1, 0], s[1, 1], s[1, 2]
     szx, szy, szz = s[2, 0], s[2, 1], s[2, 2]
@@ -78,10 +91,16 @@ def horn_fit(p1, p2, weights=None):
     q = _max_eigvec_4x4(n)
     r = _quat_to_rot(q)
     t = c2 - r @ c1
-    a = torch.eye(4, dtype=torch.float32, device=p1.device)
+    a = torch.eye(4, dtype=torch.float32, device=s.device)
     a[:3, :3] = r
     a[:3, 3] = t
     return a
+
+
+def _update_pose(s, c1, c2, n_corr, rt):
+    """An ICP update's new pose: Horn's transform of the sums composed
+    onto ``rt``, or ``rt`` where fewer than 3 correspondences were found."""
+    return torch.where(n_corr >= 3.0, _horn_solve(s, c1, c2) @ rt, rt)
 
 
 def _nn(src, target, t2, target_mask):
@@ -127,7 +146,21 @@ def icp_point_to_point(source, target, target_mask, init, threshold,
 
     Returns: (4, 4) refined transform (plus the update count when
     ``return_iters``).
+
+    On CUDA tensors the nearest neighbours and the pose update run as the
+    kernels of ``ops.icp_cuda``, which round as the tensor ops they stand
+    for round on the card: the same transform bit for bit, without the
+    S x T distance matrix or the 4 x 4 solve's small launches.
     """
+    return _icp(source, target, target_mask, init, threshold, max_iters,
+                rel_fitness, rel_rmse, return_iters,
+                kernels=source.device.type == "cuda")
+
+
+def _icp(source, target, target_mask, init, threshold, max_iters,
+         rel_fitness, rel_rmse, return_iters, kernels):
+    """``icp_point_to_point``; ``kernels`` picks ``ops.icp_cuda``'s
+    kernels (CUDA tensors) or the tensor ops (any device)."""
     source = source.to(torch.float32)
     target = target.to(torch.float32)
     device = source.device
@@ -135,15 +168,27 @@ def icp_point_to_point(source, target, target_mask, init, threshold,
     n_src = float(source.shape[0])
     threshold = torch.as_tensor(threshold, dtype=torch.float32,
                                 device=device)
+    if kernels:
+        keys = icp_cuda.new_keys(source.shape[0], device)
 
-    def one_iter(rt):
-        """One update and this iteration's quality (fitness, inlier RMSE)."""
+        def nearest(src):
+            return icp_cuda.nearest_cuda(src, target, t2, target_mask, keys)
+        update = icp_cuda.update_pose_cuda
+    else:
+        def nearest(src):
+            return _nn(src, target, t2, target_mask)
+        update = _update_pose
+
+    def one_iter(rt, quality=True):
+        """One update and, with ``quality``, this iteration's fitness and
+        inlier RMSE."""
         src_tf = source @ rt[:3, :3].T + rt[:3, 3]
-        idx, dist = _nn(src_tf, target, t2, target_mask)
+        idx, dist = nearest(src_tf)
         w = (dist <= threshold).to(torch.float32)
         n_corr = w.sum()
-        delta = horn_fit(src_tf, target[idx], weights=w)
-        new_rt = torch.where(n_corr >= 3.0, delta @ rt, rt)
+        new_rt = update(*_horn_sums(src_tf, target[idx], w), n_corr, rt)
+        if not quality:
+            return new_rt, None, None
         fitness = n_corr / n_src
         rmse = torch.sqrt((w * dist * dist).sum()
                           / torch.clamp(n_corr, min=1.0))
@@ -152,7 +197,7 @@ def icp_point_to_point(source, target, target_mask, init, threshold,
     rt = init.to(device=device, dtype=torch.float32)
     if rel_fitness is None and rel_rmse is None:
         for _ in range(max_iters):
-            rt, _, _ = one_iter(rt)
+            rt, _, _ = one_iter(rt, quality=False)
         return (rt, max_iters) if return_iters else rt
 
     tol_f = 0.0 if rel_fitness is None else rel_fitness

@@ -12,7 +12,9 @@ the packed ``escalate`` vector that ``PoseEstimator`` checks.
 ``estimate_batch`` for a batch (a loop over frames, escalated per frame)
 and ``refine`` for an optional ICP of a frame's pose against its own scene.
 Its ``models`` are ``models.graphs.GraphedNet``s: on the card each net's
-forward replays a CUDA graph of itself after the first frame.
+forward replays a CUDA graph of itself after the first frame, and
+``refine``'s ICP replays one graph of all its updates (a
+``models.graphs.GraphCache``).
 """
 
 from __future__ import annotations
@@ -240,6 +242,7 @@ class PoseEstimator:
         pool = graphs.GraphPool()
         self.models = tuple(graphs.GraphedNet(self._load(i, v), pool)
                             for i, v in enumerate(variables_list))
+        self._icp = graphs.GraphCache(pool, "icp")
 
         def put(x):
             return torch.as_tensor(np.asarray(x, np.float32),
@@ -277,6 +280,7 @@ class PoseEstimator:
         new.device = resolve_device(device)
         new.models = tuple(m.to(new.device)
                            for m in copy.deepcopy(self.models))
+        new._icp = graphs.GraphCache(new.models[0].pool, "icp")
         for name in ("gt_kpts_mm", "max_radii", "k"):
             setattr(new, name, getattr(self, name).to(new.device))
         if self.cad_mm is not None:
@@ -429,15 +433,37 @@ class PoseEstimator:
         (constructor ``cad_mm``) to the frame's own masked scene cloud
         (``result["scene_pts"]`` / ``["scene_mask"]``) from ``result["rt"]``,
         for ``icp_iters`` (default ``cfg.icp_iters``) fixed iterations.
-        Returns the (4, 4) refined transform on the estimator's device."""
+        Returns the (4, 4) refined transform on the estimator's device.
+
+        The K rows of ``scene_pts`` (K, n_points, 3) are one cloud:
+        ``_pose_from_maps`` expands the packed points over the keypoints, as
+        the JAX package's frame program does. So the ICP runs over row 0
+        with the OR of the K rows of ``scene_mask``: the correspondences of
+        the K copies, from a K-th of the targets. The targets go in the
+        order of the first keypoint whose mask holds them, then by index,
+        so that a tie between two distinct targets resolves as it does
+        across the K copies (to the earlier copy, then the lower index). On
+        the card the ordering and the updates replay one CUDA graph per CAD
+        size, scene shape and iteration count."""
         if self.cad_mm is None:
             raise ValueError("PoseEstimator needs cad_mm for ICP refinement")
         iters = icp_iters or self.cfg.icp_iters
+
+        def icp(cad, points, masks, rt, threshold):
+            order = torch.argsort(masks.to(torch.uint8).argmax(dim=0),
+                                  stable=True)
+            return fit.icp_point_to_point(cad, points[order],
+                                          masks.any(dim=0)[order], rt,
+                                          threshold, max_iters=iters)
+
         with torch.inference_mode(), profiling.span("rcvpose.refine",
                                                     iterations=iters):
-            return fit.icp_point_to_point(
-                self.cad_mm, self._put(result["scene_pts"],
-                                       torch.float32).reshape(-1, 3),
-                self._put(result["scene_mask"], torch.bool).reshape(-1),
-                self._put(result["rt"], torch.float32), threshold_mm,
-                max_iters=iters)
+            masks = self._put(result["scene_mask"], torch.bool)
+            args = (self.cad_mm, self._put(result["scene_pts"][0],
+                                           torch.float32),
+                    masks, self._put(result["rt"], torch.float32),
+                    threshold_mm)
+            if masks.device.type != "cuda":
+                return icp(*args)
+            return self._icp((self.cad_mm.shape, masks.shape, iters,
+                              masks.device), icp, args, torch.clone)

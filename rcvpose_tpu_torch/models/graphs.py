@@ -1,4 +1,4 @@
-"""CUDA graphs over the serving nets' forwards.
+"""CUDA graphs over the serving nets' forwards and the refinement's ICP.
 
 ``GraphedNet`` owns a net (a ``DenseFCNResNet152``) and, for each input
 (shape, dtype, device) it has seen, a CUDA graph of the net's eager
@@ -23,11 +23,16 @@ graphs, which hold the addresses of the tensors they were captured with.
 Weights updated in place (``load_state_dict``, ``copy_``) are read by the
 next replay.
 
-Counters (``profiling.counters()``): ``graphs.captured`` (one a net and
-input), ``graphs.replayed`` (one a replayed forward), ``graphs.eager``
-(eval-mode forwards on the card that ran eagerly). The kernel wrappers'
-launch counts made during a capture, which runs nothing, are held back and
-added at each replay.
+``GraphCache`` is the part that knows nothing of nets: one graph of a
+function per key, under a ``GraphPool``'s rules above. ``PoseEstimator``
+keeps one for ``refine``'s fixed-iteration ICP beside its nets'.
+
+Counters (``profiling.counters()``), under each cache's prefix:
+``graphs.captured`` (one a net and input), ``graphs.replayed`` (one a
+replayed forward), ``graphs.eager`` (eval-mode forwards on the card that
+ran eagerly); ``icp.captured``, ``icp.replayed`` and ``icp.eager`` for
+``refine``'s ICP alike. The kernel wrappers' launch counts made during a
+capture, which runs nothing, are held back and added at each replay.
 """
 
 from __future__ import annotations
@@ -42,8 +47,8 @@ from rcvpose_tpu_torch import profiling
 
 
 class GraphPool:
-    """What the graphs of one estimator's nets share (see the module
-    docstring). A copy or a pickle is a new, empty pool."""
+    """What the graphs of one estimator share (see the module docstring).
+    A copy or a pickle is a new, empty pool."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -61,9 +66,79 @@ class GraphPool:
 
 class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
-    inp: torch.Tensor           # the static input
-    out: tuple                  # the static outputs
+    inputs: tuple               # the static inputs
+    out: object                 # the static outputs
     launches: list              # launch counts held back during capture
+
+
+class GraphCache(dict):
+    """The CUDA graphs of calls on the card, one a key, in ``pool``;
+    ``prefix`` names their counters. A copy or a pickle is empty, with a
+    copy of the pool."""
+
+    def __init__(self, pool, prefix):
+        super().__init__()
+        self.pool = pool
+        self.prefix = prefix
+
+    def __reduce__(self):
+        return GraphCache, (self.pool, self.prefix)
+
+    def __call__(self, key, fn, args, copy_out):
+        """``fn(*args)`` on the card through the graph at ``key``. ``args``
+        are CUDA tensors and numbers (held as f32 device scalars). The first
+        call at a key runs ``fn`` eagerly on a side stream (its result is
+        the call's) and captures it from static inputs; later calls copy
+        ``args`` into them, replay, and return ``copy_out`` of the static
+        outputs, which the next replay overwrites."""
+        pool = self.pool
+        with pool.lock:
+            stream = torch.cuda.current_stream(args[0].device)
+            graph = self.get(key)
+            if graph is None:
+                out = self._capture(key, fn, args, stream)
+            else:
+                # the pool's graphs share memory: a replay on another
+                # stream waits until the last one's outputs are copied out
+                if pool.stream is not None and pool.stream != stream:
+                    stream.wait_stream(pool.stream)
+                for static, x in zip(graph.inputs, args):
+                    if torch.is_tensor(x):
+                        static.copy_(x)
+                    else:
+                        static.fill_(x)
+                graph.graph.replay()
+                profiling.count_launches(graph.launches)
+                profiling.count(f"{self.prefix}.replayed")
+                out = copy_out(graph.out)
+            pool.stream = stream
+            return out
+
+    def _capture(self, key, fn, args, stream):
+        device = args[0].device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            out = fn(*args)
+        profiling.count(f"{self.prefix}.eager")
+        with torch.inference_mode(False):
+            inputs = tuple(
+                torch.empty(x.shape, dtype=x.dtype, device=device)
+                if torch.is_tensor(x)
+                else torch.empty((), dtype=torch.float32, device=device)
+                for x in args)
+        graph = torch.cuda.CUDAGraph()
+        with profiling.held_launches() as launches:
+            with torch.cuda.graph(graph, pool=self.pool.handle(),
+                                  stream=side,
+                                  capture_error_mode="thread_local"):
+                static = fn(*inputs)
+        stream.wait_stream(side)
+        for t in (out if isinstance(out, tuple) else (out,)):
+            t.record_stream(stream)
+        self[key] = _Graph(graph, inputs, static, launches)
+        profiling.count(f"{self.prefix}.captured")
+        return out
 
 
 class GraphedNet(nn.Module):
@@ -75,14 +150,15 @@ class GraphedNet(nn.Module):
         super().__init__()
         self.net = net
         self.training = net.training
-        self.pool = GraphPool() if pool is None else pool
-        self._graphs = {}
+        self._graphs = GraphCache(GraphPool() if pool is None else pool,
+                                  "graphs")
 
-    def __getstate__(self):
-        return {**super().__getstate__(), "_graphs": {}}
+    @property
+    def pool(self):
+        return self._graphs.pool
 
     def _apply(self, fn, *args, **kwargs):
-        self._graphs = {}
+        self._graphs.clear()
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x):
@@ -91,49 +167,8 @@ class GraphedNet(nn.Module):
         if torch.is_grad_enabled():
             profiling.count("graphs.eager")
             return self.net(x)
-        pool = self.pool
-        with pool.lock:
-            stream = torch.cuda.current_stream(x.device)
-            graph = self._graphs.get((x.shape, x.dtype, x.device))
-            if graph is None:
-                out = self._capture(x, stream)
-            else:
-                # the pool's graphs share memory: a replay on another
-                # stream waits until the last one's outputs are copied out
-                if pool.stream is not None and pool.stream != stream:
-                    stream.wait_stream(pool.stream)
-                graph.inp.copy_(x)
-                graph.graph.replay()
-                profiling.count_launches(graph.launches)
-                profiling.count("graphs.replayed")
-                out = _own_copy(graph.out)
-            pool.stream = stream
-            return out
-
-    def _capture(self, x, stream):
-        """The first call at ``x``'s shape, dtype and device: the eager
-        forward on a side stream (its outputs are the call's), then the
-        capture of the same forward from a static input."""
-        side = torch.cuda.Stream(x.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            out = self.net(x)
-        profiling.count("graphs.eager")
-        with torch.inference_mode(False):
-            inp = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        graph = torch.cuda.CUDAGraph()
-        with profiling.held_launches() as launches:
-            with torch.cuda.graph(graph, pool=self.pool.handle(),
-                                  stream=side,
-                                  capture_error_mode="thread_local"):
-                static = self.net(inp)
-        stream.wait_stream(side)
-        for t in out:
-            t.record_stream(stream)
-        self._graphs[(x.shape, x.dtype, x.device)] = _Graph(
-            graph, inp, tuple(static), launches)
-        profiling.count("graphs.captured")
-        return out
+        return self._graphs((x.shape, x.dtype, x.device), self.net, (x,),
+                            _own_copy)
 
 
 def _own_copy(outs):

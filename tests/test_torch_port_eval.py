@@ -35,6 +35,8 @@ from rcvpose_tpu_torch.data import readers as port_readers
 from rcvpose_tpu_torch.models import fcnresnet as fcn
 from tests.test_data import write_ascii_ply, write_binary_ply, write_dpt
 from tests.test_eval_lm_format import make_lm_eval_tree
+from tests.torch_port_icp import icp_problem as _icp_problem
+from tests.torch_port_icp import rot as _rot
 from tests.torch_port_threads import port_threads  # noqa: F401
 
 SCORE_ATOL_MM = 1e-2
@@ -46,13 +48,6 @@ NET_KW = dict(model_blocks="1,1,1,1", model_width=0.125)
 
 def _t(x):
     return torch.tensor(np.asarray(x, np.float32))
-
-
-def _rot(axis, angle):
-    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
-    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
-                  [-axis[1], axis[0], 0]])
-    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
 
 
 # ---------------------------------------------------------------------------
@@ -88,28 +83,6 @@ def test_metrics_match_jax():
     grid = [0, 0.02, 0.04, 0.06, 0.08, 0.1]
     assert (port_metrics.auc_add(torch.tensor(d), thresholds=grid)
             == jax_metrics.auc_add(d, thresholds=grid))
-
-
-def _icp_problem(seed):
-    """A CAD lattice (4 mm spacing, jitter under 1 mm, so neighbours stay
-    at least 2 mm apart and no nearest-neighbour tie can flip), a scene of
-    its transformed points with 0.3 mm noise and padding, and an init pose
-    off by a few degrees and millimeters."""
-    rng = np.random.default_rng(seed)
-    g = np.arange(-5, 5) * 4.0
-    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
-    cad = lattice[np.linalg.norm(lattice, axis=1) < 20.0]
-    cad = (cad + rng.uniform(-0.5, 0.5, size=cad.shape)).astype(np.float32)
-    rot = _rot(rng.normal(size=3), 0.4)
-    t = np.array([10.0, -20.0, 80.0])
-    scene = cad @ rot.T + t + rng.normal(size=cad.shape) * 0.3
-    pad = np.zeros((37, 3))
-    target = np.concatenate([scene, pad]).astype(np.float32)
-    mask = np.arange(len(target)) < len(scene)
-    init = np.eye(4)
-    init[:3, :3] = _rot(rng.normal(size=3), 0.05) @ rot
-    init[:3, 3] = t + rng.normal(size=3) * 1.5
-    return cad, target, mask, init.astype(np.float32)
 
 
 @pytest.mark.parametrize("mode", ["fixed", "converged"])
