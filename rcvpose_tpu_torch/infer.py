@@ -12,14 +12,18 @@ the packed ``escalate`` vector that ``PoseEstimator`` checks.
 ``estimate_batch`` for a batch (a loop over frames, escalated per frame)
 and ``refine`` for an optional ICP of a frame's pose against its own scene.
 Its ``models`` are ``models.graphs.GraphedNet``s: on the card each net's
-forward replays a CUDA graph of itself after the first frame, and
-``refine``'s ICP replays one graph of all its updates (a
-``models.graphs.GraphCache``).
+forward replays a CUDA graph of itself after the first frame, ``estimate``
+replays the whole of ``_pose_from_maps`` as one graph a packing key
+(``full_frame``, ``n_points``), and ``refine``'s ICP replays one graph of
+all its updates (the last two through ``models.graphs.GraphCache``s).
+``_frame_pose`` and ``_frame_pose_fused`` stay eager, for every other
+caller.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import torch
@@ -82,15 +86,10 @@ def _frame_pose(models, image_norm, depth_mm, k, max_radii_dm, gt_kpts_mm,
     normalized; depth_mm (H, W); k (3, 3); max_radii_dm (3,); gt_kpts_mm
     (3, 3) model-frame keypoints. Returns the ``_pose_from_maps`` dict.
     """
-    maps = []
-    for i, m in enumerate(models):
-        with profiling.span("rcvpose.net", net=i):
-            maps.append(m(image_norm[None]))
-    sem_maps = torch.stack([seg[0, :, :, 0] for seg, _ in maps])
-    radial_maps = torch.stack([rad[0, :, :, 0] for _, rad in maps])
-    return _pose_from_maps(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
-                           gt_kpts_mm, sem_threshold, n_points, grid_l, mode,
-                           full_frame, topk, cpt_stride, win, win_hw)
+    return _pose_from_maps(*_maps(_forward(models, image_norm), False),
+                           depth_mm, k, max_radii_dm, gt_kpts_mm,
+                           sem_threshold, n_points, grid_l, mode, full_frame,
+                           topk, cpt_stride, win, win_hw)
 
 
 def _frame_pose_fused(model, image_norm, depth_mm, k, max_radii_dm,
@@ -99,13 +98,30 @@ def _frame_pose_fused(model, image_norm, depth_mm, k, max_radii_dm,
                       cpt_stride=None, win=None, win_hw=None):
     """Fused multi-head frame: ONE forward (``kpt_heads`` output pairs)
     serves every keypoint; voting and fit as in ``_frame_pose``."""
-    with profiling.span("rcvpose.net", net=0):
-        seg, radial = model(image_norm[None])
-    return _pose_from_maps(seg[0].permute(2, 0, 1),
-                           radial[0].permute(2, 0, 1), depth_mm, k,
-                           max_radii_dm, gt_kpts_mm, sem_threshold, n_points,
-                           grid_l, mode, full_frame, topk, cpt_stride, win,
-                           win_hw)
+    return _pose_from_maps(*_maps(_forward((model,), image_norm), True),
+                           depth_mm, k, max_radii_dm, gt_kpts_mm,
+                           sem_threshold, n_points, grid_l, mode, full_frame,
+                           topk, cpt_stride, win, win_hw)
+
+
+def _forward(models, image_norm):
+    """Each net's forward of one frame: its (seg, radial) outputs, all in
+    one flat tuple."""
+    outs = []
+    for i, m in enumerate(models):
+        with profiling.span("rcvpose.net", net=i):
+            outs.extend(m(image_norm[None]))
+    return tuple(outs)
+
+
+def _maps(outs, fused):
+    """The (K, H, W) sem and radial maps of ``_forward``'s outputs: one
+    fused net's (1, H, W, K) pair, or K nets' (1, H, W, 1) pairs."""
+    if fused:
+        seg, radial = outs
+        return seg[0].permute(2, 0, 1), radial[0].permute(2, 0, 1)
+    return (torch.stack([seg[0, :, :, 0] for seg in outs[0::2]]),
+            torch.stack([rad[0, :, :, 0] for rad in outs[1::2]]))
 
 
 def _pose_from_maps(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
@@ -121,29 +137,70 @@ def _pose_from_maps(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
     [any cropped, budget_exceeded, union_count]).
     """
     with profiling.span("rcvpose.pose"):
-        with profiling.span("rcvpose.pack"):
-            pts, valid, rad, counts, total_valid, union_count = _pack(
-                sem_maps, radial_maps, depth_mm, k, max_radii_dm,
-                sem_threshold, n_points, full_frame, win_hw)
-        n_kpt = sem_maps.shape[0]
-        res = voting.accumulate_3d(pts.expand(n_kpt, -1, -1), rad, valid,
-                                   grid_l=grid_l, mode=mode, topk=topk,
-                                   cpt_stride=cpt_stride, win=win)
-        with profiling.span("rcvpose.fit"):
-            rt = fit.horn_fit(gt_kpts_mm, res.center_mm)
-        cropped = counts < total_valid  # the window truncated mask pixels
-        budget_exceeded = union_count > n_points
-        # One packed vector of the escalation signals: estimate() reads it
-        # on the host every frame, in one transfer.
-        escalate = torch.stack([cropped.any().to(torch.float32),
-                                budget_exceeded.to(torch.float32),
-                                union_count.to(torch.float32)])
-        return {"rt": rt, "centers": res.center_mm,
-                "overflow": res.overflow, "counts": counts,
-                "scene_pts": (pts * 1000.0).expand(n_kpt, -1, -1),
-                "scene_mask": valid, "cropped": cropped,
-                "budget_exceeded": budget_exceeded,
-                "union_count": union_count, "escalate": escalate}
+        return _pose_stages(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
+                            gt_kpts_mm, sem_threshold, n_points, grid_l,
+                            mode, full_frame, topk, cpt_stride, win, win_hw)
+
+
+def _pose_stages(sem_maps, radial_maps, depth_mm, k, max_radii_dm,
+                 gt_kpts_mm, sem_threshold, n_points, grid_l, mode,
+                 full_frame, topk, cpt_stride, win, win_hw):
+    """``_pose_from_maps`` inside its span: packing, the vote and the fit."""
+    with profiling.span("rcvpose.pack"):
+        pts, valid, rad, counts, total_valid, union_count = _pack(
+            sem_maps, radial_maps, depth_mm, k, max_radii_dm,
+            sem_threshold, n_points, full_frame, win_hw)
+    n_kpt = sem_maps.shape[0]
+    res = voting.accumulate_3d(pts.expand(n_kpt, -1, -1), rad, valid,
+                               grid_l=grid_l, mode=mode, topk=topk,
+                               cpt_stride=cpt_stride, win=win)
+    with profiling.span("rcvpose.fit"):
+        rt = fit.horn_fit(gt_kpts_mm, res.center_mm)
+    cropped = counts < total_valid  # the window truncated mask pixels
+    budget_exceeded = union_count > n_points
+    # One packed vector of the escalation signals: estimate() reads it
+    # on the host every frame, in one transfer.
+    escalate = torch.stack([cropped.any().to(torch.float32),
+                            budget_exceeded.to(torch.float32),
+                            union_count.to(torch.float32)])
+    return {"rt": rt, "centers": res.center_mm,
+            "overflow": res.overflow, "counts": counts,
+            "scene_pts": (pts * 1000.0).expand(n_kpt, -1, -1),
+            "scene_mask": valid, "cropped": cropped,
+            "budget_exceeded": budget_exceeded,
+            "union_count": union_count, "escalate": escalate}
+
+
+# The pose dict's entries by dtype (f32, int32, bool), in the order a pose
+# graph packs them into one buffer a dtype, so that a replay's outputs are
+# copied out in three copies; ``scene_pts`` is packed as its one
+# (n_points, 3) cloud.
+_PACKED = (("rt", "centers", "escalate", "scene_pts"),
+           ("counts", "union_count"),
+           ("overflow", "cropped", "budget_exceeded", "scene_mask"))
+
+
+def _packed(result):
+    """``_pose_stages``'s dict as ``_PACKED``'s three flat buffers."""
+    parts = {**result, "scene_pts": result["scene_pts"][0]}
+    return tuple(torch.cat([parts[key].reshape(-1) for key in keys])
+                 for keys in _PACKED)
+
+
+def _unpacked(buffers, n_kpt, n_points):
+    """The pose dict of ``_packed``'s buffers (views of them), with
+    ``scene_pts`` an expand of one cloud over the K keypoints."""
+    shapes = {"rt": (4, 4), "centers": (n_kpt, 3), "overflow": (n_kpt,),
+              "counts": (n_kpt,), "scene_pts": (n_points, 3),
+              "scene_mask": (n_kpt, n_points), "cropped": (n_kpt,),
+              "budget_exceeded": (), "union_count": (), "escalate": (3,)}
+    out = {}
+    for keys, buf in zip(_PACKED, buffers):
+        parts = buf.split([math.prod(shapes[key]) for key in keys])
+        out.update((key, part.view(shapes[key]))
+                   for key, part in zip(keys, parts))
+    out["scene_pts"] = out["scene_pts"].expand(n_kpt, -1, -1)
+    return {key: out[key] for key in shapes}   # _pose_stages's order
 
 
 def _pack(sem_maps, radial_maps, depth_mm, k, max_radii_dm, sem_threshold,
@@ -243,6 +300,7 @@ class PoseEstimator:
         self.models = tuple(graphs.GraphedNet(self._load(i, v), pool)
                             for i, v in enumerate(variables_list))
         self._icp = graphs.GraphCache(pool, "icp")
+        self._pose = graphs.GraphCache(pool, "pose")
 
         def put(x):
             return torch.as_tensor(np.asarray(x, np.float32),
@@ -281,6 +339,7 @@ class PoseEstimator:
         new.models = tuple(m.to(new.device)
                            for m in copy.deepcopy(self.models))
         new._icp = graphs.GraphCache(new.models[0].pool, "icp")
+        new._pose = graphs.GraphCache(new.models[0].pool, "pose")
         for name in ("gt_kpts_mm", "max_radii", "k"):
             setattr(new, name, getattr(self, name).to(new.device))
         if self.cad_mm is not None:
@@ -356,11 +415,36 @@ class PoseEstimator:
                 depth = self._put(depth_mm, torch.float32)
 
             def run(full_frame, n_points):
+                kwargs = self._frame_kwargs(full_frame, n_points)
+                if depth.device.type == "cuda":
+                    return self._graphed_pose(
+                        _forward(self.models, image_norm), depth, kwargs)
                 return pose_fn(self._net(), image_norm, depth, self.k,
-                               self.max_radii, self.gt_kpts_mm,
-                               **self._frame_kwargs(full_frame, n_points))
+                               self.max_radii, self.gt_kpts_mm, **kwargs)
 
             return self._escalate(run, depth.numel())
+
+    def _graphed_pose(self, outs, depth, kwargs):
+        """``_pose_from_maps`` of the nets' outputs ``outs`` (``_forward``'s)
+        and ``depth`` on the card, replayed from ``self._pose``'s CUDA graph
+        at the key of the shapes and ``kwargs``. The graph takes ``outs``
+        and ``depth`` and holds the estimator's constants; it returns the
+        dict's ``_packed`` buffers, and a replay's are copied out, so that
+        the next replay cannot overwrite a result a caller holds."""
+        fused = self.fused
+        n_kpt = outs[0].shape[-1] if fused else len(outs) // 2
+        consts = (self.k, self.max_radii, self.gt_kpts_mm)
+
+        def pose(*args):
+            return _packed(_pose_stages(*_maps(args[:-1], fused), args[-1],
+                                        *consts, **kwargs))
+
+        key = (tuple((t.shape, t.dtype) for t in outs), depth.shape, fused,
+               tuple(kwargs.items()), depth.device)
+        with profiling.span("rcvpose.pose"):
+            buffers = self._pose(key, pose, outs + (depth,),
+                                 lambda out: tuple(t.clone() for t in out))
+            return _unpacked(buffers, n_kpt, kwargs["n_points"])
 
     def estimate_batch(self, images_u8, depths_mm):
         """(B, H, W, 3) uint8 images + (B, H, W) mm depths -> the frame dict

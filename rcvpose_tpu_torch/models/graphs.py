@@ -25,12 +25,14 @@ next replay.
 
 ``GraphCache`` is the part that knows nothing of nets: one graph of a
 function per key, under a ``GraphPool``'s rules above. ``PoseEstimator``
-keeps one for ``refine``'s fixed-iteration ICP beside its nets'.
+keeps one for ``estimate``'s pose (``_pose_from_maps``) and one for
+``refine``'s fixed-iteration ICP beside its nets'.
 
 Counters (``profiling.counters()``), under each cache's prefix:
 ``graphs.captured`` (one a net and input), ``graphs.replayed`` (one a
 replayed forward), ``graphs.eager`` (eval-mode forwards on the card that
-ran eagerly); ``icp.captured``, ``icp.replayed`` and ``icp.eager`` for
+ran eagerly); ``pose.captured``, ``pose.replayed`` and ``pose.eager`` for
+the pose, ``icp.captured``, ``icp.replayed`` and ``icp.eager`` for
 ``refine``'s ICP alike. The kernel wrappers' launch counts made during a
 capture, which runs nothing, are held back and added at each replay.
 """
@@ -88,9 +90,11 @@ class GraphCache(dict):
         """``fn(*args)`` on the card through the graph at ``key``. ``args``
         are CUDA tensors and numbers (held as f32 device scalars). The first
         call at a key runs ``fn`` eagerly on a side stream (its result is
-        the call's) and captures it from static inputs; later calls copy
-        ``args`` into them, replay, and return ``copy_out`` of the static
-        outputs, which the next replay overwrites."""
+        the call's) and captures it from static inputs, laid out as the
+        first call's ``args`` (so that copying later ones in is a plain
+        copy); later calls copy ``args`` into them, replay, and return
+        ``copy_out`` of the static outputs, which the next replay
+        overwrites."""
         pool = self.pool
         with pool.lock:
             stream = torch.cuda.current_stream(args[0].device)
@@ -123,8 +127,7 @@ class GraphCache(dict):
         profiling.count(f"{self.prefix}.eager")
         with torch.inference_mode(False):
             inputs = tuple(
-                torch.empty(x.shape, dtype=x.dtype, device=device)
-                if torch.is_tensor(x)
+                torch.empty_like(x) if torch.is_tensor(x)
                 else torch.empty((), dtype=torch.float32, device=device)
                 for x in args)
         graph = torch.cuda.CUDAGraph()

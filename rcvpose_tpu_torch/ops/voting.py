@@ -167,11 +167,12 @@ def _prepare(xyz_m, radial_dm, point_mask):
     radii_vox = radial_dm.to(torch.float32) * (100.0 / ACC_UNIT_MM)
     radii_round = torch.round(radii_vox)  # half to even, as np.around
 
-    big = torch.tensor(3e38, dtype=torch.float32, device=xyz_m.device)
+    # Python scalars, not a device tensor: no host-to-device copy, which
+    # would block the host and could not sit in a CUDA graph
     m3 = point_mask[..., None]
-    cmin = torch.where(m3, centered, big).amin(dim=(1, 2))
-    cmax = torch.where(m3, centered, -big).amax(dim=(1, 2))
-    rmax = torch.where(point_mask, radii_vox, -big).amax(dim=1)
+    cmin = torch.where(m3, centered, 3e38).amin(dim=(1, 2))
+    cmax = torch.where(m3, centered, -3e38).amax(dim=(1, 2))
+    rmax = torch.where(point_mask, radii_vox, -3e38).amax(dim=1)
 
     # zero_boundary = int(min - r_max) + 1; int() truncates toward zero.
     zero_boundary = torch.trunc(cmin - rmax) + 1.0

@@ -20,8 +20,9 @@
 * ``count(name, n=1)`` and ``counters()``: the process's counters, under
   one lock (``frames``, ``escalations.cropped``, ``escalations.budget``,
   ``kernels.built``, ``kernels.loaded``, ``graphs.captured``,
-  ``graphs.replayed``, ``graphs.eager``, ``icp.captured``,
-  ``icp.replayed``, ``icp.eager``). With ``owner=`` the count goes
+  ``graphs.replayed``, ``graphs.eager``, ``pose.captured``,
+  ``pose.replayed``, ``pose.eager``, ``icp.captured``, ``icp.replayed``,
+  ``icp.eager``). With ``owner=`` the count goes
   to an attribute of that object instead: the kernel wrappers'
   ``.launches``. Inside ``held_launches()`` (a CUDA graph's capture,
   which launches nothing) a thread's ``owner=`` counts are held back, and

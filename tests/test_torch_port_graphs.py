@@ -58,9 +58,11 @@ def _frame(seed, hw=HW, patch=24):
 
 
 def _eager_twin(est):
-    """The same estimator with the bare nets: the forward before graphs."""
+    """The same estimator with the bare nets and its pose run in place of
+    the pose graph's replay: the frame before graphs."""
     twin = copy.copy(est)
     twin.models = tuple(m.net for m in est.models)
+    twin._pose = lambda key, fn, args, copy_out: fn(*args)
     return twin
 
 
