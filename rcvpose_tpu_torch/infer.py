@@ -11,13 +11,12 @@ the packed ``escalate`` vector that ``PoseEstimator`` checks.
 ``PoseEstimator`` is the serving API: ``estimate(image, depth)`` per frame,
 ``estimate_batch`` for a batch (a loop over frames, escalated per frame)
 and ``refine`` for an optional ICP of a frame's pose against its own scene.
-Its ``models`` are ``models.graphs.GraphedNet``s: on the card each net's
-forward replays a CUDA graph of itself after the first frame, ``estimate``
-replays the whole of ``_pose_from_maps`` as one graph a packing key
-(``full_frame``, ``n_points``), and ``refine``'s ICP replays one graph of
-all its updates (the last two through ``models.graphs.GraphCache``s).
-``_frame_pose`` and ``_frame_pose_fused`` stay eager, for every other
-caller.
+Its nets' forwards (``models.graphs.GraphedNet``s), ``estimate``'s
+``_pose_from_maps`` (one call a packing key: ``full_frame``, ``n_points``)
+and ``refine``'s ICP each go through a ``models.graphs.GraphCache``, which
+on the card replays one CUDA graph of the call after the first and
+elsewhere runs it. ``_frame_pose`` and ``_frame_pose_fused`` stay eager,
+for every other caller.
 """
 
 from __future__ import annotations
@@ -388,9 +387,6 @@ class PoseEstimator:
                     cpt_stride=cfg.vote_cpt_stride, win=cfg.vote_win,
                     win_hw=self.win_hw)
 
-    def _net(self):
-        return self.models[0] if self.fused else self.models
-
     def estimate(self, image_u8, depth_mm):
         """image: (H, W, 3) uint8 RGB; depth: (H, W) mm (numpy arrays or
         tensors). Returns the ``_pose_from_maps`` dict as device tensors.
@@ -407,7 +403,6 @@ class PoseEstimator:
             profiling.end_startup()
 
     def _estimate(self, image_u8, depth_mm):
-        pose_fn = _frame_pose_fused if self.fused else _frame_pose
         with torch.inference_mode():
             with profiling.span("rcvpose.inputs"):
                 image_norm = labels.normalize_image(
@@ -415,22 +410,17 @@ class PoseEstimator:
                 depth = self._put(depth_mm, torch.float32)
 
             def run(full_frame, n_points):
-                kwargs = self._frame_kwargs(full_frame, n_points)
-                if depth.device.type == "cuda":
-                    return self._graphed_pose(
-                        _forward(self.models, image_norm), depth, kwargs)
-                return pose_fn(self._net(), image_norm, depth, self.k,
-                               self.max_radii, self.gt_kpts_mm, **kwargs)
+                return self._pose_of(_forward(self.models, image_norm), depth,
+                                     self._frame_kwargs(full_frame, n_points))
 
             return self._escalate(run, depth.numel())
 
-    def _graphed_pose(self, outs, depth, kwargs):
+    def _pose_of(self, outs, depth, kwargs):
         """``_pose_from_maps`` of the nets' outputs ``outs`` (``_forward``'s)
-        and ``depth`` on the card, replayed from ``self._pose``'s CUDA graph
-        at the key of the shapes and ``kwargs``. The graph takes ``outs``
-        and ``depth`` and holds the estimator's constants; it returns the
-        dict's ``_packed`` buffers, and a replay's are copied out, so that
-        the next replay cannot overwrite a result a caller holds."""
+        and ``depth`` through ``self._pose``, at the key of the shapes and
+        ``kwargs``. The call takes ``outs`` and ``depth``, holds the
+        estimator's constants and returns the dict's ``_packed`` buffers;
+        the result is views of them."""
         fused = self.fused
         n_kpt = outs[0].shape[-1] if fused else len(outs) // 2
         consts = (self.k, self.max_radii, self.gt_kpts_mm)
@@ -440,11 +430,10 @@ class PoseEstimator:
                                         *consts, **kwargs))
 
         key = (tuple((t.shape, t.dtype) for t in outs), depth.shape, fused,
-               tuple(kwargs.items()), depth.device)
+               tuple(kwargs.items()))
         with profiling.span("rcvpose.pose"):
-            buffers = self._pose(key, pose, outs + (depth,),
-                                 lambda out: tuple(t.clone() for t in out))
-            return _unpacked(buffers, n_kpt, kwargs["n_points"])
+            return _unpacked(self._pose(key, pose, outs + (depth,)), n_kpt,
+                             kwargs["n_points"])
 
     def estimate_batch(self, images_u8, depths_mm):
         """(B, H, W, 3) uint8 images + (B, H, W) mm depths -> the frame dict
@@ -467,12 +456,13 @@ class PoseEstimator:
         imgs_np = np.asarray(images_u8)
         deps_np = np.asarray(depths_mm, np.float32)
         batch_fn = frame_pose_fused_batch if self.fused else frame_pose_batch
+        nets = self.models[0] if self.fused else self.models
         with torch.inference_mode():
             with profiling.span("rcvpose.inputs"):
                 imgs = labels.normalize_image(
                     self._put(imgs_np, torch.uint8))
                 deps = self._put(deps_np, torch.float32)
-            result = batch_fn(self._net(), imgs, deps, self.k,
+            result = batch_fn(nets, imgs, deps, self.k,
                               self.max_radii, self.gt_kpts_mm,
                               **self._frame_kwargs(False,
                                                    self.cfg.max_points))
@@ -547,7 +537,5 @@ class PoseEstimator:
                                            torch.float32),
                     masks, self._put(result["rt"], torch.float32),
                     threshold_mm)
-            if masks.device.type != "cuda":
-                return icp(*args)
-            return self._icp((self.cad_mm.shape, masks.shape, iters,
-                              masks.device), icp, args, torch.clone)
+            return self._icp((self.cad_mm.shape, masks.shape, iters), icp,
+                             args)

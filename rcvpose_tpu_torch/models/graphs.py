@@ -1,39 +1,39 @@
-"""CUDA graphs over the serving nets' forwards and the refinement's ICP.
+"""CUDA graphs over the serving path: the nets' forwards, the pose and the
+refinement's ICP.
 
-``GraphedNet`` owns a net (a ``DenseFCNResNet152``) and, for each input
-(shape, dtype, device) it has seen, a CUDA graph of the net's eager
-forward. A call on the card, with the net in eval mode and grad disabled
-(``inference_mode`` or ``no_grad``), copies the input into the graph's
-static input, replays the graph (one ``cudaGraphLaunch`` in place of the
-forward's ~930 kernel launches) and returns a copy of the graph's outputs
-that the next replay cannot overwrite. Everything else runs the eager
-forward: the CPU, train mode, grad-enabled calls, and the first call at
-an input, which runs eagerly on a side stream (cuDNN's heuristics and
-lazy loading happen there) and then captures the same forward. The graph
-runs the same kernels as the eager forward, so its outputs equal the
-eager ones bit for bit.
+``GraphCache`` owns the one rule. A call ``cache(key, fn, args)`` whose
+first argument is not a CUDA tensor runs ``fn(*args)`` and counts
+nothing. On the card with grad enabled it runs ``fn(*args)`` eagerly and
+counts ``<prefix>.eager``. Otherwise it holds one CUDA graph of ``fn`` a
+key and device: the first call runs ``fn`` eagerly on a side stream
+(cuDNN's heuristics and lazy loading happen there) and then captures it;
+later calls copy ``args`` into the graph's static inputs, replay it (one
+``cudaGraphLaunch`` in place of the host's launches) and return owned
+copies of the static outputs, which the next replay cannot overwrite.
+The graph runs the same kernels as the eager call, so its outputs equal
+the eager ones bit for bit.
 
-The nets of one estimator share a ``GraphPool``: one graph memory pool
-(they replay one after another, so one net's graph reuses the memory
-another's freed during capture), one lock over the enqueueing of each
-replay, and the stream of the last replay, which a replay on another
-stream waits for. A copy or a pickle of a ``GraphedNet`` carries no graph
-and gets a pool of its own; ``.to()`` and the other tensor moves drop the
-graphs, which hold the addresses of the tensors they were captured with.
-Weights updated in place (``load_state_dict``, ``copy_``) are read by the
-next replay.
+``GraphedNet`` owns a net (a ``DenseFCNResNet152``) and a cache of its
+eval-mode forwards, one graph an input shape and dtype; train mode runs
+the net. ``PoseEstimator`` keeps two more caches beside its nets':
+``estimate``'s pose (``_pose_from_maps``) and ``refine``'s
+fixed-iteration ICP.
 
-``GraphCache`` is the part that knows nothing of nets: one graph of a
-function per key, under a ``GraphPool``'s rules above. ``PoseEstimator``
-keeps one for ``estimate``'s pose (``_pose_from_maps``) and one for
-``refine``'s fixed-iteration ICP beside its nets'.
+The caches of one estimator share a ``GraphPool``: one graph memory pool
+(they replay one after another, so one graph reuses the memory another
+freed during capture), one lock over the enqueueing of each replay, and
+the stream of the last replay, which a replay on another stream waits
+for. A copy or a pickle of a cache or a ``GraphedNet`` carries no graph
+and gets a pool of its own; ``.to()`` and the other tensor moves of a
+``GraphedNet`` drop its graphs, which hold the addresses of the tensors
+they were captured with. Weights updated in place (``load_state_dict``,
+``copy_``) are read by the next replay.
 
 Counters (``profiling.counters()``), under each cache's prefix:
-``graphs.captured`` (one a net and input), ``graphs.replayed`` (one a
-replayed forward), ``graphs.eager`` (eval-mode forwards on the card that
-ran eagerly); ``pose.captured``, ``pose.replayed`` and ``pose.eager`` for
-the pose, ``icp.captured``, ``icp.replayed`` and ``icp.eager`` for
-``refine``'s ICP alike. The kernel wrappers' launch counts made during a
+``<prefix>.captured`` (one a graph), ``<prefix>.replayed`` (one a
+replay), ``<prefix>.eager`` (calls on the card that ran eagerly, the
+first at each key included); the prefixes are ``graphs`` for the nets,
+``pose`` and ``icp``. The kernel wrappers' launch counts made during a
 capture, which runs nothing, are held back and added at each replay.
 """
 
@@ -86,18 +86,22 @@ class GraphCache(dict):
     def __reduce__(self):
         return GraphCache, (self.pool, self.prefix)
 
-    def __call__(self, key, fn, args, copy_out):
-        """``fn(*args)`` on the card through the graph at ``key``. ``args``
-        are CUDA tensors and numbers (held as f32 device scalars). The first
-        call at a key runs ``fn`` eagerly on a side stream (its result is
-        the call's) and captures it from static inputs, laid out as the
-        first call's ``args`` (so that copying later ones in is a plain
-        copy); later calls copy ``args`` into them, replay, and return
-        ``copy_out`` of the static outputs, which the next replay
-        overwrites."""
+    def __call__(self, key, fn, args):
+        """``fn(*args)``, through the graph at ``key`` on the card (see the
+        module docstring). ``args`` are tensors and numbers (held as f32
+        device scalars in a graph). The first call at a key captures from
+        static inputs laid out as its ``args`` (so that copying later ones
+        in is a plain copy)."""
+        device = args[0].device
+        if device.type != "cuda":
+            return fn(*args)
+        if torch.is_grad_enabled():
+            profiling.count(f"{self.prefix}.eager")
+            return fn(*args)
+        key = (key, device)
         pool = self.pool
         with pool.lock:
-            stream = torch.cuda.current_stream(args[0].device)
+            stream = torch.cuda.current_stream(device)
             graph = self.get(key)
             if graph is None:
                 out = self._capture(key, fn, args, stream)
@@ -114,7 +118,7 @@ class GraphCache(dict):
                 graph.graph.replay()
                 profiling.count_launches(graph.launches)
                 profiling.count(f"{self.prefix}.replayed")
-                out = copy_out(graph.out)
+                out = _own_copy(graph.out)
             pool.stream = stream
             return out
 
@@ -145,9 +149,9 @@ class GraphCache(dict):
 
 
 class GraphedNet(nn.Module):
-    """``net`` whose eval-mode, grad-free forwards on the card replay a CUDA
-    graph (see the module docstring). ``net`` is its only child, so its
-    parameters are this module's under the prefix ``net.``."""
+    """``net`` whose eval-mode forwards go through a ``GraphCache`` (see
+    the module docstring). ``net`` is its only child, so its parameters
+    are this module's under the prefix ``net.``."""
 
     def __init__(self, net, pool=None):
         super().__init__()
@@ -165,18 +169,16 @@ class GraphedNet(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x):
-        if x.device.type != "cuda" or self.net.training:
+        if self.net.training:
             return self.net(x)
-        if torch.is_grad_enabled():
-            profiling.count("graphs.eager")
-            return self.net(x)
-        return self._graphs((x.shape, x.dtype, x.device), self.net, (x,),
-                            _own_copy)
+        return self._graphs((x.shape, x.dtype), self.net, (x,))
 
 
 def _own_copy(outs):
-    """The tensors ``outs`` in memory of their own: each storage they view
-    copied once, and the same views of the copy."""
+    """A tensor or a tuple of tensors ``outs`` in memory of their own:
+    each storage they view copied once, and the same views of the copy."""
+    if torch.is_tensor(outs):
+        return _own_copy((outs,))[0]
     copies = {}
     res = []
     for t in outs:

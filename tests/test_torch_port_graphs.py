@@ -1,6 +1,7 @@
-"""CUDA graphs over the serving nets (``models/graphs.py``): what the
-estimator's ``GraphedNet``s do off the card and, on the card, that a
-replay equals the eager forward.
+"""CUDA graphs over the serving path (``models/graphs.py``): the one rule
+``GraphCache`` keeps for the nets, the pose and the ICP off the card, what
+copies of an estimator carry, and, on the card, that the nets' replays
+equal the eager forward.
 
 The CPU cases run everywhere. The ``cuda`` cases need an NVIDIA card and
 ``nvcc`` (K1 and K2 build at first use) and skip elsewhere; the file
@@ -17,44 +18,16 @@ import numpy as np
 import pytest
 import torch
 
-from rcvpose_tpu_torch import infer, profiling, train
-from rcvpose_tpu_torch.config import Config
-from rcvpose_tpu_torch.models import fcnresnet, graphs
+from rcvpose_tpu_torch import fit, infer, labels, profiling
+from rcvpose_tpu_torch.models import graphs
 from rcvpose_tpu_torch.ops import heads
+from tests.torch_port_estimators import HW, estimator, frame
+from tests.torch_port_icp import icp_problem
+from tests.torch_port_threads import port_threads  # noqa: F401
 
-HW = 64
 GRAPH_COUNTERS = ("graphs.captured", "graphs.replayed", "graphs.eager")
-
-
-def _cfg(kpt_heads, dtype="float32", **kw):
-    # a threshold below every logit and radii above every map: each pixel
-    # with depth is in every mask, whatever the random heads give
-    return Config(compute_dtype=dtype, vote_grid_l=64, max_points=1024,
-                  image_height=HW, image_width=HW, model_blocks="1,1,1,1",
-                  model_width=0.125, kpt_heads=kpt_heads,
-                  sem_threshold=-1e30, **kw)
-
-
-def _estimator(kpt_heads, device="cpu", dtype="float32", **kw):
-    cfg = _cfg(kpt_heads, dtype, **kw)
-    weights = []
-    for i in range(1 if kpt_heads > 1 else 3):
-        net = fcnresnet.init_params(train.build_model(cfg),
-                                    torch.Generator().manual_seed(i))
-        weights.append(net.state_dict())
-    keypoints = np.random.default_rng(kpt_heads).normal(size=(9, 3)) * 0.05
-    return infer.PoseEstimator(cfg, weights, keypoints, [1e6] * 3,
-                               device=device)
-
-
-def _frame(seed, hw=HW, patch=24):
-    rng = np.random.default_rng(seed)
-    img = rng.integers(0, 256, size=(hw, hw, 3), dtype=np.uint8)
-    depth = np.zeros((hw, hw), np.float32)
-    r0 = (hw - patch) // 2
-    depth[r0:r0 + patch, r0:r0 + patch] = rng.uniform(
-        650.0, 750.0, size=(patch, patch))
-    return img, depth
+ALL_COUNTERS = tuple(f"{prefix}.{what}" for prefix in ("graphs", "pose", "icp")
+                     for what in ("captured", "replayed", "eager"))
 
 
 def _eager_twin(est):
@@ -62,55 +35,112 @@ def _eager_twin(est):
     the pose graph's replay: the frame before graphs."""
     twin = copy.copy(est)
     twin.models = tuple(m.net for m in est.models)
-    twin._pose = lambda key, fn, args, copy_out: fn(*args)
+    twin._pose = lambda key, fn, args: fn(*args)
     return twin
 
 
-def _graph_counts():
+def _counts(names=GRAPH_COUNTERS):
     counts = profiling.counters()
-    return {name: counts.get(name, 0) for name in GRAPH_COUNTERS}
+    return {name: counts.get(name, 0) for name in names}
 
 
 def _equal_results(a, b):
-    assert a.keys() == b.keys()
+    assert list(a) == list(b)
     for key in a:
+        assert a[key].dtype == b[key].dtype, key
         assert torch.equal(a[key], b[key]), key
 
 
+def _caches(est, what=None):
+    """The estimator's ``GraphCache``s: the nets', the pose's and the
+    ICP's, or those of ``what`` alone."""
+    caches = {"nets": [m._graphs for m in est.models], "pose": [est._pose],
+              "icp": [est._icp]}
+    return caches[what] if what else [c for cs in caches.values() for c in cs]
+
+
+def _frame_args(est, img, depth):
+    """``img`` normalized and ``depth`` on the estimator's device."""
+    return (labels.normalize_image(est._put(img, torch.uint8)),
+            est._put(depth, torch.float32))
+
+
 # ---------------------------------------------------------------------------
-# CPU: the eager path, the hooks, copies
+# CPU: the rule off the card, the hooks, copies
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode", ["inference", "train", "grad"])
-def test_off_the_card_the_eager_forward_runs_and_counts_nothing(mode):
-    est = _estimator(1)
+def _net_off_the_card(est, mode):
+    """A net's forward in ``mode`` equals the bare net's (but in train
+    mode, whose batch norm moves the statistics)."""
     net = est.models[0]
     x = torch.rand(1, HW, HW, 3, generator=torch.Generator().manual_seed(0))
-    before = _graph_counts()
     if mode == "train":
         net.train()
         assert net.net.training
-        got = net(x)
+        assert len(net(x)) == 2
         net.eval()
-        want = None   # train-mode batch norm moved the statistics
-    else:
-        context = (torch.inference_mode() if mode == "inference"
-                   else torch.enable_grad())
-        with context:
-            got = net(x)
-            want = net.net(x)
-    assert _graph_counts() == before
-    assert not net._graphs
+        return
+    context = (torch.inference_mode() if mode == "inference"
+               else torch.enable_grad())
+    with context:
+        got = net(x)
+        want = net.net(x)
     assert len(got) == 2 and got[0].shape == (1, HW, HW, 1)
-    if want is not None:
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-    if mode == "grad":
-        assert got[0].requires_grad
+    assert got[0].requires_grad == (mode == "grad")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _pose_off_the_card(est):
+    """A frame's pose equals the eager ``_pose_from_maps`` of the same
+    nets' outputs."""
+    img, depth = frame(0)
+    got = est.estimate(img, depth)
+    with torch.inference_mode():
+        x, dep = _frame_args(est, img, depth)
+        want = infer._pose_from_maps(
+            *infer._maps(infer._forward(est.models, x), est.fused), dep,
+            est.k, est.max_radii, est.gt_kpts_mm,
+            **est._frame_kwargs(False, est.cfg.max_points))
+    _equal_results(got, want)
+    assert got["scene_pts"].stride(0) == 0
+
+
+def _icp_off_the_card(est):
+    """Refinements, with grad disabled and enabled, equal the ICP over the
+    one masked cloud (all K masks alike), which counts nothing either."""
+    cad, target, mask, init = (torch.as_tensor(a) for a in icp_problem(2))
+    result = {"scene_pts": target.expand(3, -1, -1),
+              "scene_mask": mask.expand(3, -1), "rt": init}
+    want = fit.icp_point_to_point(cad, target, mask, init, 6.0, max_iters=3)
+    assert torch.equal(est.refine(result, 6.0, icp_iters=3), want)
+    with torch.enable_grad():
+        assert torch.equal(est.refine(result, 6.0, icp_iters=3), want)
+
+
+@pytest.mark.parametrize("case", ["net-inference", "net-train", "net-grad",
+                                  "pose-3net", "pose-fused", "icp"])
+def test_off_the_card_nothing_is_graphed_and_no_counter_moves(case):
+    """Off the card each ``GraphCache`` runs its call: a net's forward in
+    any mode, ``estimate``'s pose and ``refine``'s ICP give the eager
+    results; no cache holds a graph and no ``graphs.*``, ``pose.*`` or
+    ``icp.*`` counter moves."""
+    what, _, mode = case.partition("-")
+    cad = icp_problem(2)[0] if what == "icp" else None
+    est = estimator(3 if mode == "fused" else 1, cad_mm=cad)
+    before = _counts(ALL_COUNTERS)
+    if what == "net":
+        _net_off_the_card(est, mode)
+    elif what == "pose":
+        _pose_off_the_card(est)
+    else:
+        _icp_off_the_card(est)
+    assert _counts(ALL_COUNTERS) == before
+    assert not any(_caches(est))
 
 
 @pytest.mark.parametrize("kpt_heads", [1, 3], ids=["3net", "fused"])
 def test_forward_hooks_fire_once_a_call_with_its_outputs(kpt_heads):
-    est = _estimator(kpt_heads)
+    est = estimator(kpt_heads)
     seen = {i: [] for i in range(len(est.models))}
     handles = [m.register_forward_hook(
         lambda module, args, out, i=i: seen[i].append(out))
@@ -118,13 +148,13 @@ def test_forward_hooks_fire_once_a_call_with_its_outputs(kpt_heads):
     pre = []
     handles.append(est.models[0].register_forward_pre_hook(
         lambda module, args: pre.append(args[0].shape)))
-    img, depth = _frame(0)
+    img, depth = frame(0)
     est.estimate(img, depth)
-    est.estimate(*_frame(1))
+    est.estimate(*frame(1))
     for h in handles:
         h.remove()
     assert pre == [(1, HW, HW, 3)] * 2
-    x = infer.labels.normalize_image(torch.as_tensor(img))[None]
+    x = labels.normalize_image(torch.as_tensor(img))[None]
     with torch.inference_mode():
         for i, m in enumerate(est.models):
             assert len(seen[i]) == 2
@@ -134,50 +164,66 @@ def test_forward_hooks_fire_once_a_call_with_its_outputs(kpt_heads):
 
 @pytest.mark.parametrize("kpt_heads", [1, 3], ids=["3net", "fused"])
 def test_cpu_estimator_matches_the_bare_nets(kpt_heads):
-    """The CPU estimator gives what it gave before its nets were wrapped:
-    the same frame through the bare nets, single and batched."""
-    est = _estimator(kpt_heads)
-    twin = _eager_twin(est)
-    frames = [_frame(s) for s in (2, 3)]
+    """The CPU estimator gives what ``infer._frame_pose(_fused)`` of its
+    bare nets gives, bit for bit: the route the CPU took before the pose
+    went through a ``GraphCache``; ``estimate_batch`` gives those frames
+    stacked."""
+    est = estimator(kpt_heads)
+    bare = tuple(m.net for m in est.models)
+    frames = [frame(s) for s in (2, 3)]
+    wants = []
     for img, depth in frames:
-        _equal_results(est.estimate(img, depth), twin.estimate(img, depth))
+        with torch.inference_mode():
+            args = (*_frame_args(est, img, depth), est.k, est.max_radii,
+                    est.gt_kpts_mm)
+            kwargs = est._frame_kwargs(False, est.cfg.max_points)
+            wants.append(
+                infer._frame_pose_fused(bare[0], *args, **kwargs) if est.fused
+                else infer._frame_pose(bare, *args, **kwargs))
+        _equal_results(est.estimate(img, depth), wants[-1])
     imgs, deps = (np.stack(a) for a in zip(*frames))
     _equal_results(est.estimate_batch(imgs, deps),
-                   twin.estimate_batch(imgs, deps))
+                   {k: torch.stack([w[k] for w in wants]) for k in wants[0]})
 
 
 @pytest.mark.parametrize("how", ["replicate_to", "deepcopy", "pickle"])
-def test_copies_carry_no_graph_and_a_pool_of_their_own(how):
-    est = _estimator(1)
-    nets = est.models
+@pytest.mark.parametrize("what", ["nets", "pose", "icp"])
+def test_copies_carry_no_graph_and_a_pool_of_their_own(what, how):
+    """A replica, a deep copy or a pickle of an estimator has empty caches
+    under the same prefixes, all in one new pool, and the original keeps
+    its own; the nets are new ``GraphedNet``s in eval mode with equal
+    weights in memory of their own. A copy serves the same frame (checked
+    once a way of copying: which cache holds the marker does not change
+    the copy)."""
+    est = estimator(1)
     marker = object()
-    for m in nets:
-        m._graphs[("shape",)] = marker
+    for cache in _caches(est, what):
+        cache[("key",)] = marker
     if how == "replicate_to":
-        copies = est.replicate_to("cpu").models
+        new = est.replicate_to("cpu")
     elif how == "deepcopy":
-        copies = copy.deepcopy(nets)
+        new = copy.deepcopy(est)
     else:
-        for m in nets:
-            m._graphs.clear()   # the marker does not pickle
-        copies = pickle.loads(pickle.dumps(nets))
-    assert len({id(m.pool) for m in copies}) == 1
-    assert copies[0].pool is not nets[0].pool
-    for old, new in zip(nets, copies):
-        assert isinstance(new, graphs.GraphedNet) and new is not old
-        assert new._graphs == {}
-        assert not new.training and not new.net.training
+        new = pickle.loads(pickle.dumps(est))
+    pool = new.models[0].pool
+    assert pool is not est.models[0].pool
+    assert all(cache.pool is pool for cache in _caches(new))
+    for old, cache in zip(_caches(est, what), _caches(new, what)):
+        assert isinstance(cache, graphs.GraphCache) and cache == {}
+        assert cache.prefix == old.prefix and old[("key",)] is marker
+    for old, net in zip(est.models, new.models):
+        assert isinstance(net, graphs.GraphedNet) and net is not old
+        assert not net.training and not net.net.training
         for (k, v), w in zip(old.state_dict().items(),
-                             new.state_dict().values()):
+                             net.state_dict().values()):
             assert torch.equal(v, w) and v.data_ptr() != w.data_ptr(), k
-    img, depth = _frame(4)
-    if how == "replicate_to":
-        _equal_results(est.estimate(img, depth),
-                       est.replicate_to("cpu").estimate(img, depth))
+    if what == "pose":
+        img, depth = frame(4)
+        _equal_results(new.estimate(img, depth), est.estimate(img, depth))
 
 
 def test_moving_a_net_drops_its_graphs():
-    net = _estimator(3).models[0]
+    net = estimator(3).models[0]
     net._graphs[("shape",)] = object()
     net.to("cpu")
     assert net._graphs == {}
@@ -212,7 +258,7 @@ def cuda():
 
 
 def _card_estimator(kpt_heads, **kw):
-    return _estimator(kpt_heads, device=None, dtype="bfloat16", **kw)
+    return estimator(kpt_heads, device=None, dtype="bfloat16", **kw)
 
 
 def _maps_hooks(est):
@@ -230,12 +276,12 @@ def test_replay_equals_eager_bit_for_bit(cuda, kpt_heads):
     twin = _eager_twin(est)
     n = len(est.models)
     maps, handles = _maps_hooks(est)
-    before = _graph_counts()
+    before = _counts()
     for seed in range(3):
-        img, depth = _frame(seed)
+        img, depth = frame(seed)
         got = est.estimate(img, depth)
         _equal_results(got, twin.estimate(img, depth))
-        x = infer.labels.normalize_image(torch.as_tensor(
+        x = labels.normalize_image(torch.as_tensor(
             img, device=cuda))[None]
         with torch.inference_mode():
             for out, m in zip(maps[-n:], est.models):
@@ -244,7 +290,7 @@ def test_replay_equals_eager_bit_for_bit(cuda, kpt_heads):
                     assert torch.equal(g, w)
     for h in handles:
         h.remove()
-    after = _graph_counts()
+    after = _counts()
     # the first frame ran eagerly and captured; two frames replayed
     assert after["graphs.captured"] - before["graphs.captured"] == n
     assert after["graphs.eager"] - before["graphs.eager"] == n
@@ -255,8 +301,8 @@ def test_replay_equals_eager_bit_for_bit(cuda, kpt_heads):
 def test_returned_maps_survive_the_next_replay(cuda):
     est = _card_estimator(3)
     net = est.models[0]
-    xs = [infer.labels.normalize_image(torch.as_tensor(
-        _frame(s)[0], device=cuda))[None] for s in range(3)]
+    xs = [labels.normalize_image(torch.as_tensor(
+        frame(s)[0], device=cuda))[None] for s in range(3)]
     with torch.inference_mode():
         net(xs[0])                     # eager and capture
         a = net(xs[1])                 # replay
@@ -280,15 +326,15 @@ def test_escalated_frame_replays_and_equals_eager(cuda):
     the frame (full frame, grown budget): the re-runs replay too."""
     est = _card_estimator(1, pack_win_h=32, pack_win_w=32)
     twin = _eager_twin(est)
-    img, depth = _frame(5, patch=48)
-    est.estimate(*_frame(6))           # eager and capture
-    before = _graph_counts()
+    img, depth = frame(5, patch=48)
+    est.estimate(*frame(6))            # eager and capture
+    before = _counts()
     esc0 = profiling.counters().get("escalations.cropped", 0)
     got = est.estimate(img, depth)
     assert profiling.counters()["escalations.cropped"] == esc0 + 1
     assert got["scene_pts"].shape[1] > est.cfg.max_points
     assert not got["cropped"].any()
-    replayed = _graph_counts()["graphs.replayed"] - before["graphs.replayed"]
+    replayed = _counts()["graphs.replayed"] - before["graphs.replayed"]
     assert replayed >= 2 * len(est.models)
     assert replayed % len(est.models) == 0
     _equal_results(got, twin.estimate(img, depth))
@@ -299,12 +345,12 @@ def test_escalated_frame_replays_and_equals_eager(cuda):
 def test_estimate_batch_replays(cuda, kpt_heads):
     est = _card_estimator(kpt_heads)
     twin = _eager_twin(est)
-    frames = [_frame(s) for s in (7, 8, 9)]
+    frames = [frame(s) for s in (7, 8, 9)]
     est.estimate(*frames[0])           # eager and capture
     imgs, deps = (np.stack(a) for a in zip(*frames))
-    before = _graph_counts()
+    before = _counts()
     got = est.estimate_batch(imgs, deps)
-    after = _graph_counts()
+    after = _counts()
     assert after["graphs.replayed"] - before["graphs.replayed"] == (
         3 * len(est.models))
     assert after["graphs.captured"] == before["graphs.captured"]
@@ -314,11 +360,11 @@ def test_estimate_batch_replays(cuda, kpt_heads):
 @pytest.mark.cuda
 def test_one_graph_a_net_and_shape(cuda):
     est = _card_estimator(1)
-    before = _graph_counts()
+    before = _counts()
     for hw in (HW, 96, HW, 96):
-        img, depth = _frame(10, hw=hw)
+        img, depth = frame(10, hw=hw)
         est.estimate(img, depth)
-    after = _graph_counts()
+    after = _counts()
     assert after["graphs.captured"] - before["graphs.captured"] == 3 * 2
     assert after["graphs.replayed"] - before["graphs.replayed"] == 3 * 2
     assert all(len(m._graphs) == 2 for m in est.models)
@@ -329,8 +375,8 @@ def test_k2_launches_count_each_forward_that_runs(cuda):
     """K2 counts once a forward, eager or replayed; the capture, which
     runs nothing, counts nothing."""
     est = _card_estimator(1)
-    x = infer.labels.normalize_image(torch.as_tensor(
-        _frame(11)[0], device=cuda))[None]
+    x = labels.normalize_image(torch.as_tensor(
+        frame(11)[0], device=cuda))[None]
     k2 = heads.heads_channel_major_cuda
     with torch.inference_mode():
         for calls in (1, 2, 3):
@@ -344,16 +390,16 @@ def test_k2_launches_count_each_forward_that_runs(cuda):
 def test_grad_enabled_or_train_mode_on_the_card_runs_eagerly(cuda):
     est = _card_estimator(3)
     net = est.models[0]
-    x = infer.labels.normalize_image(torch.as_tensor(
-        _frame(12)[0], device=cuda))[None]
-    before = _graph_counts()
+    x = labels.normalize_image(torch.as_tensor(
+        frame(12)[0], device=cuda))[None]
+    before = _counts()
     with torch.enable_grad():
         got = net(x)
     assert got[0].requires_grad
     net.train()
     net(x)
     net.eval()
-    after = _graph_counts()
+    after = _counts()
     assert after["graphs.eager"] - before["graphs.eager"] == 1
     assert after["graphs.captured"] == before["graphs.captured"]
     assert not net._graphs
@@ -368,8 +414,8 @@ def test_threads_on_streams_of_their_own_get_their_own_maps(cuda):
     import threading
 
     est = _card_estimator(1)
-    xs = [infer.labels.normalize_image(torch.as_tensor(
-        _frame(20 + i)[0], device=cuda))[None] for i in range(8)]
+    xs = [labels.normalize_image(torch.as_tensor(
+        frame(20 + i)[0], device=cuda))[None] for i in range(8)]
     with torch.inference_mode():
         want = [[m.net(x) for m in est.models] for x in xs]
         for m in est.models:

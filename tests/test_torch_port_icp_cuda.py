@@ -10,8 +10,6 @@ imports neither JAX nor the JAX package, so the card's machine runs them:
         tests/test_torch_port_icp_cuda.py -q
 """
 
-import copy
-import pickle
 import sys
 import threading
 
@@ -19,11 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from rcvpose_tpu_torch import fit, infer, profiling, train
-from rcvpose_tpu_torch.config import Config
-from rcvpose_tpu_torch.models import fcnresnet, graphs
+from rcvpose_tpu_torch import fit, profiling
 from rcvpose_tpu_torch.ops import icp_cuda
+from tests.torch_port_estimators import estimator
 from tests.torch_port_icp import icp_problem, rot
+from tests.torch_port_threads import port_threads  # noqa: F401
 
 ICP_COUNTERS = ("icp.captured", "icp.replayed", "icp.eager")
 ITERS = 30
@@ -39,16 +37,9 @@ def _icp_counts():
 
 
 def _estimator(cad_mm, device="cpu"):
-    """A small estimator whose ``refine`` is under test (its nets take no
-    part in it)."""
-    cfg = Config(model_blocks="1,1,1,1", model_width=0.125,
-                 compute_dtype="float32", icp_iters=ITERS)
-    weights = [fcnresnet.init_params(train.build_model(cfg),
-                                     torch.Generator().manual_seed(i))
-               .state_dict() for i in range(3)]
-    keypoints = np.random.default_rng(0).normal(size=(9, 3)) * 0.05
-    return infer.PoseEstimator(cfg, weights, keypoints, [1e6] * 3,
-                               cad_mm=cad_mm, device=device)
+    """The tiny fused estimator, whose ``refine`` is under test (its net
+    takes no part in it)."""
+    return estimator(3, device=device, cad_mm=cad_mm, icp_iters=ITERS)
 
 
 def _lm_scene(seed, n_src=3000, n_points=8192, n_valid=5000, k=3,
@@ -102,7 +93,7 @@ def _problem(seed, device="cpu", t=(10.0, -20.0, 80.0)):
 
 
 # ---------------------------------------------------------------------------
-# CPU: the one cloud, the plain versions, the counters
+# CPU: the one cloud, the plain versions
 # ---------------------------------------------------------------------------
 
 def _refine_both_ways(seed, same_masks, depth):
@@ -143,36 +134,6 @@ def test_refine_on_the_union_cloud_within_ties_at_linemod_depth(seed):
     lower index): bit for bit."""
     _, got, want = _refine_both_ways(seed, False, 800.0)
     assert torch.equal(got, want)
-
-
-def test_icp_counters_stay_zero_on_the_cpu():
-    cad, scene, mask, rt = _lm_scene(2, n_src=200, n_points=512, n_valid=300)
-    est = _estimator(cad)
-    before = _icp_counts()
-    est.refine(_result(scene, mask, rt), 20.0, icp_iters=3)
-    with torch.enable_grad():
-        est.refine(_result(scene, mask, rt), 20.0, icp_iters=3)
-    fit.icp_point_to_point(_t(cad), _t(scene[0]), torch.tensor(mask[0]),
-                           _t(rt), 20.0, max_iters=3)
-    assert _icp_counts() == before
-    assert est._icp == {}
-
-
-@pytest.mark.parametrize("how", ["replicate_to", "deepcopy", "pickle"])
-def test_icp_graphs_do_not_travel_with_copies(how):
-    cad = _lm_scene(3, n_src=50, n_points=64, n_valid=40)[0]
-    est = _estimator(cad)
-    est._icp[("shape",)] = object()
-    if how == "replicate_to":
-        replica = est.replicate_to("cpu")
-        new = replica._icp
-        assert new.pool is replica.models[0].pool
-    elif how == "deepcopy":
-        new = copy.deepcopy(est._icp)
-    else:
-        new = pickle.loads(pickle.dumps(est._icp))
-    assert isinstance(new, graphs.GraphCache) and new == {}
-    assert new.pool is not est._icp.pool and new.prefix == "icp"
 
 
 def test_kernels_refuse_what_they_do_not_take():

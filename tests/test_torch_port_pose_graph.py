@@ -3,8 +3,9 @@
 graph a key through ``models.graphs.GraphCache`` (counters ``pose.*``).
 
 The CPU cases run everywhere: ``ops.voting._prepare``'s bounds as Python
-scalars, the CPU estimator (eager, no counter moves), the packed outputs a
-replay copies out, and the copies of an estimator. The ``cuda`` cases need
+scalars and the packed outputs a replay copies out
+(``tests/test_torch_port_graphs.py`` holds the pose off the card and the
+copies of an estimator). The ``cuda`` cases need
 an NVIDIA card and ``nvcc`` (K1 and K2 build at first use) and skip
 elsewhere; the file imports neither JAX nor the JAX package, so the card's
 machine runs them:
@@ -13,48 +14,17 @@ machine runs them:
         tests/test_torch_port_pose_graph.py -q
 """
 
-import copy
-import pickle
-
 import numpy as np
 import pytest
 import torch
 
-from rcvpose_tpu_torch import infer, labels, profiling, train
-from rcvpose_tpu_torch.config import Config
-from rcvpose_tpu_torch.models import fcnresnet, graphs
+from rcvpose_tpu_torch import infer, labels, profiling
+from rcvpose_tpu_torch.models import graphs
 from rcvpose_tpu_torch.ops import vote_cuda, voting
+from tests.torch_port_estimators import estimator, frame
 from tests.torch_port_threads import port_threads  # noqa: F401
 
-HW = 64
 POSE_COUNTERS = ("pose.captured", "pose.replayed", "pose.eager")
-
-
-def _estimator(kpt_heads, device="cpu", dtype="float32", cad_mm=None, **kw):
-    # a threshold below every logit and radii above every map: each pixel
-    # with depth is in every mask, whatever the random heads give; a short
-    # top-k keeps the CPU's plain vote quick
-    cfg = Config(compute_dtype=dtype, vote_grid_l=64, vote_topk=8,
-                 max_points=1024,
-                 image_height=HW, image_width=HW, model_blocks="1,1,1,1",
-                 model_width=0.125, kpt_heads=kpt_heads,
-                 sem_threshold=-1e30, **kw)
-    weights = [fcnresnet.init_params(train.build_model(cfg),
-                                     torch.Generator().manual_seed(i))
-               .state_dict() for i in range(1 if kpt_heads > 1 else 3)]
-    keypoints = np.random.default_rng(kpt_heads).normal(size=(9, 3)) * 0.05
-    return infer.PoseEstimator(cfg, weights, keypoints, [1e6] * 3,
-                               cad_mm=cad_mm, device=device)
-
-
-def _frame(seed, patch=24):
-    rng = np.random.default_rng(seed)
-    img = rng.integers(0, 256, size=(HW, HW, 3), dtype=np.uint8)
-    depth = np.zeros((HW, HW), np.float32)
-    r0 = (HW - patch) // 2
-    depth[r0:r0 + patch, r0:r0 + patch] = rng.uniform(
-        650.0, 750.0, size=(patch, patch))
-    return img, depth
 
 
 def _pose_counts():
@@ -96,14 +66,14 @@ def _storages(tensors):
 class _Replays(dict):
     """The pose's ``GraphCache`` off the card: each call at a key runs
     ``fn``, writes its outputs over the key's static outputs (as a replay
-    overwrites them) and returns ``copy_out`` of those."""
+    overwrites them) and returns the cache's owned copies of those."""
 
-    def __call__(self, key, fn, args, copy_out):
+    def __call__(self, key, fn, args):
         out = fn(*args)
         static = self.setdefault(key, out)
         for s, o in zip(static, out):
             s.copy_(o)
-        return copy_out(static)
+        return graphs._own_copy(static)
 
 
 # ---------------------------------------------------------------------------
@@ -144,34 +114,20 @@ def test_prepare_scalar_bounds_equal_the_tensor_form(case, monkeypatch):
 
 
 @pytest.mark.parametrize("kpt_heads", [1, 3], ids=["3net", "fused"])
-def test_cpu_estimate_runs_eagerly_and_counts_nothing(kpt_heads):
-    """Off the card ``estimate`` runs ``_frame_pose(_fused)`` as before:
-    the pose cache stays empty, no ``pose.*`` counter moves, and the result
-    equals the eager pose of the same nets' outputs."""
-    est = _estimator(kpt_heads)
-    img, depth = _frame(0)
-    before = _pose_counts()
-    got = est.estimate(img, depth)
-    assert _pose_counts() == before
-    assert not est._pose
-    _assert_same(got, _eager_pose(est, _outputs(est, img), depth))
-
-
-@pytest.mark.parametrize("kpt_heads", [1, 3], ids=["3net", "fused"])
 def test_graphed_route_copies_its_outputs_out(kpt_heads):
-    """``_graphed_pose`` through a stand-in that overwrites the static
+    """``_pose_of`` through a stand-in that overwrites the static
     outputs at each call, as replays do: each result equals the eager pose,
     shares no storage with the static outputs, and outlives the next call
     at its key; ``scene_pts`` is an expand of one (n_points, 3) cloud."""
-    est = _estimator(kpt_heads)
+    est = estimator(kpt_heads)
     est._pose = _Replays()
     kwargs = est._frame_kwargs(False, est.cfg.max_points)
     results = []
     for seed in (1, 2):
-        img, depth = _frame(seed)
+        img, depth = frame(seed)
         outs = _outputs(est, img)
         with torch.inference_mode():
-            got = est._graphed_pose(outs, est._put(depth, torch.float32),
+            got = est._pose_of(outs, est._put(depth, torch.float32),
                                     kwargs)
         _assert_same(got, _eager_pose(est, outs, depth))
         results.append((got, {k: v.clone() for k, v in got.items()}))
@@ -182,25 +138,6 @@ def test_graphed_route_copies_its_outputs_out(kpt_heads):
         assert got["scene_pts"][0].shape == (est.cfg.max_points, 3)
         assert all(torch.equal(got[k], kept[k]) for k in kept)
     assert not torch.equal(results[0][0]["rt"], results[1][0]["rt"])
-
-
-@pytest.mark.parametrize("how", ["replicate_to", "deepcopy", "pickle"])
-def test_copies_get_an_empty_pose_cache_and_a_pool_of_their_own(how):
-    est = _estimator(1)
-    est._pose[("key",)] = object()
-    if how == "replicate_to":
-        new = est.replicate_to("cpu")
-    elif how == "deepcopy":
-        new = copy.deepcopy(est)
-    else:
-        new = pickle.loads(pickle.dumps(est))
-    assert isinstance(new._pose, graphs.GraphCache) and new._pose == {}
-    assert new._pose.prefix == "pose"
-    assert new._pose.pool is new.models[0].pool is new._icp.pool
-    assert new._pose.pool is not est._pose.pool
-    assert len(est._pose) == 1
-    img, depth = _frame(3)
-    _assert_same(new.estimate(img, depth), est.estimate(img, depth))
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +152,7 @@ def cuda():
 
 
 def _card_estimator(kpt_heads, **kw):
-    return _estimator(kpt_heads, device=None, dtype="bfloat16", **kw)
+    return estimator(kpt_heads, device=None, dtype="bfloat16", **kw)
 
 
 def _hooked(est):
@@ -240,7 +177,7 @@ def test_graphed_pose_equals_eager_bit_for_bit(cuda, kpt_heads):
     est = _card_estimator(kpt_heads)
     maps, handles = _hooked(est)
     n = len(est.models)
-    frames = [_frame(seed) for seed in range(4)]
+    frames = [frame(seed) for seed in range(4)]
     before = _pose_counts()
     got, k1 = [], []
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -273,14 +210,14 @@ def test_a_new_key_captures_and_equals_eager(cuda, full_frame, n_points):
     first call runs eagerly and captures, the next replays, and both equal
     the eager pose at the same packing."""
     est = _card_estimator(1)
-    est.estimate(*_frame(4))               # the serving key
+    est.estimate(*frame(4))                # the serving key
     kwargs = est._frame_kwargs(full_frame, n_points or est.cfg.max_points)
     before = _pose_counts()
     for seed in (5, 6):
-        img, depth = _frame(seed, patch=40)
+        img, depth = frame(seed, patch=40)
         outs = _outputs(est, img)
         with torch.inference_mode():
-            got = est._graphed_pose(outs, est._put(depth, torch.float32),
+            got = est._pose_of(outs, est._put(depth, torch.float32),
                                     kwargs)
         _assert_same(got, _eager_pose(est, outs, depth, full_frame,
                                       kwargs["n_points"]))
@@ -293,10 +230,10 @@ def test_a_new_key_captures_and_equals_eager(cuda, full_frame, n_points):
 @pytest.mark.cuda
 def test_a_replays_outputs_survive_the_next_replay(cuda):
     est = _card_estimator(1)
-    est.estimate(*_frame(7))               # eager and capture
-    first = est.estimate(*_frame(8))       # replay
+    est.estimate(*frame(7))                # eager and capture
+    first = est.estimate(*frame(8))        # replay
     kept = {k: v.clone() for k, v in first.items()}
-    second = est.estimate(*_frame(9))      # replay over the same graph
+    second = est.estimate(*frame(9))       # replay over the same graph
     torch.cuda.synchronize()
     assert all(torch.equal(first[k], kept[k]) for k in kept)
     assert not torch.equal(first["rt"], second["rt"])
@@ -312,8 +249,8 @@ def test_refine_on_a_replayed_pose_equals_refine_on_the_eager_one(cuda):
         np.float32) * 20.0
     est = _card_estimator(1, cad_mm=cad, icp_iters=10)
     maps, handles = _hooked(est)
-    est.estimate(*_frame(11))              # eager and capture
-    img, depth = _frame(12)
+    est.estimate(*frame(11))               # eager and capture
+    img, depth = frame(12)
     got = est.estimate(img, depth)         # replay
     for h in handles:
         h.remove()
@@ -328,7 +265,7 @@ def test_other_callers_run_the_pose_eagerly(cuda):
     """``estimate_batch`` and ``_frame_pose`` (the route of ``bench.py``,
     ``parallel.mesh`` and ``eval``) take no pose graph."""
     est = _card_estimator(1)
-    frames = [_frame(s) for s in (13, 14)]
+    frames = [frame(s) for s in (13, 14)]
     est.estimate(*frames[0])               # eager and capture
     before = _pose_counts()
     imgs, deps = (np.stack(a) for a in zip(*frames))
