@@ -24,13 +24,20 @@ Phases, each printing its own line:
    on the CPU through the plain versions;
 5. serving at full width (DenseFCNResNet152, bf16, 480x640, grid 128, 8192
    points, hier): ``PoseEstimator.estimate`` on a few frames in 3-net and in
-   fused mode, with both kernels' launch counters reset just before and
-   read just after, then a profiler view of where a frame's time goes;
+   fused mode, with K1's, K2's and the conv epilogue's launch counters
+   reset just before and read just after (the epilogue 162 times a net
+   forward, eager, captured or replayed), then a profiler view of where a
+   frame's time goes;
 6. the device time of each kernel (CUDA events behind a spin kernel), its
    plain version and its bound, at the shapes of phases 2 and 3, K2 also
    at the fused and training shapes beside an empty kernel's time (after
    serving, so that no profiler has run before the serving times are
-   taken);
+   taken); then the conv epilogue (``ops/epilogue.py``, the serving nets'
+   folded units) against its plain version bit for bit at every unit shape
+   of a serving forward, its rounding at identity batch norm statistics,
+   and its cold device times beside its plain version's, the unfolded
+   ops' and its byte bound, at four unit shapes and over one forward's 162
+   units (phase "6 epilogue");
 7. K3 (decoder conv, forward and dx) and K4 (its weight gradient)
    against their plain versions at the six DenseFCN decoder shapes of a
    batch-4 480x640 step, in bf16 and f32, each also bit-identical over two
@@ -200,10 +207,11 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): dense bf16
-# tensor-core rate, FP32 rate off the tensor cores and HBM3 bandwidth.
+# tensor-core rate, FP32 rate off the tensor cores, HBM3 bandwidth; L2 size.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 
 GRID_L = 128
 N_POINTS = 8192
@@ -216,6 +224,14 @@ DECODER = [("conv_up5", 15, 20, 3072, 1024), ("conv_up4", 30, 40, 2048, 512),
            ("conv_up3", 60, 80, 1024, 256), ("conv_up2", 120, 160, 512, 128),
            ("conv_up1", 240, 320, 192, 64), ("conv7", 480, 640, 64, 32)]
 TRAIN_STEPS = 10
+# The conv epilogue (ops/epilogue.py): its launches a serving net forward
+# (the folded units of DenseFCNResNet152, models/folded.py) and the bf16
+# unit shapes timed one by one: (name, (N, C, H, W), residual), ReLU on
+EPILOGUE_UNITS = 162
+EPILOGUE_SHAPES = [("stem", (1, 64, 240, 320), False),
+                   ("stage3 conv3", (1, 1024, 30, 40), True),
+                   ("stage4 conv3", (1, 2048, 15, 20), True),
+                   ("conv7", (1, 32, H, W), False)]
 # bf16 shapes (B, H, W, C, D, K) that take each branch of the conv planner
 # (ops/mmconv.py plan_conv), checked in phase 7 beside the decoder's own
 PLAN_BRANCHES = [((1, 15, 20, 3072, 256, 3), "split-K"),
@@ -786,13 +802,40 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
     say(f"phase 5 weights: seeded init, load and head calibration of 4 "
         f"full-width nets in {time.perf_counter() - t0:.1f} s")
 
+    from rcvpose_tpu_torch.models import folded
+    from rcvpose_tpu_torch.ops import epilogue
+
+    epi = epilogue.conv_epilogue_cuda
+    for est in (est3, estf):
+        units = sum(isinstance(m, folded._Unit)
+                    for m in est.models[0].net.modules())
+        if units != EPILOGUE_UNITS:
+            raise AssertionError(f"a served net has {units} folded units, "
+                                 f"not {EPILOGUE_UNITS}")
     torch.cuda.synchronize()
     vote_cuda.vote_counts_cuda.launches = 0
     heads.heads_channel_major_cuda.launches = 0
+    epi.launches = 0
     for name, est in (("3-net", est3), ("fused", estf)):
         k1_0 = vote_cuda.vote_counts_cuda.launches
         k2_0 = heads.heads_channel_major_cuda.launches
-        times, outs = serve(est, frames)
+        times, outs, epi_frames = [], [], []
+        for frame in frames:
+            # K2 launches once a net forward, so the epilogue's launches a
+            # frame are EPILOGUE_UNITS times K2's on the first (eager, then
+            # captured) forward of each net and on every replay alike
+            e0, f0 = epi.launches, heads.heads_channel_major_cuda.launches
+            t, out = serve(est, [frame])
+            times += t
+            outs += out
+            forwards = heads.heads_channel_major_cuda.launches - f0
+            epi_frames.append(epi.launches - e0)
+            if (forwards < len(est.models)
+                    or epi_frames[-1] != EPILOGUE_UNITS * forwards):
+                raise AssertionError(
+                    f"{name}: frame {len(epi_frames)} launched the epilogue "
+                    f"{epi_frames[-1]} times over {forwards} net forwards, "
+                    f"not {EPILOGUE_UNITS} a forward")
         k1 = (vote_cuda.vote_counts_cuda.launches - k1_0) / len(frames)
         k2 = (heads.heads_channel_major_cuda.launches - k2_0) / len(frames)
         for out in outs:
@@ -802,11 +845,13 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
         say(f"phase 5 serving {name}: {len(frames)} frames, ms/frame after "
             f"warm-up {[round(x, 3) for x in times[2:]]} (median "
             f"{np.median(times[2:]):.3f}), first {times[0]:.1f} ms; "
-            f"launches/frame K1 {k1:.1f} K2 {k2:.1f}; escalate "
+            f"launches/frame K1 {k1:.1f} K2 {k2:.1f}, epilogue by frame "
+            f"{epi_frames}; escalate "
             f"{outs[-1]['escalate'].cpu().tolist()}, counts "
             f"{outs[-1]['counts'].cpu().tolist()}")
     launches = {"vote_counts": vote_cuda.vote_counts_cuda.launches,
-                "heads_channel_major": heads.heads_channel_major_cuda.launches}
+                "heads_channel_major": heads.heads_channel_major_cuda.launches,
+                "conv_epilogue": epi.launches}
     for kname, n in launches.items():
         if n == 0:
             raise AssertionError(f"{kname} never launched on the main path")
@@ -819,10 +864,15 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
             f"warm-up {[round(x, 3) for x in times[2:]]} (median "
             f"{np.median(times[2:]):.3f})")
 
-    # information only: bf16 serving forward against the f32 one (TF32 off)
+    # information only: bf16 serving forward (batch norm folded) against
+    # the unfolded f32 one (TF32 off) of the same bf16 weights
     net = est3.models[0].net
     f32 = train_mod.build_model(cfg3)
-    f32.load_state_dict({k: v.float() for k, v in net.state_dict().items()})
+    f32.load_state_dict({k: v.to(torch.bfloat16).float()
+                         for k, v in weights(cfg3, 0).items()})
+    with torch.no_grad():   # the calibrated head
+        f32.conv8.weight.copy_(net.conv8.weight)
+        f32.conv8.bias.copy_(net.conv8.bias)
     f32 = f32.to(device=DEVICE, memory_format=torch.channels_last).eval()
     img = torch.tensor(frames[0][0], device=DEVICE)
     from rcvpose_tpu_torch import labels
@@ -892,6 +942,201 @@ def phase_kernel_times(k1_stages, k2_input, vote_cuda, heads):
         k2[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                         bound_ms=bound_ms)
     return k1, k2["serving"]
+
+
+def serving_units(fcn):
+    """(shape, residual, relu) of each folded unit of one full-width
+    DenseFCNResNet152 forward (bf16, channels-last, H x W), in order, read
+    by forward hooks."""
+    from rcvpose_tpu_torch.models import folded
+
+    with torch.device(DEVICE):
+        net = fcn.DenseFCNResNet152(output_channels=6)
+    net = net.to(dtype=torch.bfloat16,
+                 memory_format=torch.channels_last).eval()
+    f = folded.fold_for_serving(net)
+    units = []
+    for m in f.modules():
+        if isinstance(m, folded._Unit):
+            m.register_forward_hook(lambda mod, args, out: units.append(
+                (tuple(out.shape), len(args) > 1, mod.relu)))
+    with torch.inference_mode():
+        f(torch.zeros(1, H, W, 3, device=DEVICE))
+    return units
+
+
+def epilogue_bytes(shape, residual):
+    """The epilogue's bytes in bf16: ``x`` read and written, the residual
+    read, the f32 scale and shift read."""
+    n = math.prod(shape)
+    return n * 2 * (3 if residual else 2) + 8 * shape[1]
+
+
+def epilogue_operands(shape, residual, relu, gen, identity=False):
+    """One unit's bf16 channels-last operands: the conv's output ``x``
+    (and the residual), f32 scale and shift (random, or 1 and 0 so that
+    repeated in-place calls stay finite), and the bf16 eval batch norm
+    parameters (mean 0, var 1, weight 1, bias 0) of the unfolded route."""
+    c = shape[1]
+
+    def act():
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    if identity:
+        scale = torch.ones(c, device=DEVICE)
+        shift = torch.zeros(c, device=DEVICE)
+    else:
+        scale = torch.rand(c, device=DEVICE, generator=gen) + 0.5
+        shift = torch.randn(c, device=DEVICE, generator=gen)
+    zero = torch.zeros(c, device=DEVICE, dtype=torch.bfloat16)
+    one = torch.ones(c, device=DEVICE, dtype=torch.bfloat16)
+    return dict(x=act(), scale=scale, shift=shift,
+                res=act() if residual else None, relu=relu,
+                bn=(zero, one, one, zero))
+
+
+def epilogue_pass(epilogue, sets, route):
+    """A callable that runs ``route`` once on each operand set: "kernel"
+    (``conv_epilogue_cuda``), "plain" (``conv_epilogue_plain``) or
+    "unfolded" (eval ``F.batch_norm`` with bf16 parameters, the residual
+    add and ReLU, as the unfolded net runs them)."""
+    import torch.nn.functional as F
+
+    fn = {"kernel": epilogue.conv_epilogue_cuda,
+          "plain": epilogue.conv_epilogue_plain}.get(route)
+
+    def run():
+        for s in sets:
+            if fn is not None:
+                fn(s["x"], s["scale"], s["shift"], s["res"], s["relu"])
+                continue
+            mean, var, w, b = s["bn"]
+            y = F.batch_norm(s["x"], mean, var, w, b, False, 0.0, 1e-5)
+            if s["res"] is not None:
+                y = y + s["res"]
+            if s["relu"]:
+                F.relu(y)
+    return run
+
+
+def identity_bn_rounding(epilogue, shape, seed=0, device=None):
+    """The fold's rounding at the benchmark's batch norm statistics (mean
+    0, var 1, weight 1, bias 0, so scale = rsqrt(1 + 1e-5), 5e-6 below 1)
+    on a residual unit, ``x`` and the residual N(0, 1) in bf16: the share
+    of ``x + residual`` that are exact bf16 ties, the share of outputs in
+    which the folded unit (``conv_epilogue``) differs from the unfolded
+    one (eval ``F.batch_norm``, ``+ residual``, ReLU), and each one's mean
+    error against the f64 value as a share of its mean magnitude. Runs on
+    the CPU too (``device="cpu"``), where the plain version stands in for
+    the kernel bit for bit."""
+    import torch.nn.functional as F
+
+    device = device or DEVICE
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    x, res = (torch.randn(*shape, device=device, generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for _ in range(2))
+    one = torch.ones(c, device=device, dtype=torch.bfloat16)
+    zero = torch.zeros(c, device=device, dtype=torch.bfloat16)
+    scale = one.float() * torch.rsqrt(one.float() + 1e-5)
+    folded = epilogue.conv_epilogue(x.clone(), scale, zero.float(), res)
+    unfolded = F.relu(F.batch_norm(x, zero, one, one, zero, False, 0.0,
+                                   1e-5) + res)
+    exact = torch.relu(x.double() / math.sqrt(1 + 1e-5) + res.double())
+    total = x.float() + res.float()
+    size = exact.abs().mean()
+    return {
+        "ties": float(((total.view(torch.int32) & 0xFFFF) == 0x8000)
+                      .double().mean()),
+        "differ": float((folded.view(torch.int16)
+                         != unfolded.view(torch.int16)).double().mean()),
+        "bias_folded": float((folded.double() - exact).mean() / size),
+        "bias_unfolded": float((unfolded.double() - exact).mean() / size)}
+
+
+def phase_epilogue(fcn):
+    """The conv epilogue (``ops/epilogue.py``): the kernel against its plain
+    version bit for bit in bf16 channels-last at every unit shape of a
+    full-width serving forward, with and without the residual and ReLU;
+    then device times (CUDA events) of the kernel, its plain version and
+    the unfolded ops at ``EPILOGUE_SHAPES`` and over the
+    ``EPILOGUE_UNITS`` units of one forward, beside the byte bound. Each
+    shape is timed cold: its calls cycle through enough operand sets to
+    pass four times the L2, and one forward's units hold 0.3 GB. One
+    forward's units are queued once a timed run: five runs of 162 calls
+    outlast the spin kernel this late in the script and read the host's
+    launch rate (2.15 ms against 0.76 ms a forward). Returns
+    the ``conv_epilogue`` row of the ``kernels`` line (``ms`` etc. over one
+    forward's units, ``shapes`` one by one)."""
+    from rcvpose_tpu_torch.ops import epilogue
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    units = serving_units(fcn)
+    if len(units) != EPILOGUE_UNITS:
+        raise AssertionError(f"a forward ran {len(units)} folded units")
+    shapes = sorted({shape for shape, _, _ in units})
+    for shape in shapes:
+        for residual in (False, True):
+            for relu in (False, True):
+                s = epilogue_operands(shape, residual, relu, gen)
+                want = epilogue.conv_epilogue_plain(
+                    s["x"].clone(), s["scale"], s["shift"], s["res"], relu)
+                got = epilogue.conv_epilogue_cuda(
+                    s["x"], s["scale"], s["shift"], s["res"], relu)
+                if not torch.equal(got.view(torch.int16),
+                                   want.view(torch.int16)):
+                    raise AssertionError(
+                        f"epilogue differs from its plain version at "
+                        f"{shape} residual={residual} relu={relu}")
+    say(f"phase 6 epilogue: equals its plain version bit for bit at the "
+        f"{len(shapes)} unit shapes of a serving forward, each with and "
+        f"without the residual and ReLU (bf16 channels-last)")
+    for shape in ((1, 1024, 30, 40), (1, 2048, 15, 20)):
+        r = identity_bn_rounding(epilogue, shape)
+        say(f"phase 6 epilogue at identity statistics {shape} + residual: "
+            f"ties {r['ties']:.4%} of x + residual, folded differs from "
+            f"unfolded in {r['differ']:.4%}, mean error against f64: "
+            f"folded {r['bias_folded']:.4%}, unfolded "
+            f"{r['bias_unfolded']:.4%}")
+
+    rows = {}
+    for name, shape, residual in EPILOGUE_SHAPES:
+        nbytes = epilogue_bytes(shape, residual)
+        n = max(2, math.ceil(4 * L2_BYTES / nbytes))
+        sets = [epilogue_operands(shape, residual, True, gen, identity=True)
+                for _ in range(n)]
+        reps = max(1, math.ceil(50 / n))
+        rows[name] = dict(
+            shape=list(shape), residual=residual, sets=n,
+            ms=event_ms(epilogue_pass(epilogue, sets, "kernel"), reps) / n,
+            plain_ms=event_ms(epilogue_pass(epilogue, sets, "plain"), 1,
+                              warmup=1) / n,
+            unfolded_ms=event_ms(epilogue_pass(epilogue, sets, "unfolded"),
+                                 1, warmup=1) / n,
+            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+        del sets
+    sets = [epilogue_operands(shape, residual, relu, gen, identity=True)
+            for shape, residual, relu in units]
+    net = dict(
+        units=len(units), residual=sum(r for _, r, _ in units),
+        elements=sum(math.prod(s) for s, _, _ in units),
+        ms=event_ms(epilogue_pass(epilogue, sets, "kernel"), 1, repeats=5),
+        plain_ms=event_ms(epilogue_pass(epilogue, sets, "plain"), 1,
+                          warmup=1),
+        unfolded_ms=event_ms(epilogue_pass(epilogue, sets, "unfolded"), 1,
+                             warmup=1),
+        bound_ms=sum(epilogue_bytes(s, r) for s, r, _ in units)
+        / PEAK_BYTES_PER_S * 1e3)
+    del sets
+    for name, row in {**rows, f"{EPILOGUE_UNITS} units": net}.items():
+        say(f"phase 6 epilogue {name} (cold, bf16): device ms: kernel "
+            f"{row['ms']:.5f}, plain {row['plain_ms']:.5f}, unfolded ops "
+            f"{row['unfolded_ms']:.5f}, bound {row['bound_ms']:.5f} "
+            f"({100 * row['bound_ms'] / row['ms']:.1f}%)")
+    return dict(max_abs_err=0.0, bound_by="bytes", library_ms=None,
+                **net, shapes=rows)
 
 
 def check_conv(mmconv, x, kern, what):
@@ -4354,6 +4599,7 @@ def main():
                    vote_cuda, heads)
     k1, k2 = run(6, phase_kernel_times, k1_stages, k2_input, vote_cuda,
                  heads)
+    epilogue_row = run("6 epilogue", phase_epilogue, fcn)
     errs = run(7, phase_conv_kernels, mmconv, heads)
     train_launches = run(8, phase_training, config, train_mod, labels,
                          geometry, checkpoint, infer, mmconv, heads)
@@ -4443,6 +4689,10 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": "rcvpose_tpu_torch/csrc/icp.cu",
                         "replaces": replaces, **icp_rows[name]})
+    kernels.append({"name": "conv_epilogue", "route": "cuda",
+                    "source": "rcvpose_tpu_torch/csrc/epilogue.cu",
+                    "replaces": None,
+                    "launches": launches["conv_epilogue"], **epilogue_row})
     kernels[0]["agreement_launches"] = agree_launches
     for k in kernels:
         if k["launches"] == 0:

@@ -11,7 +11,9 @@ the packed ``escalate`` vector that ``PoseEstimator`` checks.
 ``PoseEstimator`` is the serving API: ``estimate(image, depth)`` per frame,
 ``estimate_batch`` for a batch (a loop over frames, escalated per frame)
 and ``refine`` for an optional ICP of a frame's pose against its own scene.
-Its nets' forwards (``models.graphs.GraphedNet``s), ``estimate``'s
+Its nets are served with batch norm folded (``models.folded``: a
+bias-free conv and one epilogue kernel a unit). Their forwards
+(``models.graphs.GraphedNet``s), ``estimate``'s
 ``_pose_from_maps`` (one call a packing key: ``full_frame``, ``n_points``)
 and ``refine``'s ICP each go through a ``models.graphs.GraphCache``, which
 on the card replays one CUDA graph of the call after the first and
@@ -30,7 +32,7 @@ import torch
 from rcvpose_tpu_torch import fit, geometry, labels, profiling
 from rcvpose_tpu_torch import train as train_mod
 from rcvpose_tpu_torch.checkpoint import from_flax_variables
-from rcvpose_tpu_torch.models import graphs
+from rcvpose_tpu_torch.models import folded, graphs
 from rcvpose_tpu_torch.ops import voting
 from rcvpose_tpu_torch.utils import resolve_device
 
@@ -284,7 +286,9 @@ class PoseEstimator:
 
         ``device``: None runs on the CUDA card and raises without one;
         ``"cpu"`` runs on the CPU through the kernels' plain versions.
-        Weights are cast once to ``cfg.compute_dtype``.
+        Weights are cast once to ``cfg.compute_dtype``, then each net's
+        batch norms are folded (``models.folded.fold_for_serving``): the
+        nets are eval-only.
         """
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -326,8 +330,9 @@ class PoseEstimator:
             if "params" in weights:
                 weights = from_flax_variables(weights)
             model.load_state_dict(weights)
-            return model.to(device=self.device, dtype=self.dtype,
-                            memory_format=torch.channels_last).eval()
+            return folded.fold_for_serving(
+                model.to(device=self.device, dtype=self.dtype,
+                         memory_format=torch.channels_last).eval())
 
     def replicate_to(self, device):
         """A replica of this estimator whose weights and constants live on

@@ -13,11 +13,11 @@ copies of the static outputs, which the next replay cannot overwrite.
 The graph runs the same kernels as the eager call, so its outputs equal
 the eager ones bit for bit.
 
-``GraphedNet`` owns a net (a ``DenseFCNResNet152``) and a cache of its
-eval-mode forwards, one graph an input shape and dtype; train mode runs
-the net. ``PoseEstimator`` keeps two more caches beside its nets':
-``estimate``'s pose (``_pose_from_maps``) and ``refine``'s
-fixed-iteration ICP.
+``GraphedNet`` owns a serving net (a ``DenseFCNResNet152`` with batch
+norm folded, ``models.folded``, which has no train mode) and a cache of
+its forwards, one graph an input shape and dtype. ``PoseEstimator`` keeps
+two more caches beside its nets': ``estimate``'s pose
+(``_pose_from_maps``) and ``refine``'s fixed-iteration ICP.
 
 The caches of one estimator share a ``GraphPool``: one graph memory pool
 (they replay one after another, so one graph reuses the memory another
@@ -149,9 +149,9 @@ class GraphCache(dict):
 
 
 class GraphedNet(nn.Module):
-    """``net`` whose eval-mode forwards go through a ``GraphCache`` (see
-    the module docstring). ``net`` is its only child, so its parameters
-    are this module's under the prefix ``net.``."""
+    """``net`` whose forwards go through a ``GraphCache`` (see the module
+    docstring). ``net`` is its only child, so its buffers are this
+    module's under the prefix ``net.``."""
 
     def __init__(self, net, pool=None):
         super().__init__()
@@ -169,8 +169,6 @@ class GraphedNet(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x):
-        if self.net.training:
-            return self.net(x)
         return self._graphs((x.shape, x.dtype), self.net, (x,))
 
 

@@ -8,12 +8,14 @@ so the card's machine runs it without them:
         tests/test_torch_port_cuda.py -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from rcvpose_tpu_torch import config, train
-from rcvpose_tpu_torch.ops import heads, mmconv, vote_cuda, voting
+from rcvpose_tpu_torch.ops import epilogue, heads, mmconv, vote_cuda, voting
 
 pytestmark = pytest.mark.cuda
 
@@ -741,3 +743,169 @@ def test_carried_orbax_fixture_reads_through_the_built_decoder(cuda,
         outs = [m.to(cuda).eval()(x.to(cuda)) for m in (net, loaded)]
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The conv epilogue and the folded serving nets
+# ---------------------------------------------------------------------------
+
+# the serving shapes: the stem, stage 3 and stage 4 (with their residual),
+# conv7 at full resolution
+EPILOGUE_SHAPES = [(1, 64, 240, 320), (1, 1024, 30, 40), (1, 2048, 15, 20),
+                   (1, 32, 480, 640), (2, 40, 7, 9)]
+
+
+def _epilogue_operands(shape, dtype, residual, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+
+    def act():
+        return torch.randn(*shape, device=dev, generator=gen).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+
+    scale = torch.rand(c, device=dev, generator=gen) + 0.5
+    shift = torch.randn(c, device=dev, generator=gen)
+    return act(), scale, shift, act() if residual else None
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES, ids=str)
+def test_conv_epilogue_cuda_matches_plain(cuda, shape, dtype, residual, relu):
+    """The epilogue equals its plain version bit for bit, in place."""
+    x, scale, shift, res = _epilogue_operands(shape, dtype, residual, cuda)
+    want = epilogue.conv_epilogue_plain(x.clone(), scale, shift, res, relu)
+    before = epilogue.conv_epilogue_cuda.launches
+    got = epilogue.conv_epilogue(x, scale, shift, res, relu)
+    torch.cuda.synchronize()
+    assert got is x
+    assert epilogue.conv_epilogue_cuda.launches == before + 1
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
+
+
+def test_conv_epilogue_cuda_refuses_what_it_cannot_take(cuda):
+    x, scale, shift, res = _epilogue_operands((1, 16, 6, 8), torch.bfloat16,
+                                              True, cuda)
+    with pytest.raises(ValueError, match="channels-last"):
+        epilogue.conv_epilogue(x.contiguous(), scale, shift)
+    with pytest.raises(ValueError, match="channels-last"):
+        epilogue.conv_epilogue(x, scale, shift, res.contiguous())
+    x12, s12, b12, _ = _epilogue_operands((1, 12, 6, 8), torch.bfloat16,
+                                          False, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        epilogue.conv_epilogue(x12, s12, b12)
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
+    misaligned = flat[1:].view(1, 6, 8, 16).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        epilogue.conv_epilogue(misaligned, scale, shift)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        epilogue.conv_epilogue(x.half(), scale, shift)
+
+
+@pytest.fixture(scope="module")
+def full_width_fused():
+    """A full-width fused DenseFCNResNet152 (three heads) with seeded
+    weights and random statistics, in bf16 channels-last on the card, and
+    a 480x640 normalized image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from rcvpose_tpu_torch import labels
+    from rcvpose_tpu_torch.models import fcnresnet
+    from tests.torch_port_estimators import random_statistics
+
+    net = random_statistics(fcnresnet.init_params(
+        train.build_model(config.Config(kpt_heads=3)),
+        torch.Generator().manual_seed(3)), 4)
+    net = net.to("cuda", torch.bfloat16,
+                 memory_format=torch.channels_last).eval()
+    img = np.random.default_rng(5).integers(0, 256, (480, 640, 3),
+                                            dtype=np.uint8)
+    x = labels.normalize_image(torch.as_tensor(img, device="cuda"))[None]
+    return net, x
+
+
+def _maps_rel_err(prog, ref):
+    """perfbench's ``maps_rel_err`` of one map: the L2 norm of the
+    difference over the L2 norm of the reference about its mean."""
+    prog, ref = prog.double(), ref.double()
+    return float(torch.linalg.vector_norm(prog - ref)
+                 / torch.linalg.vector_norm(ref - ref.mean()))
+
+
+def test_folded_full_width_net_matches_its_unfolded_twin(cuda,
+                                                         full_width_fused):
+    """bf16 on the card, each of the six maps within the fused cell's sound
+    reading (0.1433) of the unfolded net's, and each no farther from the
+    f32 forward (TF32 off) than the unfolded net's plus that reading's
+    tenth; a replayed forward launches the epilogue 162 times."""
+    from rcvpose_tpu_torch import profiling
+    from rcvpose_tpu_torch.models import folded, graphs
+
+    net, x = full_width_fused
+    before = profiling.counters().get("bn.folded", 0)
+    f = folded.fold_for_serving(net)
+    assert profiling.counters()["bn.folded"] - before == 162
+    with torch.inference_mode():
+        got = f(x)
+        want = net(x)
+    ref_net = copy.deepcopy(net).float()
+    with torch.inference_mode():
+        ref = ref_net(x)
+    del ref_net
+    errs = []
+    for g, w, r in zip(got, want, ref):
+        for k in range(g.shape[-1]):
+            e_twin = _maps_rel_err(g[..., k], w[..., k])
+            e_fold, e_unfold = (_maps_rel_err(t[..., k], r[..., k])
+                                for t in (g, w))
+            errs.append((e_twin, e_fold, e_unfold))
+    print("maps_rel_err (folded vs unfolded, folded vs f32, unfolded vs "
+          "f32):", [tuple(round(e, 5) for e in row) for row in errs])
+    for e_twin, e_fold, e_unfold in errs:
+        assert e_twin < 0.1433
+        assert e_fold < e_unfold + 0.01433
+    graphed = graphs.GraphedNet(f)
+    with torch.inference_mode():
+        graphed(x)                        # eager and capture
+        for _ in range(2):
+            launches = epilogue.conv_epilogue_cuda.launches
+            graphed(x)
+            assert epilogue.conv_epilogue_cuda.launches - launches == 162
+
+
+def _eager_kernels(fn):
+    """The kernels one eager call of ``fn`` runs, by the profiler (memory
+    copies and sets aside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def test_folded_forward_runs_fewer_kernels(cuda, full_width_fused):
+    """One eager fused forward: batch norm's transform and its casts are
+    gone, the epilogue runs once a folded unit, and the forward runs at
+    most 520 kernels."""
+    from rcvpose_tpu_torch.models import folded
+
+    net, x = full_width_fused
+    f = folded.fold_for_serving(net)
+    with torch.inference_mode():
+        unfolded = _eager_kernels(lambda: net(x))
+        got = _eager_kernels(lambda: f(x))
+    print(f"kernels a forward: unfolded {len(unfolded)}, folded {len(got)}")
+    assert sum("epilogue_kernel" in n for n in got) == 162
+    assert not any("batch_norm" in n for n in got)
+    assert any("batch_norm" in n for n in unfolded)
+    assert len(got) <= 520 < len(unfolded)

@@ -70,15 +70,17 @@ def _frame_args(est, img, depth):
 # ---------------------------------------------------------------------------
 
 def _net_off_the_card(est, mode):
-    """A net's forward in ``mode`` equals the bare net's (but in train
-    mode, whose batch norm moves the statistics)."""
+    """A net's forward in ``mode`` equals the bare net's; train mode, which
+    the serving nets (batch norm folded) do not have, raises and leaves the
+    net in eval mode."""
     net = est.models[0]
     x = torch.rand(1, HW, HW, 3, generator=torch.Generator().manual_seed(0))
     if mode == "train":
-        net.train()
-        assert net.net.training
-        assert len(net(x)) == 2
+        with pytest.raises(RuntimeError, match="no train mode"):
+            net.train()
         net.eval()
+        assert not net.training and not net.net.training
+        assert len(net(x)) == 2
         return
     context = (torch.inference_mode() if mode == "inference"
                else torch.enable_grad())
@@ -86,7 +88,8 @@ def _net_off_the_card(est, mode):
         got = net(x)
         want = net.net(x)
     assert len(got) == 2 and got[0].shape == (1, HW, HW, 1)
-    assert got[0].requires_grad == (mode == "grad")
+    # the folded nets hold no trainable parameter
+    assert not got[0].requires_grad
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -388,6 +391,8 @@ def test_k2_launches_count_each_forward_that_runs(cuda):
 
 @pytest.mark.cuda
 def test_grad_enabled_or_train_mode_on_the_card_runs_eagerly(cuda):
+    """Grad enabled runs eagerly; train mode, which the folded serving nets
+    do not have, raises and captures nothing."""
     est = _card_estimator(3)
     net = est.models[0]
     x = labels.normalize_image(torch.as_tensor(
@@ -395,10 +400,11 @@ def test_grad_enabled_or_train_mode_on_the_card_runs_eagerly(cuda):
     before = _counts()
     with torch.enable_grad():
         got = net(x)
-    assert got[0].requires_grad
-    net.train()
-    net(x)
+    assert not got[0].requires_grad
+    with pytest.raises(RuntimeError, match="no train mode"):
+        net.train()
     net.eval()
+    assert not net.net.training
     after = _counts()
     assert after["graphs.eager"] - before["graphs.eager"] == 1
     assert after["graphs.captured"] == before["graphs.captured"]

@@ -2,7 +2,8 @@
 
 The same seeded weights (a Flax ``init`` plus non-trivial BN statistics
 made with numpy) go through ``checkpoint.from_flax_variables`` into the
-port; the same numpy image goes through both forwards in f32 on the CPU.
+port; the same numpy image goes through both forwards in f32 on the CPU,
+the port's also with its batch norm folded for serving.
 """
 
 import jax
@@ -14,6 +15,7 @@ import torch
 from rcvpose_tpu.models import fcnresnet as jax_fcn
 from rcvpose_tpu_torch.checkpoint import from_flax_variables
 from rcvpose_tpu_torch.models import fcnresnet as port_fcn
+from rcvpose_tpu_torch.models.folded import fold_for_serving
 from rcvpose_tpu_torch.ops import heads
 
 TINY = (1, 1, 1, 1)
@@ -54,6 +56,30 @@ def _with_bn_stats(variables, seed):
             "batch_stats": fill(variables["batch_stats"])}
 
 
+def _with_random_affine(variables, seed):
+    """Replace the one/zero BN scales and shifts and the zero conv biases of
+    a fresh init with random ones, so the serving fold (``models.folded``)
+    folds every term."""
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out[key] = fill(val)
+            elif key == "bias":
+                out[key] = rng.normal(0.0, 0.1, np.shape(val)).astype(
+                    np.float32)
+            elif key == "scale":
+                out[key] = rng.uniform(0.5, 1.5, np.shape(val)).astype(
+                    np.float32)
+            else:
+                out[key] = val
+        return out
+
+    return {**variables, "params": fill(variables["params"])}
+
+
 @pytest.fixture(scope="module")
 def pairs():
     """(jax model, flax variables, port model) for every case."""
@@ -61,16 +87,22 @@ def pairs():
     for i, (name, (jcls, pcls, kw)) in enumerate(sorted(CASES.items())):
         jm = jcls(blocks=TINY, width=WIDTH, **kw)
         v = jm.init(jax.random.PRNGKey(i), jnp.zeros((1, HW, HW, 3)), False)
-        v = _with_bn_stats(v, seed=100 + i)
+        v = _with_random_affine(_with_bn_stats(v, seed=100 + i), 200 + i)
         pm = pcls(blocks=TINY, width=WIDTH, **kw).eval()
         pm.load_state_dict(from_flax_variables(v))
         out[name] = (jm, v, pm)
     return out
 
 
+@pytest.mark.parametrize("folded", [False, True],
+                         ids=["unfolded", "folded"])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_forward_matches_flax(pairs, name):
+def test_forward_matches_flax(pairs, name, folded):
+    """The port's eval forward, and its serving form with batch norm folded
+    (``models.folded``), against the Flax forward on random statistics."""
     jm, v, pm = pairs[name]
+    if folded:
+        pm = fold_for_serving(pm)
     x = np.random.default_rng(7).normal(size=(1, HW, HW, 3)).astype(
         np.float32)
     jseg, jrad = jm.apply(v, jnp.asarray(x), False)

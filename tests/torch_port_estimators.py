@@ -12,6 +12,7 @@ import functools
 
 import numpy as np
 import torch
+from torch import nn
 
 from rcvpose_tpu_torch import infer, train
 from rcvpose_tpu_torch.config import Config
@@ -38,6 +39,24 @@ def _weights(kpt_heads):
     return tuple(fcnresnet.init_params(train.build_model(cfg),
                                        torch.Generator().manual_seed(i))
                  .state_dict() for i in range(1 if kpt_heads > 1 else 3))
+
+
+def random_statistics(net, seed):
+    """``net`` with random batch norm statistics, scales and shifts and
+    random conv biases (conv2's, conv6's, the decoder's, conv8's), drawn
+    in place from ``seed``; the fold's error shows on them where the
+    identity statistics of a fresh init hide it."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, nn.Conv2d) and m.bias is not None:
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    return net
 
 
 def estimator(kpt_heads, device="cpu", dtype="float32", cad_mm=None, **cfg):
