@@ -19,6 +19,12 @@ and ``refine``'s ICP each go through a ``models.graphs.GraphCache``, which
 on the card replays one CUDA graph of the call after the first and
 elsewhere runs it. ``_frame_pose`` and ``_frame_pose_fused`` stay eager,
 for every other caller.
+
+An estimator serves one class: its packing window and point budget are
+the config's, or at 0 derived from the class's CAD cloud
+(``suggest_pack_window``, ``suggest_point_budget``). The classes of one
+process may build their graphs in one ``models.graphs.GraphPool``
+(``graph_pool=``), as ``serve.PoseServer`` does for each device.
 """
 
 from __future__ import annotations
@@ -40,9 +46,12 @@ from rcvpose_tpu_torch.utils import resolve_device
 # estimator has no class geometry to derive one from.
 WIN_H = 256
 WIN_W = 320
+# Padding of the CAD's projected bounding sphere, for window and budget.
+PACK_MARGIN = 1.2
 
 
-def suggest_pack_window(cad_mm, k, z_min_mm=600.0, margin=1.2, multiple=32):
+def suggest_pack_window(cad_mm, k, z_min_mm=600.0, margin=PACK_MARGIN,
+                        multiple=32):
     """Packing window (win_h, win_w) sized to the class geometry: the CAD
     bounding-sphere diameter projected at the nearest expected depth
     ``z_min_mm`` through intrinsics ``k``, padded by ``margin`` and rounded
@@ -56,6 +65,25 @@ def suggest_pack_window(cad_mm, k, z_min_mm=600.0, margin=1.2, multiple=32):
         px = diameter / float(z_min_mm) * f * margin
         out.append(int(-(-max(px, 1.0) // multiple) * multiple))
     return tuple(out)
+
+
+def suggest_point_budget(cad_mm, k, win_hw, z_min_mm=600.0):
+    """Point budget sized to the class geometry: the area of the CAD
+    bounding sphere's disc projected at ``z_min_mm`` through intrinsics
+    ``k``, its radius padded by ``PACK_MARGIN`` (as
+    ``suggest_pack_window``'s diameter), rounded up to 1,024 and capped at
+    the area of the packing window ``win_hw``. An object no nearer than
+    ``z_min_mm`` covers no more pixels, so a frame of it never exceeds the
+    budget; a long, thin object pads its points a few times over."""
+    cad_mm = np.asarray(cad_mm)
+    center = cad_mm.mean(axis=0)
+    radius = float(np.linalg.norm(cad_mm - center, axis=1).max())
+    k = np.asarray(k)
+    r_rows, r_cols = (radius / float(z_min_mm) * float(f) * PACK_MARGIN
+                      for f in (k[1, 1], k[0, 0]))
+    area = math.pi * r_rows * r_cols
+    budget = int(-(-max(area, 1.0) // 1024) * 1024)
+    return min(budget, int(win_hw[0]) * int(win_hw[1]))
 
 
 def _window_origin(any_rows, any_cols, win_h, win_w):
@@ -277,7 +305,7 @@ class PoseEstimator:
     """Per-frame 6DoF pose estimation for one object class."""
 
     def __init__(self, cfg, variables_list, keypoints, max_radii_dm,
-                 cad_mm=None, k=None, device=None):
+                 cad_mm=None, k=None, device=None, graph_pool=None):
         """``variables_list``: 3 per-keypoint weight sets (reference mode,
         ``cfg.kpt_heads == 1``) or one multi-head set (``cfg.kpt_heads >
         1``). A weight set is either the JAX package's Flax tree
@@ -286,10 +314,23 @@ class PoseEstimator:
 
         ``device``: None runs on the CUDA card and raises without one;
         ``"cpu"`` runs on the CPU through the kernels' plain versions.
-        Weights are cast once to ``cfg.compute_dtype``, then each net's
+        Each net is built on ``device`` and takes copies of the weights,
+        cast to ``cfg.compute_dtype`` there; then its
         batch norms are folded (``models.folded.fold_for_serving``): the
         nets are eval-only.
+
+        ``graph_pool``: a ``models.graphs.GraphPool`` to build the nets',
+        pose's and ICP's graphs in, shared with the other estimators that
+        join it (the classes of one process, which run one at a time);
+        None makes one of this estimator's own.
+
+        The point budget is ``cfg.max_points``; 0 derives it from
+        ``cad_mm`` (``suggest_point_budget``), which it then requires.
         """
+        if cfg.max_points < 0 or (cfg.max_points == 0 and cad_mm is None):
+            raise ValueError(
+                f"max_points={cfg.max_points}: give a positive point budget, "
+                f"or 0 with cad_mm to derive it from the class geometry")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fused = cfg.kpt_heads > 1
@@ -299,11 +340,9 @@ class PoseEstimator:
             if isinstance(variables_list, (tuple, list)):
                 variables_list = variables_list[0]
             variables_list = [variables_list]
-        pool = graphs.GraphPool()
-        self.models = tuple(graphs.GraphedNet(self._load(i, v), pool)
+        self.models = tuple(graphs.GraphedNet(self._load(i, v))
                             for i, v in enumerate(variables_list))
-        self._icp = graphs.GraphCache(pool, "icp")
-        self._pose = graphs.GraphCache(pool, "pose")
+        self.join_graph_pool(graph_pool or graphs.GraphPool())
 
         def put(x):
             return torch.as_tensor(np.asarray(x, np.float32),
@@ -323,27 +362,52 @@ class PoseEstimator:
                 z_min_mm=float(cfg.pack_z_min_mm))
         else:
             self.win_hw = None
+        # Point budget: explicit config > derived from class geometry.
+        self.n_points = cfg.max_points or suggest_point_budget(
+            np.asarray(cad_mm), self.k.cpu().numpy(), self.win_hw,
+            z_min_mm=float(cfg.pack_z_min_mm))
 
     def _load(self, index, weights):
+        """Net ``index`` with ``weights``, built on the device (so its
+        throwaway init runs there, not on the host): its parameters become
+        the weights' copies on the device, in the compute dtype (4-D ones
+        channels-last), then its batch norms are folded."""
         with profiling.span("rcvpose.load", net=index):
-            model = train_mod.build_model(self.cfg)
             if "params" in weights:
                 weights = from_flax_variables(weights)
-            model.load_state_dict(weights)
-            return folded.fold_for_serving(
-                model.to(device=self.device, dtype=self.dtype,
-                         memory_format=torch.channels_last).eval())
+            with torch.device(self.device):
+                model = train_mod.build_model(self.cfg)
+            model.load_state_dict({name: self._copy(t)
+                                   for name, t in weights.items()},
+                                  assign=True)
+            return folded.fold_for_serving(model.eval())
+
+    def _copy(self, t):
+        t = torch.as_tensor(t)
+        return t.to(device=self.device,
+                    dtype=self.dtype if t.is_floating_point() else t.dtype,
+                    memory_format=(torch.channels_last if t.dim() == 4
+                                   else torch.preserve_format), copy=True)
+
+    def join_graph_pool(self, pool):
+        """Build this estimator's graphs (its nets', pose's and ICP's) in
+        ``pool`` from now on; the graphs it holds are dropped. Counts
+        ``graphs.pool.joined`` where another estimator uses ``pool``."""
+        pool.join()
+        for m in self.models:
+            m.use_pool(pool)
+        self._icp = graphs.GraphCache(pool, "icp")
+        self._pose = graphs.GraphCache(pool, "pose")
 
     def replicate_to(self, device):
         """A replica of this estimator whose weights and constants live on
-        ``device``; the config is shared. Its nets share a graph pool of
-        their own and start with no graph."""
+        ``device``; the config is shared. Its graphs start empty, in a pool
+        of their own."""
         new = copy.copy(self)
         new.device = resolve_device(device)
         new.models = tuple(m.to(new.device)
                            for m in copy.deepcopy(self.models))
-        new._icp = graphs.GraphCache(new.models[0].pool, "icp")
-        new._pose = graphs.GraphCache(new.models[0].pool, "pose")
+        new.join_graph_pool(graphs.GraphPool())
         for name in ("gt_kpts_mm", "max_radii", "k"):
             setattr(new, name, getattr(self, name).to(new.device))
         if self.cad_mm is not None:
@@ -362,7 +426,7 @@ class PoseEstimator:
         ``budget_exceeded`` doubles ``n_points`` until the union fits
         (capped at the frame size). The loop re-checks after every re-run."""
         full = False
-        n_pts = self.cfg.max_points
+        n_pts = self.n_points
         result = run(full, n_pts)
         while True:
             # the one host read per frame: packed [cropped, budget, union]
@@ -402,7 +466,8 @@ class PoseEstimator:
         """
         frame = profiling.count("frames")
         try:
-            with profiling.span("rcvpose.estimate", frame=frame):
+            with profiling.span("rcvpose.estimate", frame=frame,
+                                n_points=self.n_points):
                 return self._estimate(image_u8, depth_mm)
         finally:
             profiling.end_startup()
@@ -452,7 +517,8 @@ class PoseEstimator:
         """
         frame = profiling.count("frames", len(images_u8))
         try:
-            with profiling.span("rcvpose.estimate", frame=frame):
+            with profiling.span("rcvpose.estimate", frame=frame,
+                                n_points=self.n_points):
                 return self._estimate_batch(images_u8, depths_mm)
         finally:
             profiling.end_startup()
@@ -469,15 +535,14 @@ class PoseEstimator:
                 deps = self._put(deps_np, torch.float32)
             result = batch_fn(nets, imgs, deps, self.k,
                               self.max_radii, self.gt_kpts_mm,
-                              **self._frame_kwargs(False,
-                                                   self.cfg.max_points))
+                              **self._frame_kwargs(False, self.n_points))
 
         # one host read of the packed (B, 3) [cropped, budget, union] flags
         with profiling.span("rcvpose.escalate.read"):
             esc = np.asarray(result["escalate"].cpu()).reshape(-1, 3)
         pixels = int(np.prod(deps_np.shape[1:]))
         tripped = (esc[:, 0] > 0) | ((esc[:, 1] > 0)
-                                     & (self.cfg.max_points < pixels))
+                                     & (self.n_points < pixels))
         if not tripped.any():
             return result
 
@@ -486,7 +551,7 @@ class PoseEstimator:
             reason = "cropped" if esc[i, 0] > 0 else "budget"
             profiling.count(f"escalations.{reason}")
             with profiling.span("rcvpose.escalate.rerun", reason=reason,
-                                n_points=self.cfg.max_points):
+                                n_points=self.n_points):
                 singles[int(i)] = self._estimate(imgs_np[i], deps_np[i])
         n_max = max([result["scene_pts"].shape[2]]
                     + [s["scene_pts"].shape[1] for s in singles.values()])

@@ -23,7 +23,11 @@ The caches of one estimator share a ``GraphPool``: one graph memory pool
 (they replay one after another, so one graph reuses the memory another
 freed during capture), one lock over the enqueueing of each replay, and
 the stream of the last replay, which a replay on another stream waits
-for. A copy or a pickle of a cache or a ``GraphedNet`` carries no graph
+for. Several estimators may share one pool (``PoseEstimator(...,
+graph_pool=)``, ``serve.PoseServer``'s classes on a device): every replay
+is copied out before the pool's next one is enqueued, so graphs of
+different classes replayed in any order leave each other's outputs
+alone. A copy or a pickle of a cache or a ``GraphedNet`` carries no graph
 and gets a pool of its own; ``.to()`` and the other tensor moves of a
 ``GraphedNet`` drop its graphs, which hold the addresses of the tensors
 they were captured with. Weights updated in place (``load_state_dict``,
@@ -33,8 +37,10 @@ Counters (``profiling.counters()``), under each cache's prefix:
 ``<prefix>.captured`` (one a graph), ``<prefix>.replayed`` (one a
 replay), ``<prefix>.eager`` (calls on the card that ran eagerly, the
 first at each key included); the prefixes are ``graphs`` for the nets,
-``pose`` and ``icp``. The kernel wrappers' launch counts made during a
-capture, which runs nothing, are held back and added at each replay.
+``pose`` and ``icp``; ``graphs.pool.joined`` counts the estimators that
+joined a pool another estimator uses. The kernel wrappers' launch counts
+made during a capture, which runs nothing, are held back and added at
+each replay.
 """
 
 from __future__ import annotations
@@ -49,21 +55,39 @@ from rcvpose_tpu_torch import profiling
 
 
 class GraphPool:
-    """What the graphs of one estimator share (see the module docstring).
-    A copy or a pickle is a new, empty pool."""
+    """What the graphs of one or more estimators share (see the module
+    docstring). A copy or a pickle is a new, empty pool."""
 
     def __init__(self):
         self.lock = threading.Lock()
         self.stream = None      # the stream of the last replay
+        self.members = 0        # the estimators that joined
         self._handle = None
+        self._side = {}         # device -> the stream captures run on
 
     def __reduce__(self):
         return GraphPool, ()
+
+    def join(self):
+        """Admit one more estimator; counts ``graphs.pool.joined`` from the
+        second on."""
+        with self.lock:
+            if self.members:
+                profiling.count("graphs.pool.joined")
+            self.members += 1
 
     def handle(self):
         if self._handle is None:
             self._handle = torch.cuda.graph_pool_handle()
         return self._handle
+
+    def side_stream(self, device):
+        """The one stream that the pool's captures on ``device`` run on (a
+        stream holds its own cuBLAS workspace, so one a capture would
+        hold one workspace a graph)."""
+        if device not in self._side:
+            self._side[device] = torch.cuda.Stream(device)
+        return self._side[device]
 
 
 class _Graph(NamedTuple):
@@ -124,7 +148,7 @@ class GraphCache(dict):
 
     def _capture(self, key, fn, args, stream):
         device = args[0].device
-        side = torch.cuda.Stream(device)
+        side = self.pool.side_stream(device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
             out = fn(*args)
@@ -153,16 +177,19 @@ class GraphedNet(nn.Module):
     docstring). ``net`` is its only child, so its buffers are this
     module's under the prefix ``net.``."""
 
-    def __init__(self, net, pool=None):
+    def __init__(self, net):
         super().__init__()
         self.net = net
         self.training = net.training
-        self._graphs = GraphCache(GraphPool() if pool is None else pool,
-                                  "graphs")
+        self._graphs = GraphCache(GraphPool(), "graphs")
 
     @property
     def pool(self):
         return self._graphs.pool
+
+    def use_pool(self, pool):
+        """Capture in ``pool`` from now on; the graphs held are dropped."""
+        self._graphs = GraphCache(pool, "graphs")
 
     def _apply(self, fn, *args, **kwargs):
         self._graphs.clear()

@@ -169,12 +169,15 @@ def run_cold_class(args, device):
     def measure(under_lock):
         est = build_estimator(cfg, fused=False, seed=args.seed,
                               device=device)
+        building = threading.Event()
 
         def factory(cname):
             if under_lock:  # the card's execution lock held for the build
                 with srv._dev_locks[0]:
+                    building.set()
                     time.sleep(build_s)
                     return build_estimator(cfg, False, 99, device)
+            building.set()
             time.sleep(build_s)
             return build_estimator(cfg, False, 99, device)
 
@@ -204,7 +207,7 @@ def run_cold_class(args, device):
 
             thread = threading.Thread(target=cold, daemon=True)
             thread.start()
-            time.sleep(min(0.3, build_s / 4))   # the build is in flight
+            building.wait(timeout=600)   # the build is in flight
             during = []
             while not done.is_set() or not during:
                 t0 = time.perf_counter()

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from rcvpose_tpu_torch import parallel
+from rcvpose_tpu_torch.models import graphs
 from rcvpose_tpu_torch.utils import synchronize
 
 _MAX_HEADER = 1 << 16
@@ -126,6 +127,9 @@ class PoseServer:
     first time every built replica of a class is busy at once; the
     triggering request blocks on a busy slot as a one-slot server would.
     ``expand_to`` builds replicas synchronously (``--serve_devices``).
+    Every ``infer.PoseEstimator`` the server places on a device builds its
+    CUDA graphs in that device's one ``models.graphs.GraphPool``
+    (``join_graph_pool``), so the classes' graphs share memory.
 
     With both ``estimator`` and ``estimator_factory``, pass ``class_name``
     (the default estimator's class), or a request naming that class
@@ -137,13 +141,13 @@ class PoseServer:
                  estimator_factory=None, class_name=None, devices=None):
         if devices is not None:
             self._devices = [torch.device(d) for d in devices]
-            # the base estimator lives on the first slot's device
-            if estimator is not None and not _same(estimator.device,
-                                                   self._devices[0]):
-                estimator = estimator.replicate_to(self._devices[0])
         else:
             self._devices = parallel.local_devices(
                 None if estimator is None else estimator.device)
+        self._graph_pools = {}              # device -> its one GraphPool
+        if estimator is not None:
+            # the base estimator lives on the first slot's device
+            estimator = self._place(estimator, self._devices[0])
         self.estimator = estimator
         self._factory = estimator_factory
         self._pools = {}                    # class_name -> _Pool
@@ -209,14 +213,23 @@ class PoseServer:
             pool = self._pools.get(class_name)
             if pool is not None:  # built while we waited
                 return pool
-            est = self._factory(class_name)
-            if not _same(est.device, self._devices[0]):
-                est = est.replicate_to(self._devices[0])
+            est = self._place(self._factory(class_name), self._devices[0])
             if hw is not None:
                 self._warm_estimator(est, hw)
             pool = _Pool(est)
             self._pools[class_name] = pool
         return pool
+
+    def _place(self, est, device, copy=False):
+        """``est`` (a replica of it, where it lives elsewhere or ``copy``)
+        on ``device``, building its graphs in the device's one pool."""
+        if copy or not _same(est.device, device):
+            est = est.replicate_to(device)
+        join = getattr(est, "join_graph_pool", None)
+        if join is not None:
+            join(self._graph_pools.setdefault(
+                parallel.mesh.canonical_device(device), graphs.GraphPool()))
+        return est
 
     # -- replica dispatch ---------------------------------------------------
 
@@ -244,7 +257,7 @@ class PoseServer:
             if i in pool.replicas:
                 return
             base = pool.replicas[min(pool.replicas)]
-            est = base.replicate_to(self._devices[i])
+            est = self._place(base, self._devices[i], copy=True)
         if hw is not None:
             self._warm_estimator(est, hw)
         with self._reg_lock:

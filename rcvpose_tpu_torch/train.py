@@ -42,7 +42,9 @@ from rcvpose_tpu_torch.utils import resolve_device
 
 
 def build_model(cfg, blocks=None, width=None, conv_kernel=False):
-    """The ``cfg.model`` network with f32 parameters on the CPU.
+    """The ``cfg.model`` network with f32 parameters on the CPU, or on the
+    device of an enclosing ``torch.device`` context (``PoseEstimator``
+    builds its nets on its device and assigns their weights).
 
     ``blocks``/``width`` shrink depth/channels for tests only (width a
     power-of-two fraction >= 1/8 so the x4 bottleneck expansion scales

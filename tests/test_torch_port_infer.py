@@ -182,6 +182,7 @@ def test_escalate_grows_budget_and_window():
     doubles until the union fits, capped at the frame size."""
     est = port_infer.PoseEstimator.__new__(port_infer.PoseEstimator)
     est.cfg = Config(max_points=512)
+    est.n_points = 512
     calls = []
     script = iter([(1.0, 1.0, 1500.0), (0.0, 1.0, 99999.0),
                    (0.0, 1.0, 99999.0)])

@@ -25,20 +25,22 @@ def config(kpt_heads, dtype="float32", **cfg):
     # a threshold below every logit and radii above every map: each pixel
     # with depth is in every mask, whatever the random heads give; a short
     # top-k keeps the CPU's plain vote quick
-    return Config(compute_dtype=dtype, vote_grid_l=64, vote_topk=8,
-                  max_points=1024, image_height=HW, image_width=HW,
-                  model_blocks="1,1,1,1", model_width=0.125,
-                  kpt_heads=kpt_heads, sem_threshold=-1e30, **cfg)
+    return Config(**{**dict(
+        compute_dtype=dtype, vote_grid_l=64, vote_topk=8, max_points=1024,
+        image_height=HW, image_width=HW, model_blocks="1,1,1,1",
+        model_width=0.125, kpt_heads=kpt_heads, sem_threshold=-1e30), **cfg})
 
 
 @functools.cache
-def _weights(kpt_heads):
+def _weights(kpt_heads, seed=0):
     """The seeded weights of ``config(kpt_heads)``'s nets: three
-    per-keypoint nets, or one fused net."""
+    per-keypoint nets, or one fused net; ``seed`` draws another class's."""
     cfg = config(kpt_heads)
+    n = 1 if kpt_heads > 1 else 3
     return tuple(fcnresnet.init_params(train.build_model(cfg),
-                                       torch.Generator().manual_seed(i))
-                 .state_dict() for i in range(1 if kpt_heads > 1 else 3))
+                                       torch.Generator().manual_seed(
+                                           n * seed + i)).state_dict()
+                 for i in range(n))
 
 
 def random_statistics(net, seed):
@@ -59,13 +61,17 @@ def random_statistics(net, seed):
     return net
 
 
-def estimator(kpt_heads, device="cpu", dtype="float32", cad_mm=None, **cfg):
+def estimator(kpt_heads, device="cpu", dtype="float32", cad_mm=None,
+              seed=0, graph_pool=None, **cfg):
     """A ``PoseEstimator`` of ``config(kpt_heads, dtype, **cfg)`` on
-    ``device`` (None: the card), with the seeded weights."""
-    keypoints = np.random.default_rng(kpt_heads).normal(size=(9, 3)) * 0.05
+    ``device`` (None: the card), with the seeded weights and keypoints
+    (``seed`` > 0: another class's), its graphs in ``graph_pool``."""
+    keypoints = np.random.default_rng(
+        [kpt_heads, seed] if seed else kpt_heads).normal(size=(9, 3)) * 0.05
     return infer.PoseEstimator(config(kpt_heads, dtype, **cfg),
-                               list(_weights(kpt_heads)), keypoints,
-                               [1e6] * 3, cad_mm=cad_mm, device=device)
+                               list(_weights(kpt_heads, seed)), keypoints,
+                               [1e6] * 3, cad_mm=cad_mm, device=device,
+                               graph_pool=graph_pool)
 
 
 def frame(seed, hw=HW, patch=24):
