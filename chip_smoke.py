@@ -497,7 +497,56 @@ def phase_vote(voting, vote_cuda):
             f"points, {plan.blocks_per_sm:.2f} blocks an SM)")
     for name in ("coarse", "refine"):
         check_k1_splits(vote_cuda, name, stages[name], out)
+        check_k1_live(voting, vote_cuda, name, stages[name], out)
     return out
+
+
+def live_bounds(b, n):
+    """Per-row live-point bounds for a batch of ``b`` rows of ``n`` points:
+    each of none, 33, a middle value and all in every row position, so the
+    rows of a batch differ."""
+    values = (0, 33, n // 2 + 7, n)
+    return [tuple(values[(shift + i) % 4] for i in range(b))
+            for shift in range(4)]
+
+
+def check_k1_live(voting, vote_cuda, name, args, out):
+    """K1 at one serving stage with each row's points masked from its bound
+    on (``live_bounds``), given the bound as an ``n_live`` tensor and as
+    ``voting.vote_counts`` derives it from ``hi`` on the card (the main
+    path's call): each equal to the plain version, repeat bit for bit."""
+    vox, pts, lo, hi = args
+    b, n = hi.shape
+    idx = torch.arange(n, device=pts.device)[None]
+    derived = []
+    for bounds in live_bounds(b, n):
+        n_live = torch.tensor(bounds, dtype=torch.int32, device=pts.device)
+        keep = idx < n_live[:, None].long()
+        a = (vox, pts, torch.where(keep, lo, 0.0), torch.where(keep, hi, 0.0))
+        want = vote_cuda.vote_counts_plain(*a)
+        before = vote_cuda.vote_counts_cuda.live_bounded
+        runs = [vote_cuda.vote_counts_cuda(*a, n_live=n_live)
+                for _ in range(2)] + [voting.vote_counts(*a) for _ in range(2)]
+        torch.cuda.synchronize()
+        if vote_cuda.vote_counts_cuda.live_bounded != before + 4:
+            raise AssertionError(
+                f"K1 {name} bounds {bounds}: "
+                f"{vote_cuda.vote_counts_cuda.live_bounded - before} "
+                f"bounded launches of 4")
+        got = voting.live_extent(a[3] > 0).tolist()
+        if any(g > w for g, w in zip(got, bounds)):
+            raise AssertionError(f"K1 {name}: derived bound {got} past the "
+                                 f"mask's {bounds}")
+        derived.append(got)
+        err = max(float((r - want).abs().max()) for r in runs)
+        out[name] = (out[name][0], max(out[name][1], err))
+        if not all(torch.equal(r, want) for r in runs):
+            raise AssertionError(f"K1 {name} bounds {bounds}: differs from "
+                                 f"the plain version (max |diff| {err}) or "
+                                 f"between runs")
+    say(f"phase 2 K1 {name} live bounds {live_bounds(b, n)} (derived from "
+        f"hi: {derived}): given and derived, each equal to the plain "
+        f"version, repeat bit for bit")
 
 
 def split_cases(args):
@@ -812,19 +861,29 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
         if units != EPILOGUE_UNITS:
             raise AssertionError(f"a served net has {units} folded units, "
                                  f"not {EPILOGUE_UNITS}")
+    from rcvpose_tpu_torch import profiling
+
+    def poses():
+        # one pose a frame, one more for each escalation's re-run
+        return sum(v for k, v in profiling.counters().items()
+                   if k.startswith("escalations."))
+
     torch.cuda.synchronize()
-    vote_cuda.vote_counts_cuda.launches = 0
+    k1 = vote_cuda.vote_counts_cuda
+    k1.launches = 0
+    k1.live_bounded = 0
     heads.heads_channel_major_cuda.launches = 0
     epi.launches = 0
     for name, est in (("3-net", est3), ("fused", estf)):
-        k1_0 = vote_cuda.vote_counts_cuda.launches
+        k1_0 = k1.launches
         k2_0 = heads.heads_channel_major_cuda.launches
-        times, outs, epi_frames = [], [], []
+        times, outs, epi_frames, bounded = [], [], [], []
         for frame in frames:
             # K2 launches once a net forward, so the epilogue's launches a
             # frame are EPILOGUE_UNITS times K2's on the first (eager, then
             # captured) forward of each net and on every replay alike
             e0, f0 = epi.launches, heads.heads_channel_major_cuda.launches
+            b0, p0 = k1.live_bounded, poses()
             t, out = serve(est, [frame])
             times += t
             outs += out
@@ -836,7 +895,14 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
                     f"{name}: frame {len(epi_frames)} launched the epilogue "
                     f"{epi_frames[-1]} times over {forwards} net forwards, "
                     f"not {EPILOGUE_UNITS} a forward")
-        k1 = (vote_cuda.vote_counts_cuda.launches - k1_0) / len(frames)
+            # both hier stages of every pose vote with the live bound
+            bounded.append(k1.live_bounded - b0)
+            if bounded[-1] != 2 * (1 + poses() - p0):
+                raise AssertionError(
+                    f"{name}: frame {len(bounded)} gave K1 a live bound "
+                    f"{bounded[-1]} times over {1 + poses() - p0} poses, "
+                    f"not 2 a pose")
+        k1_frame = (k1.launches - k1_0) / len(frames)
         k2 = (heads.heads_channel_major_cuda.launches - k2_0) / len(frames)
         for out in outs:
             for key in ("rt", "centers", "escalate"):
@@ -845,8 +911,9 @@ def phase_serving(infer, train_mod, fcn, voting, config, vote_cuda, heads):
         say(f"phase 5 serving {name}: {len(frames)} frames, ms/frame after "
             f"warm-up {[round(x, 3) for x in times[2:]]} (median "
             f"{np.median(times[2:]):.3f}), first {times[0]:.1f} ms; "
-            f"launches/frame K1 {k1:.1f} K2 {k2:.1f}, epilogue by frame "
-            f"{epi_frames}; escalate "
+            f"launches/frame K1 {k1_frame:.1f} K2 {k2:.1f}, epilogue by "
+            f"frame {epi_frames}, K1 live-bounded by frame {bounded}; "
+            f"escalate "
             f"{outs[-1]['escalate'].cpu().tolist()}, counts "
             f"{outs[-1]['counts'].cpu().tolist()}")
     launches = {"vote_counts": vote_cuda.vote_counts_cuda.launches,

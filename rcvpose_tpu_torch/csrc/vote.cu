@@ -60,8 +60,18 @@
 // 256/512/1024/2048 (shared memory at most 20 * 2048 = 40 KB, under the 48
 // KB of static shared memory). Every tile and every split gives the same
 // counts, bit for bit: only the order in which the points are visited
-// changes, and the count is an integer. Nothing is culled: every pair of
-// the problem is evaluated, masked points included.
+// changes, and the count is an integer.
+// - Walk only the live points: a caller may pass n_live, one int per batch
+//   row on the device, with the promise that no point of row b at index
+//   n_live[b] or later can vote (hi <= 0, as a masked point's lo == hi ==
+//   0). The grid is planned at the full N on the host, so it stays fixed
+//   under a CUDA graph; each block reads its row's bound and takes an even
+//   share of [0, live): ceil(live / splits) points rounded up to 32, so
+//   the splits past the live points are empty and add nothing. Without
+//   n_live (a null pointer) the split is the planner's over all N points.
+//   Either way every pair below the bound is evaluated, masked points
+//   included: a row costs pairs in proportion to its last live point + 1,
+//   not to N.
 //
 // ---------------------------------------------------------------------------
 // K5. Replaces rcvpose_tpu/ops/vote_pallas.py vote_counts_pallas_mxu
@@ -149,6 +159,7 @@ struct VoteArgs {
   int n_vox;
   int n_pts;
   int split;  // K1: points a block (the last block of a row takes the rest)
+  const int* n_live;  // K1: a bound per batch row on the live points, or null
   cudaStream_t stream;
 };
 
@@ -175,15 +186,25 @@ vote_counts_kernel(const float* __restrict__ vox, long long vox_bstride,
                    const float* __restrict__ lo,
                    const float* __restrict__ hi,
                    float* __restrict__ out, int n_vox, int n_pts, int split,
-                   int accumulate) {
+                   const int* __restrict__ n_live, int accumulate) {
   static_assert(kChunk % 4 == 0, "points are walked four at a time");
   __shared__ float4 spt[kChunk];      // x, y, z, lo
   __shared__ float4 shi[kChunk / 4];  // hi of points 4g .. 4g + 3
 
   const long long b = blockIdx.z;
   const int v0 = blockIdx.x * (kThreads * kVpt) + threadIdx.x;
-  const int p_begin = blockIdx.y * split;
-  const int p_end = min(n_pts, p_begin + split);
+  int live = n_pts;
+  if (n_live != nullptr) {
+    // an even share of the row's live points, in whole warps of points
+    const int splits = static_cast<int>(gridDim.y);
+    live = max(0, min(n_live[b], n_pts));
+    split = max(1, ((live + splits - 1) / splits + 31) & ~31);
+  }
+  const int p_begin = min(live, static_cast<int>(blockIdx.y) * split);
+  const int p_end = min(live, p_begin + split);
+  // a block of a split problem with no points adds nothing (uniform over
+  // the block, before any barrier)
+  if (accumulate && p_begin >= p_end) return;
   float vx[kVpt], vy[kVpt], vz[kVpt];
   int count[kVpt];
 #pragma unroll
@@ -263,7 +284,7 @@ int launch_k1(const VoteArgs& a) {
           static_cast<const float*>(a.vox), a.vox_bstride,
           static_cast<const float*>(a.pts), static_cast<const float*>(a.lo),
           static_cast<const float*>(a.hi), a.out, a.n_vox, a.n_pts, a.split,
-          splits > 1);
+          a.n_live, splits > 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,16 +539,20 @@ vote_counts_bf16_kernel(const float* __restrict__ vox, long long vox_bstride,
 // threads / vpt / chunk select K1's tile (128/256/512, 1/2/4,
 // 256/512/1024/2048); split (>= 1) is the points a block: with N > split
 // the ceil(N / split) blocks of a voxel tile add into out, which must then
-// hold zeros. Returns cudaGetLastError() after the launch, or
+// hold zeros. n_live: null, or (batch,) int32 on the device, no point of
+// row b at index n_live[b] or later able to vote; the blocks of a voxel tile
+// then share [0, min(n_live[b], N)) evenly (the grid stays as split
+// says). Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a tile that is not instantiated or a split < 1.
 extern "C" int vote_counts_f32(const void* vox, const void* pts,
                                const void* lo, const void* hi, void* out,
                                int vox_shared, int batch, int n_vox,
                                int n_pts, int threads, int vpt, int chunk,
-                               int split, void* stream) {
+                               int split, const void* n_live, void* stream) {
   if (split < 1) return static_cast<int>(cudaErrorInvalidValue);
   const VoteArgs a{vox, vox_shared ? 0 : 3LL * n_vox, pts, lo, hi,
                    static_cast<float*>(out), batch, n_vox, n_pts, split,
+                   static_cast<const int*>(n_live),
                    static_cast<cudaStream_t>(stream)};
   switch (threads) {
     case 128: return launch_k1_vpt<128>(a, vpt, chunk);

@@ -61,7 +61,7 @@ K6_MAX_SPLIT = 2 * 65535
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_K1_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [_PTR]
+_K1_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [_PTR] * 2
 _K5_ARGTYPES = [_PTR] * 7 + [_INT] * 4 + [_PTR]
 _K6_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [_PTR]
 
@@ -248,17 +248,33 @@ def _split_output(what, b, v, n, split, tile, kernel, device):
     return split, alloc((b, v), dtype=torch.float32, device=device)
 
 
-def vote_counts_cuda(voxels, points, lo, hi, tile=None, split=None):
+def vote_counts_cuda(voxels, points, lo, hi, tile=None, split=None,
+                     n_live=None):
     """Launch K1 on CUDA tensors; returns (B, V) f32 counts.
 
     ``tile``: ``(threads, voxels per thread, points per chunk)`` from
     ``TILES``; None is ``DEFAULT_TILE``, the serving path's. ``split``:
     points a block, None for ``plan_votes``'s choice on this card. Every
-    tile and split gives the same counts. ``vote_counts_cuda.launches``
+    tile and split gives the same counts. ``n_live``: None, or a (B,)
+    int32 tensor on the points' device with the promise that no entry of
+    row b at index ``n_live[b]`` or later votes (``hi <= 0``, as a masked
+    one's; ``voting.vote_counts`` derives it so); the kernel reads it
+    on the card and spreads each row's live points over the blocks that
+    the plan at the full N gives (so a CUDA graph replays it with new
+    bounds), and the counts are the same. ``vote_counts_cuda.launches``
     counts every launch, ``vote_counts_cuda.tiled_launches`` those with an
-    explicit ``tile``.
+    explicit ``tile``, ``vote_counts_cuda.live_bounded`` those given an
+    ``n_live``.
     """
     _check_args(voxels, points, lo, hi)
+    b = points.shape[0]
+    if n_live is not None and (tuple(n_live.shape) != (b,)
+                               or n_live.dtype != torch.int32
+                               or n_live.device != points.device
+                               or not n_live.is_contiguous()):
+        raise ValueError(f"n_live must be a contiguous ({b},) int32 tensor "
+                         f"on {points.device}, got {tuple(n_live.shape)} "
+                         f"{n_live.dtype} on {n_live.device}")
     explicit = tile is not None
     tile = DEFAULT_TILE if tile is None else tuple(tile)
     if tile not in TILES:
@@ -273,18 +289,21 @@ def vote_counts_cuda(voxels, points, lo, hi, tile=None, split=None):
     v = voxels.shape[-2]
     split, out = _split_output("vote_counts_cuda", b, v, n, split, tile,
                                "K1", points.device)
+    live_ptr = None if n_live is None else n_live.data_ptr()
     _launch("vote_counts_cuda", "vote_counts_f32", _K1_ARGTYPES,
             (voxels.data_ptr(), points.data_ptr(), lo.data_ptr(),
              hi.data_ptr(), out.data_ptr(), int(voxels.dim() == 2), b, v, n,
-             *tile, int(split)), out, b, v, n)
+             *tile, int(split), live_ptr), out, b, v, n)
     if b and v:
         _build.count(vote_counts_cuda)
         _build.count(vote_counts_cuda, "tiled_launches", explicit)
+        _build.count(vote_counts_cuda, "live_bounded", n_live is not None)
     return out
 
 
 vote_counts_cuda.launches = 0
 vote_counts_cuda.tiled_launches = 0
+vote_counts_cuda.live_bounded = 0
 
 # Pairs evaluated per step of the plain versions: bounds their temporaries
 # (a few (B, V, chunk) tensors of at most 16 MB each).

@@ -113,19 +113,34 @@ def vote_counts(voxels, points, lo, hi, mxu=False):
     """Dispatch: K1 for CUDA tensors, its plain version for CPU tensors.
 
     voxels (V, 3) shared or (B, V, 3); points (B, N, 3); lo, hi (B, N).
-    Returns (B, V) f32. ``mxu=True`` takes the matmul form of d2 (K5,
-    ``|v|^2 - 2v.p + |p|^2``), whose cancellation moves counts at band
-    edges; as in the JAX package nothing passes it by default.
+    Returns (B, V) f32. K1 walks each row's points only up to its last
+    one with ``hi > 0`` (``live_extent``, read on the card): a point votes
+    only where ``lo < d2 < hi``, so none past it can, and a packed mask
+    leaves the padding unwalked. ``mxu=True`` takes the matmul form of d2
+    (K5, ``|v|^2 - 2v.p + |p|^2``), whose cancellation moves counts at
+    band edges; as in the JAX package nothing passes it by default.
     """
     if points.device.type == "cuda":
         if mxu:
             return vote_cuda.vote_counts_mxu_cuda(voxels, points, lo, hi)
-        return vote_cuda.vote_counts_cuda(voxels, points, lo, hi)
+        return vote_cuda.vote_counts_cuda(voxels, points, lo, hi,
+                                          n_live=live_extent(hi > 0))
     if points.device.type == "cpu":
         if mxu:
             return vote_cuda.vote_counts_mxu_plain(voxels, points, lo, hi)
         return vote_cuda.vote_counts_plain(voxels, points, lo, hi)
     raise ValueError(f"unsupported device {points.device}")
+
+
+def live_extent(point_mask):
+    """(B,) int32: per row of a (B, N) mask, its last True index + 1 (0
+    for an empty row), so every entry at or past it is False. One
+    reduction on the mask's device, no host read."""
+    b, n = point_mask.shape
+    if n == 0:
+        return torch.zeros(b, dtype=torch.int32, device=point_mask.device)
+    ends = torch.arange(1, n + 1, dtype=torch.int32, device=point_mask.device)
+    return torch.where(point_mask, ends, 0).amax(dim=1)
 
 
 def enumerate_grid(grid_l, device=None):

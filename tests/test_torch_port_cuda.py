@@ -143,6 +143,79 @@ def test_vote_counts_cuda_refuses_2_24_points(cuda):
         vote_cuda.vote_counts_cuda(*args)
 
 
+# K1's live-point bounds (n_live) on a (3, 2501, 3001) problem whose points
+# at or past each row's bound are masked: none, one, a few, a warp of
+# points either side, all but one, all, and rows of one batch that differ
+LIVE_N = 2501
+LIVE_BOUNDS = [(0, 0, 0), (1, 1, 1), (3, 3, 3), (31, 31, 31), (33, 33, 33),
+               (LIVE_N - 1,) * 3, (LIVE_N,) * 3, (0, 33, LIVE_N),
+               (31, LIVE_N - 1, 1)]
+
+
+def _live_problem(cuda, bounds, seed=7, v=3001):
+    """``_band_problem``'s tensors on the card, each row masked from its
+    bound on (so the bound keeps its promise), and the mask."""
+    pts, radii, mask, vox = _band_problem(seed, len(bounds), LIVE_N, v)
+    mask &= torch.arange(LIVE_N)[None] < torch.tensor(bounds)[:, None]
+    lo, hi = voting.exact_band(radii, mask)
+    return [t.to(cuda) for t in (vox, pts, lo, hi, mask)]
+
+
+@pytest.mark.parametrize("tile", vote_cuda.TILES, ids=str)
+def test_vote_counts_cuda_live_bound_is_bit_equal(cuda, tile):
+    """K1 given each row's live-point bound equals K1 without it bit for
+    bit, at every tile, at the planner's split and at forced splits of 32,
+    1001 and N points, per-batch and shared voxels, and equals the plain
+    version; ``live_bounded`` counts the launches given a bound."""
+    for bounds in LIVE_BOUNDS:
+        vox, pts, lo, hi, mask = _live_problem(cuda, bounds)
+        n_live = torch.tensor(bounds, dtype=torch.int32, device=cuda)
+        assert bool((voting.live_extent(mask) <= n_live).all())
+        want = vote_cuda.vote_counts_plain(vox, pts, lo, hi)
+        for voxels in (vox, vox[0]):
+            for split in (None, 32, 1001, LIVE_N):
+                full = vote_cuda.vote_counts_cuda(voxels, pts, lo, hi,
+                                                  tile=tile, split=split)
+                before = vote_cuda.vote_counts_cuda.live_bounded
+                got = vote_cuda.vote_counts_cuda(voxels, pts, lo, hi,
+                                                 tile=tile, split=split,
+                                                 n_live=n_live)
+                torch.cuda.synchronize()
+                assert vote_cuda.vote_counts_cuda.live_bounded == before + 1
+                case = (bounds, voxels.dim(), split)
+                assert torch.equal(got, full), case
+                if voxels.dim() == 3:
+                    assert torch.equal(got, want), case
+
+
+def test_vote_counts_cuda_graph_replays_each_calls_bound(cuda):
+    """One CUDA graph of ``voting.vote_counts`` (K1 given the bound it
+    derives on the card from ``hi``) captured at one call's bounds,
+    replayed on calls with other bounds, smaller and larger, equals the
+    eager unbounded counts each time."""
+    from rcvpose_tpu_torch import profiling
+    from rcvpose_tpu_torch.models import graphs
+
+    cache = graphs.GraphCache(graphs.GraphPool(), "k1_live")
+
+    before = profiling.counters()
+    live = vote_cuda.vote_counts_cuda.live_bounded
+    cases = [(1200, 1200, 1200), (0, 33, LIVE_N), (LIVE_N,) * 3,
+             (31, 2000, 7)]
+    with torch.inference_mode():
+        for seed, bounds in enumerate(cases, 20):
+            args = _live_problem(cuda, bounds, seed)
+            got = cache("k1", voting.vote_counts, args[:4])
+            want = vote_cuda.vote_counts_cuda(*args[:4])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), bounds
+    after = profiling.counters()
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "k1_live.captured", "k1_live.replayed")} == {
+            "k1_live.captured": 1, "k1_live.replayed": len(cases) - 1}
+    assert vote_cuda.vote_counts_cuda.live_bounded == live + len(cases)
+
+
 @pytest.mark.parametrize("case", VARIANT_CASES, ids=str)
 def test_vote_counts_mxu_cuda_matches_plain(cuda, case):
     """K5 equals its own plain version exactly (never K1: the matmul

@@ -228,6 +228,38 @@ def test_a_new_key_captures_and_equals_eager(cuda, full_frame, n_points):
 
 
 @pytest.mark.cuda
+def test_pose_at_a_derived_budget_equals_the_unbounded_vote(cuda,
+                                                            monkeypatch):
+    """A point budget derived from the CAD (``max_points=0``) well above
+    the frames' unions, as in the YCB deployment: each replayed pose, whose
+    K1 walks each keypoint's live points only (2 bounded launches a frame),
+    equals bit for bit the eager pose whose K1 walks the whole budget."""
+    dirs = np.random.default_rng(15).normal(size=(500, 3))
+    cad = dirs / np.linalg.norm(dirs, axis=1, keepdims=True) * 25.0
+    est = _card_estimator(1, cad_mm=cad, max_points=0, pack_win_h=64,
+                          pack_win_w=64)
+    assert est.n_points == 3072
+    maps, handles = _hooked(est)
+    frames = [frame(seed, patch=patch)
+              for seed, patch in ((20, 24), (21, 40), (22, 12), (23, 31))]
+    live = vote_cuda.vote_counts_cuda.live_bounded
+    got = []
+    for img, depth in frames:
+        got.append((est.estimate(img, depth),
+                    tuple(t for out in maps[-3:] for t in out)))
+    for h in handles:
+        h.remove()
+    assert vote_cuda.vote_counts_cuda.live_bounded == live + 2 * len(frames)
+    assert len(est._pose) == 1
+    monkeypatch.setattr(voting, "vote_counts",
+                        lambda *args: vote_cuda.vote_counts_cuda(*args))
+    for (result, outs), (_, depth) in zip(got, frames):
+        assert int(result["union_count"]) < est.n_points
+        _assert_same(result, _eager_pose(est, outs, depth,
+                                         n_points=est.n_points))
+
+
+@pytest.mark.cuda
 def test_a_replays_outputs_survive_the_next_replay(cuda):
     est = _card_estimator(1)
     est.estimate(*frame(7))                # eager and capture

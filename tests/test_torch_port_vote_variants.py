@@ -469,6 +469,19 @@ def test_k1_wrapper_refuses_a_split_below_one_point():
         vote_cuda.vote_counts_cuda(vox, pts, lo, hi, split=0)
 
 
+@pytest.mark.parametrize("bad", ["int64", "shape", "strided", "device"])
+def test_k1_wrapper_refuses_a_live_bound_it_cannot_read(bad):
+    """``n_live`` is a contiguous (B,) int32 tensor on the points' device,
+    or the wrapper raises before any launch."""
+    vox, pts, lo, hi = _integer_problem(5, 2, 17, 9, side=32)
+    n_live = {"int64": torch.tensor([3, 9]),
+              "shape": torch.tensor([3, 9, 9], dtype=torch.int32),
+              "strided": torch.tensor([3, 0, 9, 0], dtype=torch.int32)[::2],
+              "device": torch.zeros(2, dtype=torch.int32, device="meta")}[bad]
+    with pytest.raises(ValueError, match="n_live"):
+        vote_cuda.vote_counts_cuda(vox, pts, lo, hi, n_live=n_live)
+
+
 # ---------------------------------------------------------------------------
 # K6's point-split planner
 # ---------------------------------------------------------------------------

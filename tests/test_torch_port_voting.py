@@ -274,3 +274,90 @@ def test_horn_fit_matches_jax(weighted):
     np.testing.assert_allclose(got[:3, :3], want[:3, :3], atol=1e-5)
     np.testing.assert_allclose(got[:3, 3], want[:3, 3], atol=1e-2)
     np.testing.assert_array_equal(got[3], [0, 0, 0, 1])
+
+
+def _scattered(row_ends, n=64, seed=12):
+    """A (B, n) mask per row: random entries below the row's end, the
+    entry just before it valid, nothing at or past it."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((len(row_ends), n), bool)
+    for i, end in enumerate(row_ends):
+        mask[i, :end] = rng.uniform(size=end) < 0.5
+        if end:
+            mask[i, end - 1] = True
+    return mask
+
+
+# (mask, each row's last True index + 1)
+LIVE_CASES = {
+    "packed": (np.arange(64)[None] < np.array([[17], [64], [1], [0]]),
+               [17, 64, 1, 0]),
+    "scattered": (_scattered([64, 41, 2]), [64, 41, 2]),
+    "empty": (np.zeros((2, 64), bool), [0, 0]),
+    "full": (np.ones((2, 64), bool), [64, 64]),
+    "no points": (np.zeros((2, 0), bool), [0, 0]),
+}
+
+
+@pytest.mark.parametrize("case", LIVE_CASES)
+def test_live_extent_is_the_last_valid_index_plus_one(case):
+    mask, want = LIVE_CASES[case]
+    got = port_voting.live_extent(_t(mask))
+    assert got.dtype == torch.int32 and got.shape == (len(want),)
+    assert got.tolist() == want
+
+
+def _bounded_plain(plain, calls):
+    """``plain`` (K1's plain version) walking each row's points only below
+    the bound that ``voting.vote_counts`` gives K1 (``live_extent(hi >
+    0)``), as K1 does with it; records each bound and whether the counts
+    equal those over every point."""
+    def counts(voxels, points, lo, hi):
+        full = plain(voxels, points, lo, hi)
+        n_live = port_voting.live_extent(hi > 0)
+        vox = voxels.expand(points.shape[0], -1, -1)
+        got = torch.cat([plain(vox[i:i + 1], points[i:i + 1, :end],
+                               lo[i:i + 1, :end], hi[i:i + 1, :end])
+                         for i, end in enumerate(n_live.tolist())])
+        calls.append((n_live.tolist(), torch.equal(got, full)))
+        return got
+    return counts
+
+
+@pytest.mark.parametrize("layout", ["packed", "scattered"])
+@pytest.mark.parametrize("mode", ["hier", "exact"])
+def test_accumulate_3d_with_the_live_bound_equals_without(mode, layout,
+                                                          monkeypatch):
+    """``accumulate_3d`` through the plain route gives the same result
+    bit for bit whether its votes walk every point or only each row's
+    points up to its last one that can vote, the bound K1 is given (the
+    coarse stage's over its strided points): packed clouds of 150 points
+    in 256 slots, and the same points scattered with rows of different
+    extents."""
+    xyz, rad, mask = _clouds(seed=13, n=150, n_pad=256)
+    if layout == "scattered":
+        rng = np.random.default_rng(14)
+        for i, end in enumerate((256, 201, 163)):
+            slots = np.sort(rng.choice(end - 1, 149, replace=False))
+            slots = np.append(slots, end - 1)
+            for arr in (xyz, rad, mask):
+                row = arr[i, :150].copy()
+                arr[i] = 0
+                arr[i, slots] = row
+    want = port_voting.accumulate_3d(_t(xyz), _t(rad), _t(mask), grid_l=64,
+                                     mode=mode)
+    calls = []
+    monkeypatch.setattr(vote_cuda, "vote_counts_plain",
+                        _bounded_plain(vote_cuda.vote_counts_plain, calls))
+    got = port_voting.accumulate_3d(_t(xyz), _t(rad), _t(mask), grid_l=64,
+                                    mode=mode)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+    def ends(m):
+        return [int(np.flatnonzero(row)[-1]) + 1 for row in m]
+    stride = port_voting._CPT_STRIDE
+    want_bounds = ([ends(mask[:, ::stride]), ends(mask)] if mode == "hier"
+                   else [ends(mask)])
+    assert calls == [(bounds, True) for bounds in want_bounds]
+    assert min(ends(mask)) < 256        # the bound cut points away
